@@ -2,14 +2,16 @@
 
 A port of `garment4d_tpu` (JAX, Flax and Pallas), which stays in the repo as
 the reference. The layout mirrors it module for module:
-  ops/     - point-cloud primitives: plain torch versions, and CUDA kernels
-             (`ops/csrc/`, built with nvcc for sm_90a at first use)
+  ops/     - point-cloud, graph and mesh primitives: plain torch versions,
+             and CUDA kernels (`ops/csrc/`, built with nvcc for sm_90a at
+             first use)
   nn/      - BatchNorm'd dense blocks, PointNet++ SA/FP modules
   smpl/    - SMPL body model and linear blend skinning
-  models/  - garment assets, segmentation backbone, canonical (PCA) model
+  models/  - garment assets, segmentation backbone, canonical (PCA) model,
+             interpolated LBS, posed (PCA + LBS + GCN) model
   data/    - synthetic batches
-  train/   - Flax-checkpoint conversion
-  api.py   - GarmentReconstructor
+  train/   - Flax-checkpoint conversion, batch -> model inputs
+  api.py   - GarmentReconstructor (on the card unless asked for the CPU)
 
 This package imports torch and numpy only, never JAX.
 

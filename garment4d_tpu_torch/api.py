@@ -1,15 +1,16 @@
-"""High-level inference API for the canonical stage.
+"""High-level inference API.
 
-Counterpart of `GarmentReconstructor` in `garment4d_tpu/api.py`, for the
-canonical model (the posed model waits for the posed slice):
+Counterpart of `GarmentReconstructor` in `garment4d_tpu/api.py`, built on
+the posed-stage model (the flagship):
 
-    recon = GarmentReconstructor.from_npz(assets, "ckpt_synth/posed_synth.npz",
-                                          device="cuda")
+    recon = GarmentReconstructor.from_npz(assets, body_model,
+                                          "ckpt_synth/posed_synth.npz")
+    posed = recon.posed(pcd, body)   # (B, T, Vg, 3) per-frame garment
     garment = recon.canonical(pcd)   # (B, Vg, 3) T-pose garment
     labels = recon.segment(pcd)      # (B, T, N) 0-based classes
 
-On CUDA tensors the forward runs the hand-written kernels, on CPU tensors
-their plain torch versions.
+It runs on the card unless `device="cpu"` asks for the plain torch versions
+on the CPU; without a card, the default raises.
 """
 
 from __future__ import annotations
@@ -19,39 +20,65 @@ from typing import Optional
 
 import torch
 
-from garment4d_tpu_torch.models import CanonicalGarmentModel, CanonicalOutput, GarmentAssets
-from garment4d_tpu_torch.train.convert import load_npz_subtree
+from garment4d_tpu_torch import _device
+from garment4d_tpu_torch.models import (
+    BodyInputs,
+    CanonicalGarmentModel,
+    CanonicalOutput,
+    GarmentAssets,
+    PosedGarmentModel,
+    PosedOutput,
+)
+from garment4d_tpu_torch.smpl import SmplModel
+from garment4d_tpu_torch.train.convert import load_npz
 
 
 @dataclasses.dataclass
 class GarmentReconstructor:
     assets: GarmentAssets
-    canonical_model: CanonicalGarmentModel
+    model: PosedGarmentModel
     device: torch.device
 
     @classmethod
-    def from_assets(cls, assets: GarmentAssets, device="cpu",
-                    state_dict: Optional[dict] = None) -> "GarmentReconstructor":
-        """An eval-mode canonical model on `device`, with `state_dict`
-        loaded strictly when given (random init otherwise)."""
-        model = CanonicalGarmentModel(assets)
+    def from_assets(cls, assets: GarmentAssets, body_model: SmplModel,
+                    device=_device.DEFAULT, state_dict: Optional[dict] = None,
+                    lbs_k: int = 256) -> "GarmentReconstructor":
+        """An eval-mode posed model on `device`, with `state_dict` loaded
+        strictly when given (random init otherwise)."""
+        device = _device.resolve(device)
+        model = PosedGarmentModel(assets, body_model.faces, lbs_k=lbs_k)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        device = torch.device(device)
-        return cls(assets=assets, canonical_model=model.to(device).eval(),
-                   device=device)
+        return cls(assets=assets, model=model.to(device).eval(), device=device)
 
     @classmethod
-    def from_npz(cls, assets: GarmentAssets, path: str,
-                 device="cpu") -> "GarmentReconstructor":
-        """Load the canonical weights from a Flax variables npz (such as
-        `ckpt_synth/posed_synth.npz`, whose `canonical` subtree they are)."""
-        return cls.from_assets(assets, device, load_npz_subtree(path, "canonical"))
+    def from_npz(cls, assets: GarmentAssets, body_model: SmplModel, path: str,
+                 device=_device.DEFAULT, **kwargs) -> "GarmentReconstructor":
+        """Load the whole variable tree of a Flax variables npz (such as
+        `ckpt_synth/posed_synth.npz`)."""
+        return cls.from_assets(assets, body_model, device, load_npz(path), **kwargs)
+
+    @property
+    def canonical_model(self) -> CanonicalGarmentModel:
+        return self.model.canonical
+
+    def _body(self, body: BodyInputs) -> BodyInputs:
+        return BodyInputs(**{f.name: getattr(body, f.name).to(self.device)
+                             for f in dataclasses.fields(body)})
 
     @torch.inference_mode()
     def run(self, pcd: torch.Tensor) -> CanonicalOutput:
-        """pcd (B, T, N, 3) -> the full CanonicalOutput."""
+        """pcd (B, T, N, 3) -> the canonical stage's full output."""
         return self.canonical_model(pcd.to(self.device, torch.float32))
+
+    @torch.inference_mode()
+    def posed(self, pcd: torch.Tensor, body: BodyInputs, return_all: bool = False):
+        """pcd (B, T, N, 3) + body inputs -> the posed garment (B, T, Vg, 3)
+        of the last refinement iteration, or the full PosedOutput with
+        `return_all`."""
+        out: PosedOutput = self.model(pcd.to(self.device, torch.float32),
+                                      self._body(body))
+        return out if return_all else out.iter_garment_v[-1]
 
     def canonical(self, pcd: torch.Tensor) -> torch.Tensor:
         """pcd (B, T, N, 3) -> canonical T-pose garment (B, Vg, 3)."""

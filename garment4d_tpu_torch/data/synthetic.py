@@ -14,13 +14,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from garment4d_tpu_torch import _device
 from garment4d_tpu_torch.models.assets import GarmentAssets
 from garment4d_tpu_torch.smpl import SmplModel
 
 
-def template_pose(batch: int, device="cpu") -> torch.Tensor:
+def template_pose(batch: int, device=_device.DEFAULT) -> torch.Tensor:
     """The dataset's fixed template pose: root x-rot +pi/2, hips z +/-0.15."""
-    pose = torch.zeros((batch, 24, 3), device=device)
+    pose = torch.zeros((batch, 24, 3), device=_device.resolve(device))
     pose[:, 0, 0] = np.pi / 2
     pose[:, 1, 2] = 0.15
     pose[:, 2, 2] = -0.15
@@ -52,9 +53,10 @@ def smpl_triple_forward(model: SmplModel, pose: torch.Tensor,
 @torch.no_grad()
 def make_batch(assets: GarmentAssets, model: SmplModel, *, batch_size: int = 1,
                T: int = 3, npoints: int = 2048, seed: int = 0,
-               device="cpu") -> Dict[str, torch.Tensor]:
+               device=_device.DEFAULT) -> Dict[str, torch.Tensor]:
     """A full synthetic batch with the data-pipeline keys, on `device`
     (`model` must live there too)."""
+    device = _device.resolve(device)
     rng = np.random.RandomState(seed)
     B = batch_size
     Vg = assets.num_verts

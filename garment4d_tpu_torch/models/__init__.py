@@ -7,9 +7,12 @@ from garment4d_tpu_torch.models.canonical import (
     CanonicalOutput,
     select_garment_points,
 )
+from garment4d_tpu_torch.models.posed import BodyInputs, PosedGarmentModel, PosedOutput
+from garment4d_tpu_torch.models.skinning import LbsResult, lbs_garment_interpolation
 
 __all__ = [
-    "BackboneOutput", "CLASS_NUM", "CanonicalGarmentModel", "CanonicalOutput",
-    "GarmentAssets", "LABEL_DICT", "PointNet2SegBackbone",
-    "select_garment_points",
+    "BackboneOutput", "BodyInputs", "CLASS_NUM", "CanonicalGarmentModel",
+    "CanonicalOutput", "GarmentAssets", "LABEL_DICT", "LbsResult",
+    "PointNet2SegBackbone", "PosedGarmentModel", "PosedOutput",
+    "lbs_garment_interpolation", "select_garment_points",
 ]

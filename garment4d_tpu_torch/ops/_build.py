@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` (Hopper) into one
-shared library with a plain C interface, loaded with `ctypes`. The build runs
-at the first kernel launch of a process, never at import, into
+Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` (Hopper), one
+`nvcc -c` per source, all started together, then linked into one shared
+library with a plain C interface, loaded with `ctypes`. The build runs at
+the first kernel launch of a process, never at import, into
 `garment4d_tpu_torch/_build/` (ignored by git), named by a hash of the
 sources and flags so that an edited source never loads a stale library.
 
@@ -12,8 +13,9 @@ sizes as `int` and radii as `float`, and returns `cudaGetLastError()`;
 failed build or a failed launch raises.
 
 `launch_counts` counts kernel launches by kernel name. Each wrapper in
-`ops/pointcloud.py` and `ops/pemax.py` adds one where it launches its kernel
-and nowhere else, so a run can show which kernels its main path went through.
+`ops/pointcloud.py`, `ops/pemax.py`, `ops/graph.py` and
+`models/skinning.py` adds one where it launches its kernel and nowhere
+else, so a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -33,20 +35,34 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
+_IP = ctypes.POINTER(ctypes.c_int)     # host array of ints
 # C signatures of the entry points (all return int = cudaError_t)
 _SIGNATURES = {
     "g4d_fps": (_P, _I, _I, _I, _P, _P),
     "g4d_gather_rows": (_P, _P, _I, _I, _I, _I, _P, _P),
     "g4d_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _F, _I, _P, _P),
+    "g4d_ball_query_grouped": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _F,
+                               _I, _P, _F, _I, _P, _P),
     "g4d_three_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
     "g4d_fused_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "g4d_coverage": (_P, _P, _I, _I, _I, _F, _P, _P),
+    "g4d_knn_transfer": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P),
+    "g4d_gcn_layer": (_PP, _IP, _I, _I, _I, _I, _P, _IP, _I, _P, _P, _I, _I,
+                      _I, _I, _I, _P, _P),
 }
+
+# shared memory, in bytes, that one block may use on the H100, and that
+# each of two blocks resident on one SM may use
+SMEM_LIMIT = 232448
+SMEM_TWO_BLOCKS = 112 * 1024
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -84,18 +100,40 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands concurrently; (cmd, returncode, output) each."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    return [(cmd, proc.returncode, out) for cmd, proc, out in
+            ((c, p, p.communicate()[0]) for c, p in zip(cmds, procs))]
+
+
 def _compile(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{target.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, cmds = [], []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *[str(o) for o in objs]]
     log = target.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}); see {log}:\n"
-            + proc.stderr[-4000:])
+    results = _run_all(cmds)
+    failed = [r for r in results if r[1] != 0]
+    if not failed:
+        results += _run_all([link])
+        failed = [r for r in results if r[1] != 0]
+    log.write_text("".join(" ".join(c) + "\n" + out for c, _, out in results))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        cmd, code, out = failed[0]
+        raise RuntimeError(f"nvcc failed (exit {code}) on {cmd[-1]}; see {log}:\n"
+                           + out[-4000:])
     os.replace(tmp, target)  # atomic: a concurrent build never sees a partial file
 
 
@@ -126,6 +164,11 @@ def build_log() -> str:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pitch(k: int) -> int:
+    """`k` channels rounded up to a whole number of float4s."""
+    return (k + 3) // 4 * 4
 
 
 def check(code: int, name: str) -> None:

@@ -26,8 +26,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 8;  // rows per thread tile; S must be a multiple
-constexpr int kCols = 4;  // columns per thread tile; widths must be multiples
+constexpr int kRows = g4d::kTileRows;  // S must be a multiple
+constexpr int kCols = g4d::kTileCols;  // widths must be multiples
 constexpr int kMaxLayers = 4;
 
 struct ChainDims {
@@ -37,53 +37,6 @@ struct ChainDims {
 };
 
 __host__ __device__ inline int pitch_of(int k) { return (k + 3) & ~3; }
-
-// acc[r][j] = bias[c0 + j] + sum_k h[(r0 + r) * P + k] * w[k * F + c0 + j]
-__device__ __forceinline__ void tile_dot(const float* __restrict__ h, int P,
-                                         const float* __restrict__ w,
-                                         const float* __restrict__ bias,
-                                         int K, int F, int r0, int c0,
-                                         float (&acc)[kRows][kCols]) {
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    acc[r][0] = b4.x;
-    acc[r][1] = b4.y;
-    acc[r][2] = b4.z;
-    acc[r][3] = b4.w;
-  }
-  const float* hr = h + r0 * P;
-  int k = 0;
-  for (; k + 4 <= K; k += 4) {
-    float4 w4[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      w4[kk] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k + kk) * F + c0));
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 h4 = *reinterpret_cast<const float4*>(hr + r * P + k);
-      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc[r][0] = fmaf(hv[kk], w4[kk].x, acc[r][0]);
-        acc[r][1] = fmaf(hv[kk], w4[kk].y, acc[r][1]);
-        acc[r][2] = fmaf(hv[kk], w4[kk].z, acc[r][2]);
-        acc[r][3] = fmaf(hv[kk], w4[kk].w, acc[r][3]);
-      }
-    }
-  }
-  for (; k < K; ++k) {
-    const float4 wk = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * F + c0));
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float hv = hr[r * P + k];
-      acc[r][0] = fmaf(hv, wk.x, acc[r][0]);
-      acc[r][1] = fmaf(hv, wk.y, acc[r][1]);
-      acc[r][2] = fmaf(hv, wk.z, acc[r][2]);
-      acc[r][3] = fmaf(hv, wk.w, acc[r][3]);
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_chain_kernel(const float* __restrict__ table,
@@ -137,7 +90,7 @@ fused_chain_kernel(const float* __restrict__ table,
     for (int it = threadIdx.x; it < n_row_tiles * n_col_tiles; it += blockDim.x) {
       const int c0 = (it % n_col_tiles) * kCols;
       const int rt = it / n_col_tiles;
-      tile_dot(hin, P, w, bias, K, F, rt * kRows, c0, acc);
+      g4d::tile_dot(hin, P, w, bias, K, F, rt * kRows, c0, acc);
       if (relu) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r)

@@ -12,9 +12,9 @@ gradient off.
 
 Semantics follow the JAX reference bit for bit where it promises that:
 distances are diff-form fp32 `dx*dx + dy*dy + dz*dz` summed left to right
-(products written out, never `(d*d).sum(-1)`), so FPS, ball-query and 3-NN
-indices are bitwise equal across the JAX package, the plain versions and the
-kernels. Index outputs are int32, as in JAX.
+(products written out, never `(d*d).sum(-1)`), so FPS, ball-query, coverage
+and 3-NN indices are bitwise equal across the JAX package, the plain
+versions and the kernels. Index outputs are int32, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +59,12 @@ def _sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = a - b
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     return dx * dx + dy * dy + dz * dz
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, 3), b (..., N, 3) -> (..., M, N) squared distances in
+    diff form (the JAX package's `pairwise_sqdist(exact=True)`)."""
+    return _sqdist(a[..., :, None, :], b[..., None, :, :])
 
 
 def _f32(x: float) -> float:
@@ -164,16 +170,24 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
-                      new_xyz: torch.Tensor) -> torch.Tensor:
+                      new_xyz: torch.Tensor,
+                      n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, M, _ = new_xyz.shape
     r2 = _f32(radius * radius)
     targets = torch.arange(1, nsample + 1, dtype=torch.int32,
                            device=xyz.device)
+    scanned = None  # (B, 1, N): rows at or past n_valid[b] are never hits
+    if n_valid is not None:
+        rows = torch.arange(xyz.shape[1], device=xyz.device)
+        scanned = (rows[None, :] < n_valid.to(xyz.device)[:, None])[:, None, :]
     outs = []
     for m0 in range(0, M, _CHUNK):
         centers = new_xyz[:, m0:m0 + _CHUNK]
         d2 = _sqdist(centers[:, :, None, :], xyz[:, None, :, :])  # (B, Cm, N)
-        cum = torch.cumsum((d2 < r2).to(torch.int32), dim=-1, dtype=torch.int32)
+        hit = d2 < r2
+        if scanned is not None:
+            hit = hit & scanned
+        cum = torch.cumsum(hit.to(torch.int32), dim=-1, dtype=torch.int32)
         # index of the (s+1)-th hit = #{cum < s+1} on the monotone count
         idx = torch.searchsorted(
             cum, targets.expand(*cum.shape[:2], nsample).contiguous()
@@ -215,20 +229,63 @@ def _ball_query_kernel(radii, nsamples, xyz: torch.Tensor,
     return tuple(outs)
 
 
+_MAX_GROUPED_RADII = 3
+
+
+def _ball_query_grouped_kernel(radii, nsamples, xyz: torch.Tensor,
+                               new_xyz: torch.Tensor, n_valid: torch.Tensor):
+    dev = xyz.device
+    _build.require(xyz, "xyz", torch.float32, 3, dev)
+    _build.require(new_xyz, "new_xyz", torch.float32, 3, dev)
+    _build.require(n_valid, "n_valid", torch.int32, 1, dev)
+    B, N, C = xyz.shape
+    M = new_xyz.shape[1]
+    if C != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3 or n_valid.shape[0] != B:
+        raise ValueError(f"ball_query_grouped: xyz {tuple(xyz.shape)}, new_xyz "
+                         f"{tuple(new_xyz.shape)}, n_valid {tuple(n_valid.shape)}")
+    R = len(radii)
+    if not 1 <= R <= _MAX_GROUPED_RADII or any(s < 1 for s in nsamples):
+        raise ValueError(f"ball_query_grouped: radii {radii}, nsamples {nsamples} "
+                         f"(1..{_MAX_GROUPED_RADII} radii)")
+    outs = [torch.empty((B, M, s), dtype=torch.int32, device=dev) for s in nsamples]
+    args = []
+    for i in range(_MAX_GROUPED_RADII):
+        if i < R:
+            args += [_f32(radii[i] * radii[i]), nsamples[i], outs[i].data_ptr()]
+        else:
+            args += [0.0, 0, None]
+    lib = _build.library()
+    _build.launch_counts["ball_query_grouped"] += 1
+    _build.check(lib.g4d_ball_query_grouped(
+        xyz.data_ptr(), new_xyz.data_ptr(), n_valid.data_ptr(), B, N, M, R,
+        *args, _build.stream_of(xyz)), "ball_query_grouped")
+    return tuple(outs)
+
+
 def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
-                     xyz: torch.Tensor, new_xyz: torch.Tensor) -> tuple:
+                     xyz: torch.Tensor, new_xyz: torch.Tensor,
+                     n_valid: Optional[torch.Tensor] = None) -> tuple:
     """Several ball queries over the same (xyz, new_xyz): a tuple of
     (B, M, nsample_i) int32. Per center: the first nsample in-radius point
     indices (d^2 < r^2) in index order, tail slots copying the first hit,
-    no hit -> all 0. The kernel shares each distance pass between two
-    radii. Non-differentiable."""
+    no hit -> all 0. Non-differentiable.
+
+    `n_valid` (B,) int, optional: only the leading n_valid[b] rows of frame
+    b are scanned (a compacted table padded with far sentinels; the count
+    stays on the device). With it, the kernel is the grouped query, which
+    serves up to three radii in one distance pass; without it, the flat
+    query, which shares each pass between two radii."""
     radii = tuple(float(r) for r in radii)
     nsamples = tuple(int(s) for s in nsamples)
     xyz, new_xyz = xyz.detach(), new_xyz.detach()
     if use_kernel(xyz):
+        if n_valid is not None:
+            return _ball_query_grouped_kernel(
+                radii, nsamples, xyz.contiguous(), new_xyz.contiguous(),
+                n_valid.to(torch.int32).contiguous())
         return _ball_query_kernel(radii, nsamples, xyz.contiguous(),
                                   new_xyz.contiguous())
-    return tuple(_ball_query_plain(r, s, xyz, new_xyz)
+    return tuple(_ball_query_plain(r, s, xyz, new_xyz, n_valid)
                  for r, s in zip(radii, nsamples))
 
 
@@ -264,6 +321,51 @@ def group_all(xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
         feats = features[:, None]
         return torch.cat([grouped, feats], dim=-1) if use_xyz else feats
     return grouped
+
+
+# ---------------------------------------------------------------------------
+# coverage mask
+# ---------------------------------------------------------------------------
+
+
+def _covered_mask_plain(xyz: torch.Tensor, centers: torch.Tensor,
+                        radius: float) -> torch.Tensor:
+    r2 = _f32(radius * radius)
+    outs = []
+    for p0 in range(0, xyz.shape[1], _CHUNK):
+        d2 = _sqdist(xyz[:, p0:p0 + _CHUNK, None, :], centers[:, None, :, :])
+        outs.append((d2 < r2).any(dim=-1))
+    return torch.cat(outs, dim=1).to(torch.int32)
+
+
+def _covered_mask_kernel(xyz: torch.Tensor, centers: torch.Tensor,
+                         radius: float) -> torch.Tensor:
+    dev = xyz.device
+    _build.require(xyz, "xyz", torch.float32, 3, dev)
+    _build.require(centers, "centers", torch.float32, 3, dev)
+    B, N, C = xyz.shape
+    M = centers.shape[1]
+    if C != 3 or centers.shape[0] != B or centers.shape[2] != 3:
+        raise ValueError(f"covered_mask: xyz {tuple(xyz.shape)}, "
+                         f"centers {tuple(centers.shape)}")
+    out = torch.empty((B, N), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    _build.launch_counts["coverage"] += 1
+    _build.check(lib.g4d_coverage(xyz.data_ptr(), centers.data_ptr(), B, N, M,
+                                  _f32(radius * radius), out.data_ptr(),
+                                  _build.stream_of(xyz)), "coverage")
+    return out
+
+
+def covered_mask(xyz: torch.Tensor, centers: torch.Tensor,
+                 radius: float) -> torch.Tensor:
+    """xyz (B, N, 3), centers (B, M, 3) -> (B, N) int32: 1 iff the point
+    lies at d^2 < r^2 of at least one center. Non-differentiable."""
+    xyz, centers = xyz.detach(), centers.detach()
+    if use_kernel(xyz):
+        return _covered_mask_kernel(xyz.contiguous(), centers.contiguous(),
+                                    float(radius))
+    return _covered_mask_plain(xyz, centers, float(radius))
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,12 @@ def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor) -> torch.
     return torch.einsum("bvc,jv->bjc", vertices, J_regressor)
 
 
+def vertices2joints_b(J_regressor_b: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    """Batched regressor: J_regressor_b (B, J, V), vertices (B, V, 3) ->
+    (B, J, 3)."""
+    return torch.einsum("bvc,bjv->bjc", vertices, J_regressor_b)
+
+
 def blend_shapes(betas: torch.Tensor, shape_disps: torch.Tensor) -> torch.Tensor:
     """betas (B, nb), shape_disps (V, 3, nb) -> (B, V, 3)."""
     return torch.einsum("bl,mkl->bmk", betas, shape_disps)

@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from garment4d_tpu_torch import _device
 from garment4d_tpu_torch.smpl.lbs import lbs as _lbs
 
 NUM_JOINTS = 24
@@ -45,10 +46,13 @@ class SmplModel:
 
 
 def synthetic_smpl(num_verts: int = 400, seed: int = 0,
-                   num_joints: int = NUM_JOINTS, device="cpu") -> SmplModel:
+                   num_joints: int = NUM_JOINTS,
+                   device=_device.DEFAULT) -> SmplModel:
     """A small random-but-valid SMPL-shaped body model: vertices on a
     capsule-ish blob, the real SMPL parent tree (if num_joints == 24),
-    softmax-local skinning weights, small random blendshapes."""
+    softmax-local skinning weights, small random blendshapes. On the card
+    unless `device` says otherwise."""
+    device = _device.resolve(device)
     rng = np.random.RandomState(seed)
     smpl_parents = np.array(
         [0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,

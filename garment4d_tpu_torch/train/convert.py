@@ -9,6 +9,7 @@ rename plus a transpose of Dense kernels:
   params/.../conv/kernel (in, out)  -> ...conv.weight (out, in)
   params/.../conv/bias              -> ...conv.bias
   params/.../bn/scale, bn/bias      -> ...bn.weight, ...bn.bias
+  params/gcn*_*/weight (in, out)    -> gcn*_*.weight (in, out), as it is
   batch_stats/.../bn/mean, bn/var   -> ...bn.running_mean, ...bn.running_var
 
 Loading the reference's torch `.ckpt` files waits for a later slice.
@@ -25,6 +26,7 @@ _LEAVES = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",
+    ("params", "weight"): "weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -66,3 +68,10 @@ def load_npz_subtree(path: str, subtree: str) -> Dict[str, torch.Tensor]:
     if not flat:
         raise KeyError(f"{path}: no variables under {subtree!r}")
     return flax_to_torch(flat)
+
+
+def load_npz(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of the whole variable tree of a Flax variables npz,
+    e.g. the posed model's from `ckpt_synth/posed_synth.npz`."""
+    with np.load(path) as data:
+        return flax_to_torch({key: data[key] for key in data.files})

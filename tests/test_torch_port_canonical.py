@@ -24,6 +24,7 @@ from garment4d_tpu.train.checkpoint import save_variables_npz
 from garment4d_tpu_torch import smpl as tsmpl
 from garment4d_tpu_torch.api import GarmentReconstructor
 from garment4d_tpu_torch.data.synthetic import make_batch as tmake_batch
+from garment4d_tpu_torch.models import CanonicalGarmentModel
 from garment4d_tpu_torch.models import GarmentAssets as TAssets
 from garment4d_tpu_torch.models import select_garment_points
 from garment4d_tpu_torch.train.convert import flax_to_torch, load_npz_subtree
@@ -39,13 +40,14 @@ def assets():
 
 @pytest.fixture(scope="module")
 def bodies():
-    return jsmpl.synthetic_smpl(num_verts=400), tsmpl.synthetic_smpl(num_verts=400)
+    return jsmpl.synthetic_smpl(num_verts=400), tsmpl.synthetic_smpl(num_verts=400,
+                                                                     device="cpu")
 
 
 @pytest.fixture(scope="module")
 def batches(assets, bodies):
     return (jmake_batch(assets[0], bodies[0], batch_size=B, T=T, npoints=N),
-            tmake_batch(assets[1], bodies[1], batch_size=B, T=T, npoints=N))
+            tmake_batch(assets[1], bodies[1], batch_size=B, T=T, npoints=N, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -122,9 +124,10 @@ def test_npz_round_trip_exact(assets, jax_canonical, tmp_path):
     path = str(tmp_path / "vars.npz")
     save_variables_npz(path, {"params": {"canonical": variables["params"]},
                               "batch_stats": {"canonical": variables["batch_stats"]}})
-    recon = GarmentReconstructor.from_npz(assets[1], path)
-    sd = recon.canonical_model.state_dict()
     converted = load_npz_subtree(path, "canonical")
+    model = CanonicalGarmentModel(assets[1])
+    model.load_state_dict(converted, strict=True)
+    sd = model.state_dict()
     assert set(converted) == set(sd)
     for key, array in flat.items():
         coll, *path_, leaf = key.split("/")
@@ -139,9 +142,10 @@ def test_flax_to_torch_rejects_unknown_leaves():
         flax_to_torch({"params/a/embedding": np.zeros(3, np.float32)})
 
 
-def test_canonical_forward_parity(assets, batches, jax_canonical):
+def test_canonical_forward_parity(assets, bodies, batches, jax_canonical):
     _, flat, jout = jax_canonical
-    recon = GarmentReconstructor.from_assets(assets[1], state_dict=flax_to_torch(flat))
+    recon = GarmentReconstructor.from_assets(assets[1], bodies[1], device="cpu")
+    recon.canonical_model.load_state_dict(flax_to_torch(flat), strict=True)
     pcd = torch.from_numpy(np.array(batches[0]["pcd"]))  # the JAX model's input
     tout = recon.run(pcd)
     np.testing.assert_allclose(tout.backbone.sem_logits.numpy(),

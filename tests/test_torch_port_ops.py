@@ -157,6 +157,100 @@ class TestIndexOps:
         np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
 
 
+def _boundary_points(center, radius):
+    """Points at exactly r from `center` and at r -+ 1 and 2 ulp along each
+    axis, both signs: (30, 3)."""
+    r = np.float32(radius)
+    lo1 = np.nextafter(r, np.float32(0))
+    hi1 = np.nextafter(r, np.float32(1))
+    offs = [r, lo1, hi1, np.nextafter(lo1, np.float32(0)),
+            np.nextafter(hi1, np.float32(1))]
+    pts = []
+    for o in offs:
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                p = center.copy()
+                p[axis] = np.float32(p[axis] + np.float32(sign) * o)
+                pts.append(p)
+    return np.stack(pts)
+
+
+class TestCoverageAndGroupedQuery:
+    @pytest.mark.parametrize("radius,center", [
+        (0.4, (0.0, 0.0, 0.0)), (0.4, (0.3, 0.2, 0.1)), (0.1, (-0.7, 0.45, 0.15))])
+    def test_covered_mask_radius_boundary(self, rng, radius, center):
+        """Against the Pallas coverage kernel in interpret mode: points at
+        exactly r and r -+ 1, 2 ulp of one center, plus a random cloud."""
+        from jax.experimental.pallas import tpu as pltpu
+        from garment4d_tpu.ops.pallas.coverage import covered_mask_pallas
+
+        center = np.array(center, np.float32)
+        pts = np.concatenate([_boundary_points(center, radius),
+                              rng.rand(70, 3).astype(np.float32) - 0.5])[None]
+        centers = np.concatenate([center[None], rng.rand(4, 3).astype(np.float32) + 2.0])[None]
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(covered_mask_pallas(jnp.asarray(pts), jnp.asarray(centers),
+                                                  radius))
+        got = tops.covered_mask(_t(pts), _t(centers), radius)
+        assert got.dtype == torch.int32 and got.shape == (1, 100)
+        np.testing.assert_array_equal(_np(got), want)
+        if not center.any():  # d^2 == r^2 is outside, r - 1 and 2 ulp inside
+            assert set(np.nonzero(_np(got)[0, :30])[0]) == set(range(6, 12)) | set(range(18, 24))
+
+    def test_ball_query_multi_n_valid(self, rng):
+        """Rows at or past n_valid[b] are never hits, real points or
+        sentinels: equal to the JAX flat query over the valid rows."""
+        cap, M = 400, 50
+        counts = [400, 230, 0]
+        table = (0.4 * rng.randn(3, cap, 3)).astype(np.float32)
+        table[1, 300:] = 1e9  # sentinels past a real tail
+        centers = (0.4 * rng.randn(3, M, 3)).astype(np.float32)
+        centers[:, -3:] = 7.0  # no hit
+        radii, ns = (0.1, 0.2, 0.4), (8, 16, 32)
+        got = tops.ball_query_multi(radii, ns, _t(table), _t(centers),
+                                    n_valid=torch.tensor(counts, dtype=torch.int32))
+        for b, nv in enumerate(counts):
+            if nv:
+                want = jops.ball_query_multi(radii, ns, jnp.asarray(table[b:b + 1, :nv]),
+                                             jnp.asarray(centers[b:b + 1]), use_pallas=False)
+            else:
+                want = [np.zeros((1, M, s), np.int32) for s in ns]
+            for w, g in zip(want, got):
+                np.testing.assert_array_equal(_np(g)[b:b + 1], np.asarray(w))
+
+    @pytest.mark.parametrize("spread", ["compact", "overflow"])
+    def test_query_group_pe_multi(self, rng, monkeypatch, spread):
+        """N=1100 >= 1024: the compaction path (coverage <= cap = 896) or,
+        with centers all over the cloud, the overflow path; both equal the
+        JAX package's flat query + PE blocks, no-hit centers included."""
+        B, N, M = 2, 1100, 40
+        xyz = rng.rand(B, N, 3).astype(np.float32)
+        feats = rng.randn(B, N, 3).astype(np.float32)
+        if spread == "compact":
+            centers = (0.15 * rng.rand(B, M, 3)).astype(np.float32)
+        else:
+            centers = rng.rand(B, M, 3).astype(np.float32)
+        centers[:, -3:] = 5.0  # no hit at any radius
+        radii, ns = (0.1, 0.2, 0.4), (8, 16, 32)
+        params = [((rng.randn(6, 32) / 2.5).astype(np.float32),
+                   (0.1 * rng.randn(32)).astype(np.float32),
+                   (rng.randn(32, 32) / 5.7).astype(np.float32),
+                   (0.1 * rng.randn(32)).astype(np.float32)) for _ in radii]
+        want = jops.query_group_pe_multi(
+            radii, ns, jnp.asarray(xyz), jnp.asarray(centers), jnp.asarray(feats),
+            [tuple(jnp.asarray(a) for a in p) for p in params], use_pallas=False)
+        compacted = []
+        gather = tops.pemax._gather_candidates
+        monkeypatch.setattr(tops.pemax, "_gather_candidates",
+                            lambda *a: compacted.append(1) or gather(*a))
+        got = tops.query_group_pe_multi(radii, ns, _t(xyz), _t(centers), _t(feats),
+                                        [tuple(_t(a) for a in p) for p in params])
+        assert bool(compacted) == (spread == "compact")
+        for w, g in zip(want, got):
+            assert g.shape == (B, M, 32)
+            np.testing.assert_allclose(_np(g), np.asarray(w), **F32)
+
+
 class TestChain:
     def test_group_chain_max(self, rng):
         xyz = _cloud(rng, 2, 200)
@@ -271,10 +365,13 @@ class TestDispatch:
         with pytest.raises(ValueError, match="no kernel"):
             tops.use_kernel(meta)
 
-    @pytest.mark.parametrize("wrapper", ["gather_rows", "fused_chain"])
+    @pytest.mark.parametrize("wrapper", ["gather_rows", "fused_chain", "group_pe_max",
+                                         "knn_transfer", "gcn_stack"])
     def test_forward_only_wrappers_refuse_grad(self, wrapper):
         """A kernel wrapper raises, before any launch, when autograd records
         and an input requires grad; under no_grad it goes on to its checks."""
+        from garment4d_tpu_torch.models import skinning
+
         table = torch.zeros(1, 8, 3, requires_grad=True)
         idx = torch.zeros(1, 2, 8, dtype=torch.int32)
         w, b = torch.zeros(3, 8), torch.zeros(8)
@@ -282,8 +379,14 @@ class TestDispatch:
         def call():
             if wrapper == "gather_rows":
                 return tops.pointcloud._gather_rows_kernel(table, idx[:, 0])
+            if wrapper == "knn_transfer":
+                return skinning._knn_transfer_kernel(table, table.detach(),
+                                                     torch.zeros(1, 8, 4), 2, 2)
+            if wrapper == "gcn_stack":
+                return tops.graph._gcn_stack_kernel([table], [w], [b],
+                                                    torch.ones(1, 8), (0,), (True,), 0)
             return tops.pemax._chain_kernel(table, idx, table[:, :2].detach(),
-                                            [w], [b], (True,))
+                                            [w], [b], (True,), name=wrapper)
 
         with pytest.raises(RuntimeError, match=f"{wrapper}: the CUDA kernel is forward-only"):
             call()
