@@ -44,11 +44,48 @@ then:
    amplify), and, fed the card's own inputs of each iteration, the CPU's
    vertex offsets and hidden features within 1e-5 of the card's, every
    element;
-5. prints a JSON line of the kernels, then the card line, then as the last
+5. posed train step (B=4, T=10, the seed-1 batch, a train state from the
+   whole `posed_synth.npz`, Adam at lr 1e-3, canonical stage frozen):
+   zeroes the counters and runs `train_step` once, recording the inputs of
+   the three train kernels; requires all thirteen kernels to have launched
+   (pe_bwd 18, nn1 3 and banded 30 times), every loss term finite, every
+   trainable parameter with a finite gradient and moved, every canonical
+   parameter and buffer bitwise unchanged. On the recorded inputs: the
+   1-NN's indices and squared distances and the banded product (the GCN
+   recompute's C=128 band, its transpose, the loss Laplacian's C=3 band)
+   bitwise equal to their plain versions; the PE backward at each of its
+   six shapes (body 6 wide at S=8/16/32, garment unsplit 67/99/387 wide at
+   S=32/16/8), with a zero cotangent at the (center, channel) pairs whose
+   max another fp32 summation order may put on another slot (`pe_near_ties`,
+   at most 5% of them): dcenters within rtol 1e-4 / atol 1e-5 and weight
+   gradients within 1e-4 of their largest magnitude, both of the plain
+   version and of the float64 version given the plain version's routing
+   (`pe_bwd_float64`), two launches bitwise equal; the unmasked difference
+   and the share of the pairs that fp32 routes otherwise than float64
+   printed; each timed beside its plain version, its bound (the work this
+   run's routing needs) and a library yardstick (`torch.cdist(q,
+   p).min(-1)`, a dense `torch.matmul(adj, x)`). The same step on the plain
+   path from the same weights, which must launch no kernel, its backward
+   included: every loss term within 1e-3 relative; each
+   refinement iteration fed its recorded inputs and one random cotangent,
+   its forward run once on the kernel path and its backward twice, through
+   the kernels and through their plain versions: every parameter's and
+   `cur`'s gradient within 1e-4 relative L2, the same pairs masked in every
+   PE backward of both, and printed beside it the unmasked reading and the
+   kernel path against the plain path each run forward and backward. Train
+   frames/s (40 / median of 5 steps after 2 warm-ups), the plain path's (2
+   steps) and a profile of one step;
+6. prints a JSON line of the kernels, then the card line, then as the last
    line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero without the last line; so
 it does when no CUDA device is visible or when the repo is not beside it.
+
+    python3 chip_smoke.py --time-posed [ROOT]
+
+times only the posed forward (phase 4's shape and weights) of the package
+in the checkout at ROOT (default: this one), so that two checkouts can be
+compared in one run on one card.
 """
 
 from __future__ import annotations
@@ -88,7 +125,21 @@ KERNELS = {
     "group_pe_max": ("fused_chain.cu", "fusedpe.py:198", "posed"),
     "knn_transfer": ("knn_transfer.cu", "knn_transfer.py:142", "posed"),
     "gcn_stack": ("gcn_stack.cu", "gcnstack.py:111", "posed"),
+    "pe_bwd": ("pe_bwd.cu", "fusedpe.py:559", "train"),
+    "banded": ("banded.cu", "banded.py:56", "train"),
+    "nn1": ("nn1.cu", "nn1.py:57", "train"),
 }
+FORWARD_KERNELS = [k for k, v in KERNELS.items() if v[2] != "train"]
+TRAIN_B = 4  # sequences per train step (the JAX package's train bench)
+TRAIN_F = TRAIN_B * T
+TRAIN_LR = 1e-3
+GRAD_TOL = 1e-4  # teacher-forced gradients, kernel vs plain path, relative L2
+LOSS_TOL = 1e-3  # loss terms of one train step, kernel vs plain path, relative
+NEAR_TIE_CAP = 0.05  # most (center, channel) pairs of a PE backward masked as near-ties
+# launches per train step at this shape: 3 iterations x (3 body + 3 garment)
+# PE backwards; 3 loss 1-NN queries; 3 loss Laplacians forward and back plus
+# 3 GCN recomputes x 4 layers forward and back
+TRAIN_LAUNCHES = {"pe_bwd": 18, "nn1": 3, "banded": 30}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -111,9 +162,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wall_s(fn, runs: int = 5) -> float:
-    """Median wall time of `fn` (synchronised) over `runs` after a warm-up."""
-    fn()
+def wall_s(fn, runs: int = 5, warmup: int = 1) -> float:
+    """Median wall time of `fn` (synchronised) over `runs` after `warmup`
+    calls."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
@@ -149,7 +202,7 @@ def profile_device(fn, runs: int = 3):
 
 def print_profile(label, rows, device_ms, wall_ms, top=15):
     idle = 1 - device_ms / wall_ms
-    print(f"{label}: device time per forward (torch.profiler) {device_ms:.3f} ms "
+    print(f"{label}: device time per call (torch.profiler) {device_ms:.3f} ms "
           f"in {sum(r[1] for r in rows):.0f} launches; idle share of the "
           f"{wall_ms:.2f} ms wall: {idle:.3f}")
     for ms, n, name in rows[:top]:
@@ -242,11 +295,12 @@ class Results:
         self.cases = {k: [] for k in KERNELS}
 
     def record(self, kernel, case, err, fn_k, fn_p, n_bytes, n_ops,
-               reps_k=20, reps_p=3, library=None):
+               reps_k=20, reps_p=3, library=None, **extra):
         b_ms, b_by = bound(n_bytes, n_ops)
         row = dict(case=case, max_abs_err=float(err), ms=cuda_ms(fn_k, reps_k),
                    plain_ms=cuda_ms(fn_p, reps_p), bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None if library is None else cuda_ms(library, reps_k))
+                   library_ms=None if library is None else cuda_ms(library, reps_k),
+                   **extra)
         self.cases[kernel].append(row)
         lib = "" if library is None else f" library_ms={row['library_ms']:.4f}"
         print(f"kernel {kernel:18s} {case:52s} max_abs_err={err:.3e} "
@@ -460,6 +514,395 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
                    nbytes(*xs, *ws, *bs, vals, ko, kh), ops_)
 
 
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _pe_rows(table, idx, centers) -> torch.Tensor:
+    """A PE block's gathered rows less their centers on xyz, (B, M, S, C),
+    as every implementation forms them: one fp32 rounding."""
+    from garment4d_tpu_torch.ops.pointcloud import _gather_rows_plain
+
+    B, M, S = idx.shape
+    C = table.shape[-1]
+    qg = _gather_rows_plain(table, idx.reshape(B, M * S)).reshape(B, M, S, C)
+    return qg - torch.nn.functional.pad(centers, (0, C - 3))[:, :, None, :]
+
+
+@torch.no_grad()
+def pe_routing(table, idx, centers, k0, b0, k1):
+    """The discrete decisions of a PE backward, from the plain recompute in
+    the inputs' dtype: (tie (B, M, S, G), the slots at each output channel's
+    max; active (B, M, S, F), hpre > 0)."""
+    hpre = torch.matmul(_pe_rows(table, idx, centers), k0) + b0
+    h2 = torch.matmul(torch.relu(hpre), k1)
+    return h2 == h2.amax(dim=2, keepdim=True), hpre > 0
+
+
+@torch.no_grad()
+def pe_bwd_float64(table, idx, centers, k0, b0, k1, cot, routing):
+    """The PE backward in float64 with its routing and ReLU masks given
+    (`pe_routing`): exact values for an fp32 implementation that decides as
+    the plain fp32 version does."""
+    tie, active = routing
+    qg = _pe_rows(table, idx, centers).double()
+    k0, b0, k1, cot = (t.double() for t in (k0, b0, k1, cot))
+    h = torch.where(active, torch.matmul(qg, k0) + b0, 0.0)
+    dh2 = torch.where(tie, (cot / tie.sum(dim=2, dtype=cot.dtype))[:, :, None, :], 0.0)
+    dh1 = torch.where(active, torch.matmul(dh2, k1.t()), 0.0)
+    return (-torch.matmul(dh1, k0[:3].t()).sum(dim=2),
+            torch.einsum("bmsc,bmsf->cf", qg, dh1), dh1.sum(dim=(0, 1, 2)),
+            torch.einsum("bmsf,bmsg->fg", h, dh2), cot.sum(dim=(0, 1)))
+
+
+@torch.no_grad()
+def pe_near_ties(table, idx, centers, k0, b0, k1) -> torch.Tensor:
+    """(B, M, G) bool: the (center, output channel) pairs of a PE block
+    whose max over S two fp32 implementations that sum in different orders
+    may put on different slots. The plain version's order is cuBLAS's
+    choice, which can change from process to process.
+
+    In float64 from the fp32 centred rows: hpre = qg @ k0 + b0 and
+    h2 = relu(hpre) @ k1, with e1 = sqrt(C + 1) u (|qg| @ |k0| + |b0|) and
+    e2 = e1 @ |k1| + sqrt(F) u (h + e1) @ |k1| (u = 2^-24; a sum of n terms
+    rounds by about u sqrt(n) times its partial sums, and sum |terms|
+    bounds those). A pair is flagged where a slot comes within
+    e2(max slot) + e2(slot) of the max without equalling it, or where a slot
+    at the max has a unit with |hpre| <= e1 (its ReLU mask may differ). An
+    exact tie (a repeated slot, two equal rows) is a tie in every order."""
+    C, F = k0.shape
+    u = 2.0 ** -24
+    qg = _pe_rows(table, idx, centers).double()
+    k0d, b0d, k1d = k0.double(), b0.double(), k1.double()
+    hpre = torch.matmul(qg, k0d) + b0d
+    e1 = (C + 1) ** 0.5 * u * (torch.matmul(qg.abs(), k0d.abs()) + b0d.abs())
+    del qg
+    h = torch.relu(hpre)
+    h2 = torch.matmul(h, k1d)
+    e2 = torch.matmul(e1, k1d.abs()) + F ** 0.5 * u * torch.matmul(h + e1, k1d.abs())
+    top = h2.amax(dim=2, keepdim=True)
+    at_max = h2 == top
+    e2_top = torch.where(at_max, e2, 0.0).amax(dim=2, keepdim=True)
+    gap = top - h2
+    near = ((gap > 0) & (gap <= e2_top + e2)).any(dim=2)
+    relu_edge = (hpre.abs() <= e1).any(dim=-1)  # (B, M, S)
+    return near | (at_max & relu_edge[..., None]).any(dim=2)
+
+
+@contextlib.contextmanager
+def tie_free_pe_backward():
+    """Every PE backward inside the block gets a zero cotangent at the
+    pairs of `pe_near_ties`, at most NEAR_TIE_CAP of them. Yields the
+    masked shares, one per backward."""
+    from garment4d_tpu_torch.ops import pemax
+
+    backward, shares = pemax._pe_bwd, []
+
+    def tie_free(table, idx, centers, k0, b0, k1, cot):
+        near = pe_near_ties(table, idx, centers, k0, b0, k1)
+        shares.append(near.float().mean().item())
+        require(shares[-1] <= NEAR_TIE_CAP, f"PE backward of a {tuple(table.shape)} "
+                f"table: near-tie share {shares[-1]} > {NEAR_TIE_CAP}")
+        return backward(table, idx, centers, k0, b0, k1, cot * ~near)
+
+    pemax._pe_bwd = tie_free
+    try:
+        yield shares
+    finally:
+        pemax._pe_bwd = backward
+
+
+def pe_bwd_ops(idx, k0, k1, tie) -> float:
+    """Operations a PE block's backward needs on this data, `tie` its
+    routing (`pe_routing`). Per sample row: the recompute of both layers
+    (2CF + 2FG), the ReLU, the max and the tie count (F + 2G). The routing
+    leaves dh2 sparse: per non-zero (a channel's max slot and its exact
+    ties), its share of dh1 = dh2 @ k1^T and of dk1 = h^T dh2 (2F each); per
+    slot that won any channel, its rows of dk0 (2CF), db0 and the ReLU mask
+    of dh1 (2F) and the xyz rows of dqg (6F); db1, one add per cotangent
+    entry."""
+    Bc, M, S = idx.shape
+    C, F = k0.shape
+    G = k1.shape[1]
+    routed, won = int(tie.sum()), int(tie.any(dim=-1).sum())
+    return (Bc * M * S * (2.0 * C * F + 2 * F * G + F + 2 * G) + routed * 4.0 * F
+            + won * (2.0 * C * F + 8 * F) + Bc * M * G)
+
+
+PE_GRADS = ("dcenters", "dk0", "db0", "dk1", "db1")
+
+
+def pe_grad_errors(got, want) -> dict:
+    """max |got - want| / max |want| of each PE-backward output."""
+    return {n: float((g.double() - w.double()).abs().max()
+                     / w.double().abs().max().clamp_min(1e-30))
+            for n, g, w in zip(PE_GRADS, got, want)}
+
+
+def pe_grads_agree(got, want) -> bool:
+    """dcenters within rtol 1e-4 / atol 1e-5, each weight gradient within
+    1e-4 of its largest magnitude in `want` (sums of up to 2.56 M terms in
+    another order)."""
+    want = [w.to(g.dtype) for g, w in zip(got, want)]
+    return (torch.allclose(got[0], want[0], **CHAIN_TOL)
+            and all(float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+                    for g, w in zip(got[1:], want[1:])))
+
+
+@torch.no_grad()
+def check_train_kernels(calls, res: Results):
+    """The train step's three kernels against their plain versions, on the
+    inputs recorded from one train step."""
+    from garment4d_tpu_torch.ops import graph, pemax, pointcloud as pc
+
+    # 1-NN: the loss's (40, 2000) garment vertices vs the 6890 body vertices
+    q, p = calls["nn1"][0][0]
+    dk, ik = pc._nn1_kernel(q, p)
+    dp, ip = pc._nn1_plain(q, p)
+    require(torch.equal(ik, ip), "1-NN indices differ from the plain version")
+    require(torch.equal(dk, dp), "1-NN squared distances differ from the plain version")
+    Bq, M, _ = q.shape
+    res.record("nn1", f"loss ({Bq}, {M}) vs {p.shape[1]}", 0,
+               lambda: pc._nn1_kernel(q, p), lambda: pc._nn1_plain(q, p),
+               nbytes(q, p, dk, ik), 9.0 * Bq * M * p.shape[1],
+               library=lambda: torch.cdist(q, p).min(-1))
+
+    # banded: the GCN recompute (C=128) and its transpose, the loss (C=3)
+    fwd = [a for a, _, _ in calls["banded"]]
+    gcn_vals, gcn_x, gcn_offs = next(a for a in fwd if a[1].shape[-1] == 128)
+    t_vals, t_offs = graph.transposed_band(gcn_vals, gcn_offs)
+    cases = [("GCN recompute", gcn_vals, gcn_x, gcn_offs),
+             ("GCN transpose", t_vals.contiguous(), gcn_x, t_offs),
+             ("loss Laplacian", *next(a for a in fwd if a[1].shape[-1] == 3))]
+    for case, vals, x, offs in cases:
+        out = graph._banded_kernel(vals, x, offs)
+        require(torch.equal(out, graph._banded_plain(vals, x, offs)),
+                f"banded {case} differs from the plain version")
+        V = x.shape[1]
+        rows = torch.arange(V, device=x.device)
+        dense = torch.zeros(V, V, device=x.device)
+        for d, o in enumerate(offs):
+            dense[rows, (rows + o) % V] = vals[d]
+        res.record("banded", f"{case} {tuple(x.shape)}, {len(offs)} diagonals", 0,
+                   lambda: graph._banded_kernel(vals, x, offs),
+                   lambda: graph._banded_plain(vals, x, offs), nbytes(vals, x, out),
+                   2.0 * len(offs) * x.numel(), library=lambda: torch.matmul(dense, x))
+
+    # PE backward at each of its shapes in the step: body 6 wide at S=8/16/32,
+    # garment unsplit 67/99/387 wide at S=32/16/8
+    shapes = {}
+    for a, _, _ in calls["pe_bwd"]:
+        shapes.setdefault((a[0].shape[2], a[1].shape[2]), a)
+    failed = []
+    for (C, S), args in sorted(shapes.items()):
+        table, idx, centers, k0, b0, k1, cot = args
+        case = (f"{'body' if C == 6 else 'garment'} {tuple(idx.shape)} widths "
+                f"{[C, k0.shape[1], k1.shape[1]]}")
+        # a zero cotangent where the max may fall on another slot in another
+        # summation order; the unmasked difference is printed beside
+        near = pe_near_ties(*args[:6])
+        share = near.float().mean().item()
+        masked = (*args[:6], cot * ~near)
+        got = pemax._pe_bwd_kernel(*masked)
+        again = pemax._pe_bwd_kernel(*masked)
+        want = pemax._pe_bwd_plain(*masked)
+        routing = pe_routing(*args[:6])
+        exact = pe_bwd_float64(*masked, routing)
+        bits = all(torch.equal(g, a) for g, a in zip(got, again))
+        vs_plain, vs_f64 = pe_grad_errors(got, want), pe_grad_errors(got, exact)
+        plain_vs_f64 = pe_grad_errors(want, exact)
+        checks = ((share <= NEAR_TIE_CAP, f"near-tie share {share} > {NEAR_TIE_CAP}"),
+                  (bits, "two launches differ"),
+                  (pe_grads_agree(got, want), f"beyond tolerance of plain: {vs_plain}"),
+                  (pe_grads_agree(got, exact), f"beyond tolerance of float64: {vs_f64}"))
+        failed += [f"pe_bwd {case}: {what}" for ok, what in checks if not ok]
+        del exact
+        unmasked = pe_grad_errors(pemax._pe_bwd_kernel(*args), pemax._pe_bwd_plain(*args))
+        # how often fp32 itself routes otherwise than exact arithmetic would
+        tie64 = pe_routing(*[t.double() if t.is_floating_point() else t for t in args[:6]])[0]
+        flips = (tie64 != routing[0]).any(dim=2).float().mean().item()
+        del tie64
+        print(f"pe_bwd {case}: near-tie share {share:.2e}; max err / max, kernel vs plain "
+              f"{max(vs_plain.values()):.2e} (unmasked {max(unmasked.values()):.2e}), vs "
+              f"float64 with the plain routing {max(vs_f64.values()):.2e} (plain "
+              f"{max(plain_vs_f64.values()):.2e}); fp32 routes {flips:.2e} of the (center, "
+              f"channel) pairs otherwise than float64; two launches bitwise {bits}",
+              flush=True)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        res.record("pe_bwd", case, err,
+                   lambda: pemax._pe_bwd_kernel(*args), lambda: pemax._pe_bwd_plain(*args),
+                   nbytes(*args, *got), pe_bwd_ops(idx, k0, k1, routing[0]),
+                   near_tie_share=share, err_vs_plain=vs_plain, err_vs_float64=vs_f64,
+                   unmasked_err_vs_plain=unmasked, fp32_routing_differs_from_float64=flips)
+    return failed
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """The PE-backward and banded kernels swapped for their plain versions
+    (module functions, which autograd's worker thread looks up too)."""
+    from garment4d_tpu_torch.ops import graph, pemax
+
+    saved = pemax._pe_bwd_kernel, graph._banded_kernel
+    pemax._pe_bwd_kernel, graph._banded_kernel = pemax._pe_bwd_plain, graph._banded_plain
+    try:
+        yield
+    finally:
+        pemax._pe_bwd_kernel, graph._banded_kernel = saved
+
+
+def teacher_forced_grads(model, steps, seed=0):
+    """Each refinement iteration of the recorded train step, fed its own
+    inputs and one fixed random cotangent of (offsets, hidden): relative L2
+    of every parameter's and `cur`'s gradient between the kernel path's
+    backward and the plain versions' backward of the same kernel-path
+    forward, with the PE backwards tie-free on both (the gate) and
+    unmasked; and between the kernel path and the plain path each run
+    forward and backward (not gated: fp32 rounding flips discrete choices
+    of the forward, ReLU masks among them, and a flip at one vertex moves a
+    gradient summed against a random cotangent by up to ~1e-3).
+    -> (rows, failures)."""
+    from garment4d_tpu_torch import ops
+
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    names = ["cur"] + [n for n, _ in params]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows, failed = [], []
+
+    def rel(a, b):
+        errs = {n: rel_l2(x, y) for n, x, y in zip(names, a, b) if y is not None}
+        worst = max(errs, key=errs.get)
+        return worst, errs[worst], len(errs)
+
+    for args, _, (h, hid) in steps:
+        it, cur, hidden, *rest = args
+        cots = [torch.randn(t.shape, generator=g, device="cuda") for t in (h, hid)]
+        cur = cur.detach().requires_grad_(True)
+        hidden = None if hidden is None else hidden.detach()
+        wrt = [cur] + [p for _, p in params]
+        paths = []
+        for plain in (False, True):
+            with ops.plain_ops() if plain else contextlib.nullcontext():
+                outs = model.refine(it, cur, hidden, *rest)
+                paths.append(torch.autograd.grad(outs, wrt, cots, allow_unused=True))
+        outs = model.refine(it, cur, hidden, *rest)
+        grads, shares = {}, []
+        for masked in (True, False):
+            for plain in (False, True):
+                with plain_backward() if plain else contextlib.nullcontext(), \
+                        tie_free_pe_backward() if masked else contextlib.nullcontext([]) \
+                        as got:
+                    grads[masked, plain] = torch.autograd.grad(
+                        outs, wrt, cots, retain_graph=True, allow_unused=True)
+                shares += got
+        worst, err, n = rel(grads[True, False], grads[True, True])
+        raw, raw_err, _ = rel(grads[False, False], grads[False, True])
+        full, full_err, _ = rel(*paths)
+        rows.append(dict(iteration=it, tensors=n, worst=worst, max_rel_l2=err,
+                         unmasked_worst=raw, unmasked_max_rel_l2=raw_err,
+                         paths_worst=full, paths_max_rel_l2=full_err,
+                         near_tie_shares=shares))
+        print(f"teacher-forced backward, iteration {it}: {n} gradients, kernels vs plain "
+              f"versions on one forward: largest relative L2 {err:.3e} ({worst}) with "
+              f"near-tie routing masked (largest share {max(shares):.2e}), {raw_err:.3e} "
+              f"({raw}) unmasked; kernel vs plain path, each forward and backward: "
+              f"{full_err:.3e} ({full})", flush=True)
+        if err > GRAD_TOL:
+            failed.append(f"teacher-forced backward, iteration {it}: {worst} relative "
+                          f"L2 {err} > {GRAD_TOL}")
+    return rows, failed
+
+
+def train_phase(assets, body, weights, res: Results):
+    """The posed train step at B=4, T=10 from `posed_synth.npz`, Adam at
+    lr 1e-3 with the canonical stage frozen: the three new kernels against
+    their plain versions on the step's own inputs, one counted step and its
+    gates, the plain path beside it, teacher-forced gradients, speed and a
+    profile."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.ops import graph, pemax, pointcloud as pc
+    from garment4d_tpu_torch.train import make_posed_steps, make_state_for
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+
+    def new_state():
+        model = GarmentReconstructor.from_npz(assets, body, weights, device=dev).model
+        return make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
+
+    state, state_plain = new_state(), new_state()
+    model = state.model
+    train_step, _ = make_posed_steps(model, assets, body.faces)
+    train_plain, _ = make_posed_steps(state_plain.model, assets, body.faces)
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    canonical = {k: v.clone() for k, v in model.canonical.state_dict().items()}
+    require(not any(p.requires_grad for p in model.canonical.parameters()),
+            "canonical parameters still require grad")
+
+    with recording(pc, "_nn1_kernel") as nn1_calls, \
+            recording(graph, "_banded_kernel") as banded_calls, \
+            recording(pemax, "_pe_bwd_kernel") as pe_calls, \
+            recording(model, "refine") as steps:
+        losses, launches = counted("train", lambda: train_step(state, batch), list(KERNELS))
+    for name, n in TRAIN_LAUNCHES.items():
+        require(launches[name] == n, f"{name}: {launches[name]} launches in a train "
+                f"step, {n} expected")
+    for k, v in losses.items():
+        require(bool(torch.isfinite(v).all()), f"loss {k} is not finite")
+    print("train step losses: " + ", ".join(
+        f"{k} {v.item():.6g}" for k, v in losses.items() if v.dim() == 0), flush=True)
+    params = dict(model.named_parameters())
+    for name, before in trainable.items():
+        p = params[name]
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"{name}: no finite gradient")
+        require(not torch.equal(p.detach(), before), f"{name}: not changed by the step")
+    for k, v in model.canonical.state_dict().items():
+        require(torch.equal(v, canonical[k]), f"canonical {k} changed by the step")
+    print(f"{len(trainable)} trainable tensors, all with finite gradients and moved; "
+          f"{len(canonical)} canonical tensors bitwise unchanged", flush=True)
+
+    failed = check_train_kernels(dict(nn1=nn1_calls, banded=banded_calls, pe_bwd=pe_calls),
+                                 res)
+    del nn1_calls[:], banded_calls[:], pe_calls[:]
+
+    # the plain path from the same weights and batch, its backward included
+    ops.reset_counts()
+    with ops.plain_ops():
+        losses_plain = train_plain(state_plain, batch)
+    torch.cuda.synchronize()
+    require(not any(ops.launch_counts.values()),
+            f"the plain train step launched kernels: {dict(ops.launch_counts)}")
+    loss_err = {}
+    for k, v in losses_plain.items():
+        loss_err[k] = float(((losses[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+        require(loss_err[k] <= LOSS_TOL, f"loss {k}: kernel {losses[k].tolist()} vs "
+                f"plain {v.tolist()}, relative {loss_err[k]} > {LOSS_TOL}")
+    print(f"train step losses, kernel vs plain path: largest relative difference "
+          f"{max(loss_err.values()):.3e} ({max(loss_err, key=loss_err.get)})", flush=True)
+    forced, forced_failed = teacher_forced_grads(model, steps)
+    require(not failed + forced_failed, "; ".join(failed + forced_failed))
+    del steps[:]
+
+    step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
+    print(f"posed train step, kernel path: {TRAIN_F / step_s:.2f} frames/s "
+          f"({step_s * 1e3:.2f} ms per step of {TRAIN_F} frames)", flush=True)
+    with ops.plain_ops():
+        plain_s = wall_s(lambda: train_plain(state_plain, batch), runs=2, warmup=0)
+    print(f"posed train step, plain path on the card: {TRAIN_F / plain_s:.2f} frames/s "
+          f"({plain_s * 1e3:.2f} ms)", flush=True)
+    rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
+    idle = print_profile("train", rows, dev_ms, step_s * 1e3, top=20)
+    torch.cuda.synchronize()
+    return dict(launches=launches, frames_per_sec=TRAIN_F / step_s,
+                plain_frames_per_sec=TRAIN_F / plain_s, device_ms_per_step=dev_ms,
+                idle_share=idle, loss_rel_err=loss_err, forced=forced,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
 def counted(label, fn, names):
     """Run the main path `fn` once with the launch counters at 0 before it;
     require each kernel in `names` to have launched."""
@@ -475,10 +918,42 @@ def counted(label, fn, names):
     return out, launches
 
 
+def time_posed(root: Path) -> int:
+    """The posed forward of the package in the checkout at `root`, at
+    phase 4's shape and weights: median wall time of 10 forwards after 2
+    warm-ups, device time per forward (torch.profiler), one JSON line."""
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    import garment4d_tpu_torch
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.models import GarmentAssets
+    from garment4d_tpu_torch.smpl import synthetic_smpl
+    from garment4d_tpu_torch.train.step import body_inputs_from_batch
+
+    require(Path(garment4d_tpu_torch.__file__).resolve().is_relative_to(root),
+            f"the package was not imported from {root}")
+    dev = torch.device("cuda")
+    assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
+    body = synthetic_smpl(num_verts=N, device=dev)
+    batch = make_batch(assets, body, batch_size=B, T=T, npoints=N, device=dev)
+    pcd, body_in = batch["pcd"], body_inputs_from_batch(batch)
+    recon = GarmentReconstructor.from_npz(
+        assets, body, str(root / "ckpt_synth" / "posed_synth.npz"), device=dev)
+    step_s = wall_s(lambda: recon.posed(pcd, body_in), runs=10, warmup=2)
+    _, dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
+    print(json.dumps({"root": str(root), "posed_frames_per_sec": F / step_s,
+                      "wall_ms": step_s * 1e3, "device_ms": dev_ms,
+                      "idle_share": 1 - dev_ms / (step_s * 1e3)}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--time-posed"]:
+        return time_posed(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
     from garment4d_tpu_torch import ops
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
@@ -538,7 +1013,7 @@ def main() -> int:
     with recording(pemax, "_compact_candidates") as compactions, \
             recording(recon.model, "refine") as steps:
         out, launches = counted("posed", lambda: recon.posed(pcd, body_in, return_all=True),
-                                list(KERNELS))
+                                FORWARD_KERNELS)
     overflows = [c[2][1] for c in compactions]
     print(f"body queries: {len(overflows)}, overflow branch taken: {overflows} "
           f"(one host read each)", flush=True)
@@ -632,7 +1107,12 @@ def main() -> int:
                 f"iteration {it}: max abs diff {k_row['max_abs']} against "
                 f"{p_row['max_abs']} on the plain path")
 
-    # ---- 5. results --------------------------------------------------------
+    # ---- 5. posed train step -------------------------------------------------
+    del out, out_plain, out_cpu, steps, compactions
+    torch.cuda.empty_cache()
+    train = train_phase(assets, body, weights, res)
+
+    # ---- 6. results --------------------------------------------------------
     all_launches = dict(canon_launches)
     kernels = []
     for name, cases in res.cases.items():
@@ -640,7 +1120,9 @@ def main() -> int:
         main_case = max(cases, key=lambda c: c["plain_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=CSRC + source, replaces=PALLAS + replaces,
-            launches=launches[name], launches_canonical=all_launches.get(name, 0),
+            launches=(train["launches"] if path == "train" else launches)[name],
+            launches_canonical=all_launches.get(name, 0),
+            launches_train_step=train["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -653,7 +1135,14 @@ def main() -> int:
         "canonical_frames_per_sec": F / canon_s,
         "canonical_plain_frames_per_sec": F / canon_plain_s,
         "canonical_device_ms_per_forward": canon_dev_ms, "canonical_idle_share": canon_idle,
-        "body_query_overflows": overflows, "gpu_vs_cpu": agreement, "gpu_vs_cpu_forced": forced, "build_s": build_s,
+        "body_query_overflows": overflows, "gpu_vs_cpu": agreement, "gpu_vs_cpu_forced": forced,
+        "posed_train_frames_per_sec": train["frames_per_sec"],
+        "posed_train_plain_frames_per_sec": train["plain_frames_per_sec"],
+        "posed_train_device_ms_per_step": train["device_ms_per_step"],
+        "posed_train_idle_share": train["idle_share"],
+        "posed_train_peak_gib": train["peak_gib"],
+        "train_loss_rel_err_kernel_vs_plain": train["loss_rel_err"],
+        "train_forced_grads": train["forced"], "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ with single-head temporal attention across frames from iteration 2 on.
 
 Submodules are named by the Flax paths (`canonical`, `body_pe0.linear0`,
 `garment_pe2.linear1`, `temporal_qkv0`, `gcn1_0`, ...), so a Flax variables
-npz loads through `train/convert.py`.
+npz loads through `train/convert.py`. In training (`train/step.py`) the
+gradient flows through the refinement iterations only: the canonical stage
+runs in eval mode under no_grad, LBS sees no trainable input, and the PE
+tables (body and stage-1 garment levels) get no gradient.
 """
 
 from __future__ import annotations
@@ -161,6 +164,12 @@ class PosedGarmentModel(nn.Module):
         super().train(mode)
         self.canonical.eval()
         return self
+
+    def freeze_canonical(self) -> None:
+        """No gradient and no update for the canonical stage's parameters
+        (it already runs under no_grad in eval mode in `forward`)."""
+        for p in self.canonical.parameters():
+            p.requires_grad_(False)
 
     def _temporal_mix(self, it: int, hidden: torch.Tensor, B: int, T: int) -> torch.Tensor:
         """Single-head attention over the T frames of each sequence, on the

@@ -29,6 +29,7 @@ from garment4d_tpu_torch.ops.pointcloud import (
     group_all,
     group_points,
     interp_weights_from_dists,
+    knn_points,
     pairwise_sqdist,
     plain_ops,
     query_and_group,
@@ -44,7 +45,8 @@ __all__ = [
     "gcn_adjacency", "gcn_stack", "graph_matmul", "graph_matmul_banded",
     "group_all", "group_chain_max", "group_pe_max",
     "group_pe_max_split_frozen", "group_points",
-    "interp_weights_from_dists", "laplacian_adjacency", "launch_counts",
+    "interp_weights_from_dists", "knn_points", "laplacian_adjacency",
+    "launch_counts",
     "pairwise_sqdist", "plain_ops", "query_and_group",
     "query_group_pe_multi", "reset_counts", "row_normalize",
     "smoothing_operator", "three_interpolate", "three_nn", "use_kernel",

@@ -15,7 +15,9 @@ failed build or a failed launch raises.
 `launch_counts` counts kernel launches by kernel name. Each wrapper in
 `ops/pointcloud.py`, `ops/pemax.py`, `ops/graph.py` and
 `models/skinning.py` adds one where it launches its kernel and nowhere
-else, so a run can show which kernels its main path went through.
+else, so a run can show which kernels its main path went through (the
+PE-backward wrapper counts its two launches, the per-block pass and the
+ordered sum of the partials, as one).
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ _SIGNATURES = {
                          _P, _P),
     "g4d_gcn_layer": (_PP, _IP, _I, _I, _I, _I, _P, _IP, _I, _P, _P, _I, _I,
                       _I, _I, _I, _P, _P),
+    "g4d_pe_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P, _P, _P, _P),
+    "g4d_banded": (_P, _IP, _I, _P, _I, _I, _I, _P, _P),
+    "g4d_nn1": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 # shared memory, in bytes, that one block may use on the H100, and that

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from garment4d_tpu_torch.ops import _build
-from garment4d_tpu_torch.ops.pointcloud import use_kernel
+from garment4d_tpu_torch.ops.pointcloud import dispatch_as, use_kernel
 
 
 def build_mesh_adjacency(faces, num_vertices: int) -> np.ndarray:
@@ -120,16 +120,84 @@ def graph_matmul(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(adj, x)
 
 
-def graph_matmul_banded(adj: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
-    """`graph_matmul` for a matrix whose nonzero cyclic diagonals are
-    `offsets`: sum over d of vals[d] * roll(x, -o_d) along V, in offset
-    order (the same result up to fp32 summation order)."""
-    vals = diagonal_values(adj, offsets)
+def _banded_plain(vals: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
+    """sum over d of vals[d] * roll(x, -o_d) along V, in offset order."""
     out = None
     for d, o in enumerate(offsets):
         term = torch.roll(x, -int(o), dims=-2) * vals[d][:, None]
         out = term if out is None else out + term
     return out
+
+
+_MAX_PIECES = 8
+_MAX_DIAGS = 64  # bandwidth_permutation's limit
+
+
+def _banded_kernel(vals: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
+    _build.refuse_grad("banded", vals, x)
+    dev = x.device
+    _build.require(vals, "vals", torch.float32, 2, dev)
+    _build.require(x, "x", torch.float32, 3, dev)
+    B, V, C = x.shape
+    D = len(offsets)
+    if vals.shape != (D, V) or not 1 <= D <= _MAX_DIAGS or any(
+            not 0 <= o < V for o in offsets):
+        raise ValueError(f"banded: vals {tuple(vals.shape)}, x {tuple(x.shape)}, "
+                         f"offsets {tuple(offsets)} (1..{_MAX_DIAGS} in [0, V))")
+    out = torch.empty_like(x)
+    lib = _build.library()
+    offs = (ctypes.c_int * _MAX_DIAGS)(*offsets)
+    _build.launch_counts["banded"] += 1
+    _build.check(lib.g4d_banded(vals.data_ptr(), offs, D, x.data_ptr(), B, V, C,
+                                out.data_ptr(), _build.stream_of(x)), "banded")
+    return out
+
+
+def _banded(vals: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
+    if use_kernel(x):
+        return _banded_kernel(vals.contiguous(), x.contiguous(), offsets)
+    return _banded_plain(vals, x, offsets)
+
+
+def transposed_band(vals: torch.Tensor, offsets):
+    """The transpose of a cyclic-banded matrix: offsets (V - o) % V, and
+    row i of the diagonal V - o holds adj[(i - o) % V, i], i.e. the values
+    of diagonal o rolled by the transposed offset."""
+    v = vals.shape[1]
+    offs_t = tuple((v - int(o)) % v for o in offsets)
+    vals_t = torch.stack([torch.roll(vals[d], -offs_t[d]) for d in range(len(offsets))])
+    return vals_t, offs_t
+
+
+class _BandedApply(torch.autograd.Function):
+    """vals (D, V), x (B, V, C) -> (B, V, C); the gradient reaches x
+    through the transposed band (JAX's `_banded_apply`); vals gets none."""
+
+    @staticmethod
+    def forward(ctx, vals, x, offsets):
+        ctx.save_for_backward(vals)
+        ctx.offsets = offsets
+        ctx.kernel = use_kernel(x)
+        return _banded(vals, x, offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        (vals,) = ctx.saved_tensors
+        vals_t, offs_t = transposed_band(vals, ctx.offsets)
+        with dispatch_as(ctx.kernel):
+            return None, _banded(vals_t, g, offs_t), None
+
+
+def graph_matmul_banded(adj: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
+    """`graph_matmul` for a matrix whose nonzero cyclic diagonals are
+    `offsets`: sum over d of vals[d] * roll(x, -o_d) along V, in offset
+    order (the same result up to fp32 summation order). x (..., V, C); a
+    CUDA tensor launches the banded kernel (counter `banded`), forward and
+    backward."""
+    vals = diagonal_values(adj.detach(), offsets)
+    offsets = tuple(int(o) for o in offsets)
+    flat = x.reshape((-1,) + tuple(x.shape[-2:]))
+    return _BandedApply.apply(vals, flat, offsets).reshape(x.shape)
 
 
 def _gcn_stack_ref(xs, weights, biases, adj, offsets, relus, hidden_layer):
@@ -151,8 +219,6 @@ def _gcn_stack_ref(xs, weights, biases, adj, offsets, relus, hidden_layer):
     return h, hidden
 
 
-_MAX_PIECES = 8
-_MAX_DIAGS = 64  # bandwidth_permutation's limit
 _GCN_TILE = 64  # vertices per block; a multiple of the kernel's 8-row tile
 
 
@@ -226,12 +292,50 @@ def gcn_stack(xs, weights, biases, adj: torch.Tensor,
     A CUDA tensor with a banded adjacency runs the kernel, which forms
     (adj @ h) @ W per layer (the plain version adj @ (h @ W): equal up to
     fp32 summation order). A dense adjacency, a CPU tensor or any tensor
-    inside `plain_ops()` runs the plain stack. The kernel path is
-    forward-only."""
-    if offsets is not None and use_kernel(xs[0]):
-        return _gcn_stack_kernel(
-            [x.contiguous() for x in xs], [w.contiguous() for w in weights],
-            [b.contiguous() for b in biases],
-            diagonal_values(adj, offsets).contiguous(),
-            tuple(int(o) for o in offsets), tuple(relus), int(hidden_layer))
-    return _gcn_stack_ref(xs, weights, biases, adj, offsets, relus, hidden_layer)
+    inside `plain_ops()` runs the plain stack. With a banded adjacency the
+    stack is one autograd Function whose backward recomputes the plain
+    stack from the saved inputs, its banded products on the banded kernel
+    on the card (JAX's `gcn_stack` custom VJP)."""
+    if offsets is None:
+        return _gcn_stack_ref(xs, weights, biases, adj, offsets, relus, hidden_layer)
+    meta = (len(xs), tuple(int(o) for o in offsets), tuple(bool(r) for r in relus),
+            int(hidden_layer))
+    return _GcnStack.apply(meta, adj.detach(), *xs, *weights, *biases)
+
+
+class _GcnStack(torch.autograd.Function):
+    """The banded GCN stack: forward on the kernel (or the plain stack off
+    the card), backward by recomputing the plain stack. Only the inputs are
+    saved."""
+
+    @staticmethod
+    def forward(ctx, meta, adj, *tensors):
+        n_x, offsets, relus, hidden_layer = meta
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(adj, *tensors)
+        L = len(relus)
+        xs, ws, bs = tensors[:n_x], tensors[n_x:n_x + L], tensors[n_x + L:]
+        ctx.kernel = use_kernel(xs[0])
+        if ctx.kernel:
+            return _gcn_stack_kernel(
+                [x.contiguous() for x in xs], [w.contiguous() for w in ws],
+                [b.contiguous() for b in bs], diagonal_values(adj, offsets).contiguous(),
+                offsets, relus, hidden_layer)
+        return _gcn_stack_ref(xs, ws, bs, adj, offsets, relus, hidden_layer)
+
+    @staticmethod
+    def backward(ctx, g_out, g_hidden):
+        n_x, offsets, relus, hidden_layer = ctx.meta
+        adj, *tensors = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad(), dispatch_as(ctx.kernel):
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(tensors, needs)]
+            L = len(relus)
+            outs = _gcn_stack_ref(leaves[:n_x], leaves[n_x:n_x + L], leaves[n_x + L:],
+                                  adj, offsets, relus, hidden_layer)
+            pairs = [(o, g) for o, g in zip(outs, (g_out, g_hidden)) if g is not None]
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None for n in needs)

@@ -10,6 +10,17 @@ activations in shared memory and writes only the (M, C_L) max; a CPU tensor
 formulation. Each entry counts its launches under its own name
 (`fused_chain`, `group_pe_max`).
 
+The PE blocks train through two autograd Functions over a frozen table
+(JAX's `_group_pe_max_nt` and `group_pe_max_split_frozen` custom VJPs):
+forward is the chain kernel, backward the fused PE-backward kernel
+`ops/csrc/pe_bwd.cu` (counter `pe_bwd`), which recomputes the block, routes
+the cotangent through the max (split evenly among exact ties, as JAX's
+`jnp.max` does) and returns the gradients of the centers and the four
+weights; `_pe_bwd_plain` is its plain version. Only the Functions' inputs
+are saved: no (B, M, S, C) activation outlives the forward. A table that
+requires grad (`table_grad=True`) trains through plain autograd on the CPU
+and raises on the card: its gradient is a scatter-add, not ported yet.
+
 `query_group_pe_multi` is the body-query front end: a coverage mask at the
 largest radius, an order-preserving compaction of the covered body points
 into a sentinel-padded table, one grouped ball query over it for all radii,
@@ -33,6 +44,7 @@ from garment4d_tpu_torch.ops.pointcloud import (
     _f32,
     ball_query_multi,
     covered_mask,
+    dispatch_as,
     gather_points,
     use_kernel,
 )
@@ -55,7 +67,19 @@ def _chain_reference(table: torch.Tensor, idx: torch.Tensor,
         h = torch.matmul(h, w) + b
         if r:
             h = torch.relu(h)
-    return h.max(dim=2).values
+    # amax, not max(dim): its gradient splits evenly among exact ties, as
+    # JAX's jnp.max and the PE-backward kernel do
+    return torch.amax(h, dim=2)
+
+
+def _pad_slots(idx: torch.Tensor) -> torch.Tensor:
+    """idx (B, M, S) with slot 0 repeated up to a multiple of the kernels'
+    8-row tile."""
+    B, M, S = idx.shape
+    if S % _ROWS == 0:
+        return idx
+    pad = _ROWS - S % _ROWS
+    return torch.cat([idx, idx[..., :1].expand(B, M, pad)], dim=-1).contiguous()
 
 
 def _chain_kernel(table, idx, centers, weights, biases, relus,
@@ -73,12 +97,9 @@ def _chain_kernel(table, idx, centers, weights, biases, relus,
                          f"{tuple(idx.shape)}, centers {tuple(centers.shape)}")
     if not 1 <= L <= _MAX_LAYERS or len(biases) != L or len(relus) != L:
         raise ValueError(f"fused_chain: {L} layers (1..{_MAX_LAYERS} supported)")
-    if S % _ROWS:
-        # repeat slot 0 up to a multiple of the row tile: the max over S
-        # is unchanged by a repeated row
-        pad = _ROWS - S % _ROWS
-        idx = torch.cat([idx, idx[..., :1].expand(B, M, pad)], dim=-1).contiguous()
-        S += pad
+    # the max over S is unchanged by a repeated row
+    idx = _pad_slots(idx)
+    S = idx.shape[2]
     widths = [C]
     for w, b in zip(weights, biases):
         _build.require(w, "weight", torch.float32, 2, dev)
@@ -157,30 +178,184 @@ def candidate_cap(n: int) -> int:
     return ((max(int(n * 0.72), 256) + 127) // 128) * 128
 
 
+def _pe_forward(table, idx, centers, k0, b0, k1, b1):
+    return _chain(table, idx, centers, (k0, k1), (b0, b1), _PE_RELUS, "group_pe_max")
+
+
+def _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot):
+    """The PE block's VJP with a frozen table, written out as the kernel
+    computes it: recompute, route `cot` (B, M, G) through the max over S
+    (split evenly among exact ties; b1 is constant over S, so the routing
+    compares h @ k1 without it), backprop both layers.
+    -> (dcenters (B, M, 3), dk0 (C, F), db0 (F,), dk1 (F, G), db1 (G,))."""
+    B, M, S = idx.shape
+    C = table.shape[-1]
+    qg = _gather_rows_plain(table, idx.reshape(B, M * S)).reshape(B, M, S, C)
+    qg = qg - torch.nn.functional.pad(centers, (0, C - 3))[:, :, None, :]
+    hpre = torch.matmul(qg, k0) + b0
+    h = torch.relu(hpre)
+    h2 = torch.matmul(h, k1)
+    tie = h2 == torch.amax(h2, dim=2, keepdim=True)
+    share = cot / tie.sum(dim=2, dtype=cot.dtype)
+    dh2 = torch.where(tie, share[:, :, None, :], torch.zeros_like(h2))
+    dk1 = torch.einsum("bmsf,bmsg->fg", h, dh2)
+    dh1 = torch.where(hpre > 0, torch.matmul(dh2, k1.t()), torch.zeros_like(hpre))
+    dk0 = torch.einsum("bmsc,bmsf->cf", qg, dh1)
+    dcenters = -torch.matmul(dh1, k0[:3].t()).sum(dim=2)
+    return dcenters, dk0, dh1.sum(dim=(0, 1, 2)), dk1, cot.sum(dim=(0, 1))
+
+
+# blocks of the PE-backward kernel: a fixed count, so that each weight
+# gradient sums its per-block partials in the same order on every run
+_PE_BWD_BLOCKS = 264
+
+
+def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot):
+    _build.refuse_grad("pe_bwd", table, centers, k0, b0, k1, cot)
+    dev = table.device
+    for t, name, dtype, ndim in ((table, "table", torch.float32, 3),
+                                 (idx, "idx", torch.int32, 3),
+                                 (centers, "centers", torch.float32, 3),
+                                 (k0, "k0", torch.float32, 2),
+                                 (b0, "b0", torch.float32, 1),
+                                 (k1, "k1", torch.float32, 2),
+                                 (cot, "cot", torch.float32, 3)):
+        _build.require(t, name, dtype, ndim, dev)
+    B, N, C = table.shape
+    M = idx.shape[1]
+    F, G = k1.shape
+    if (idx.shape[0] != B or centers.shape != (B, M, 3) or C < 3
+            or k0.shape != (C, F) or b0.shape != (F,) or cot.shape != (B, M, G)):
+        raise ValueError(f"pe_bwd: table {tuple(table.shape)}, idx {tuple(idx.shape)}, "
+                         f"centers {tuple(centers.shape)}, k0 {tuple(k0.shape)}, "
+                         f"k1 {tuple(k1.shape)}, cot {tuple(cot.shape)}")
+    if (F % 4 or G % 4 or F > 256 or _build.pitch(C) * F > 16 * 4 * 256
+            or F * G > 16 * 256):
+        raise ValueError(f"pe_bwd: C={C}, F={F}, G={G} (F and G multiples of 4, "
+                         f"F <= 256, C * F <= {16 * 4 * 256}, F * G <= 4096)")
+    # a repeated slot 0 is an exact tie of slot 0: the even split hands
+    # each copy its share, and the copies' contributions sum to slot 0's
+    idx = _pad_slots(idx)
+    S = idx.shape[2]
+    n_acc = C * F + F + F * G + G
+    Pc = _build.pitch(C)
+    # float4 loads: k0 padded with zero rows to Pc, k0 and b0 16-byte aligned
+    k0 = torch.nn.functional.pad(k0, (0, 0, 0, Pc - C))
+    k0, b0 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k0, b0))
+
+    def smem_bytes(gc):
+        R = gc * S
+        return (R * (Pc + F + G + 4) + 2 * F * G + 3 * F + 4096) * 4
+
+    # centers per block tile: up to 256 rows while two blocks fit an SM
+    gc = 1
+    while 2 * gc * S <= 256 and smem_bytes(2 * gc) <= _build.SMEM_TWO_BLOCKS:
+        gc *= 2
+    smem = smem_bytes(gc)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"pe_bwd: {smem} B of shared memory needed (C={C}, "
+                         f"F={F}, G={G}) exceeds {_build.SMEM_LIMIT}")
+    n_tiles = B * ((M + gc - 1) // gc)
+    blocks = max(1, min(n_tiles, _PE_BWD_BLOCKS))
+    dcenters = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
+    partials = torch.empty((blocks, n_acc), dtype=torch.float32, device=dev)
+    sums = torch.empty((n_acc,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    _build.launch_counts["pe_bwd"] += 1
+    _build.check(lib.g4d_pe_bwd(
+        table.data_ptr(), idx.data_ptr(), centers.data_ptr(), k0.data_ptr(),
+        b0.data_ptr(), k1.data_ptr(), cot.data_ptr(), B, N, C, M, S, F, G, gc,
+        blocks, smem, dcenters.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+        _build.stream_of(table)), "pe_bwd")
+    dk0, db0, dk1, db1 = torch.split(sums, [C * F, F, F * G, G])
+    return dcenters, dk0.view(C, F), db0, dk1.view(F, G), db1
+
+
+def _pe_bwd(table, idx, centers, k0, b0, k1, cot):
+    if use_kernel(table):
+        return _pe_bwd_kernel(table.contiguous(), idx.to(torch.int32).contiguous(),
+                              centers.contiguous(), k0.contiguous(), b0.contiguous(),
+                              k1.contiguous(), cot.contiguous())
+    return _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot)
+
+
+class _PeMaxFrozenTable(torch.autograd.Function):
+    """`group_pe_max` over a table that gets no gradient (JAX's
+    `_group_pe_max_nt`)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, centers, k0, b0, k1, b1):
+        ctx.save_for_backward(table, idx, centers, k0, b0, k1)
+        ctx.kernel = use_kernel(table)
+        return _pe_forward(table, idx, centers, k0, b0, k1, b1)
+
+    @staticmethod
+    def backward(ctx, cot):
+        table, idx, centers, k0, b0, k1 = ctx.saved_tensors
+        with dispatch_as(ctx.kernel):
+            return (None, None) + _pe_bwd(table, idx, centers, k0, b0, k1, cot)
+
+
+class _PeMaxSplitFrozen(torch.autograd.Function):
+    """JAX's `group_pe_max_split_frozen`: the split projection forward, the
+    unsplit backward over the raw (3 + C)-wide table with the full k0."""
+
+    @staticmethod
+    def forward(ctx, xyz, features, idx, centers, k0, b0, k1, b1):
+        ctx.save_for_backward(xyz, features, idx, centers, k0, b0, k1)
+        ctx.kernel = use_kernel(xyz)
+        proj = torch.matmul(features, k0[3:])
+        packed = torch.cat([xyz, proj], dim=-1)
+        kfull = torch.cat([k0[:3], torch.eye(k0.shape[1], dtype=k0.dtype,
+                                             device=k0.device)], dim=0)
+        return _pe_forward(packed, idx, centers, kfull, b0, k1, b1)
+
+    @staticmethod
+    def backward(ctx, cot):
+        xyz, features, idx, centers, k0, b0, k1 = ctx.saved_tensors
+        table = torch.cat([xyz, features], dim=-1)
+        with dispatch_as(ctx.kernel):
+            return (None, None, None) + _pe_bwd(table, idx, centers, k0, b0, k1, cot)
+
+
 def group_pe_max(table: torch.Tensor, idx: torch.Tensor, centers: torch.Tensor,
                  k0: torch.Tensor, b0: torch.Tensor, k1: torch.Tensor,
-                 b1: torch.Tensor) -> torch.Tensor:
+                 b1: torch.Tensor, table_grad: bool = True) -> torch.Tensor:
     """max_s (relu((table[idx_s] - pad(centers)) @ k0 + b0) @ k1 + b1):
     table (B, N, C) with xyz on channels 0..2, idx (B, M, S), centers
     (B, M, 3), k0 (C, F), k1 (F, G) -> (B, M, G). The chain kernel with two
-    layers; forward-only on the card."""
-    return _chain(table, idx, centers, (k0, k1), (b0, b1), _PE_RELUS, "group_pe_max")
+    layers, differentiable in everything but idx.
+
+    `table_grad=False` declares the table non-trainable (the body xyz and
+    normals): it gets no gradient, and the backward is the PE-backward
+    kernel on the card. With `table_grad=True` and a table that requires
+    grad, the CPU differentiates the plain version, and the card raises:
+    the table's gradient (a scatter-add) waits for the canonical-stage
+    training slice."""
+    if table_grad and table.requires_grad and torch.is_grad_enabled():
+        if use_kernel(table):
+            raise RuntimeError(
+                "group_pe_max: the table's gradient (table_grad=True with a table "
+                "that requires grad) has no CUDA kernel yet; it comes with the "
+                "canonical-stage training slice. Pass table_grad=False for a "
+                "frozen table, or differentiate inside ops.plain_ops()")
+        return _chain_reference(table, idx, centers, (k0, k1), (b0, b1), _PE_RELUS)
+    return _PeMaxFrozenTable.apply(table.detach(), idx, centers, k0, b0, k1, b1)
 
 
 def group_pe_max_split_frozen(xyz: torch.Tensor, features: torch.Tensor,
                               idx: torch.Tensor, centers: torch.Tensor,
                               k0: torch.Tensor, b0: torch.Tensor,
                               k1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
-    """`group_pe_max` over concat(xyz, features) with the first layer split
-    around the gather: the features are projected to F once per point
-    (`features @ k0[3:]`, a plain matmul), so the gathered table is 3 + F
-    wide, and the first layer becomes concat(k0[:3], I_F). k0 is the full
-    (3 + C, F) weight."""
-    proj = torch.matmul(features, k0[3:])
-    packed = torch.cat([xyz, proj], dim=-1)
-    kfull = torch.cat([k0[:3], torch.eye(k0.shape[1], dtype=k0.dtype,
-                                         device=k0.device)], dim=0)
-    return group_pe_max(packed, idx, centers, kfull, b0, k1, b1)
+    """`group_pe_max` over concat(xyz, features), a frozen table, with the
+    first layer split around the gather: the features are projected to F
+    once per point (`features @ k0[3:]`, a plain matmul), so the gathered
+    table is 3 + F wide, and the first layer becomes concat(k0[:3], I_F).
+    The backward runs over the unsplit (3 + C)-wide table, so k0[3:] gets
+    its gradient from the gathered raw features; xyz and features get
+    none. k0 is the full (3 + C, F) weight."""
+    return _PeMaxSplitFrozen.apply(xyz.detach(), features.detach(), idx, centers,
+                                   k0, b0, k1, b1)
 
 
 def _compact_candidates(xyz: torch.Tensor, centers: torch.Tensor,
@@ -213,7 +388,7 @@ def _gather_candidates(xyz: torch.Tensor, packed: torch.Tensor,
 
 
 def _pe_all(table, idxs, centers, pe_params):
-    return [group_pe_max(table, idx, centers, *params)
+    return [group_pe_max(table, idx, centers, *params, table_grad=False)
             for idx, params in zip(idxs, pe_params)]
 
 
@@ -239,6 +414,8 @@ def query_group_pe_multi(radii: Sequence[float], nsamples: Sequence[int],
     a tuple of (B, M, G_i), exactly max_s PE_i over the neighbourhoods of
     `ball_query_multi(radii, nsamples, xyz, new_xyz)[i]`, including the
     no-hit row-0 convention. pe_params[i] = (k0, b0, k1, b1), k0 (3 + C, F).
+    (xyz, features) get no gradient through the PE blocks (`group_pe_max`
+    with `table_grad=False`): the posed stage's body table is batch data.
 
     For N >= 1024 with cap < N the query runs over the candidates within
     max(radii) of any center, compacted in index order (so the first-S

@@ -6,9 +6,11 @@ device of its input: a CPU tensor takes the plain torch version (`_*_plain`),
 a CUDA tensor launches the hand-written CUDA kernel (`ops/csrc/`) or raises.
 Inside `with plain_ops():` every op runs its plain version on any device:
 the oracle that the kernels are held against on the card, entered on
-purpose, never as a fallback. The kernels are forward-only: a wrapper whose
+purpose, never as a fallback. A kernel wrapper is forward-only: one whose
 input requires grad while autograd records raises, instead of cutting the
-gradient off.
+gradient off. Gradients go through autograd Functions (here `knn_points`),
+whose forward runs with grad off and whose backward takes the forward's
+choice of kernel or plain version (`dispatch_as`).
 
 Semantics follow the JAX reference bit for bit where it promises that:
 distances are diff-form fp32 `dx*dx + dy*dy + dz*dz` summed left to right
@@ -52,6 +54,13 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
     raise ValueError(f"no kernel or plain dispatch for device {t.device}")
+
+
+def dispatch_as(kernel: bool):
+    """The context for an autograd Function's backward, given its forward's
+    `use_kernel`: autograd runs the backward of CUDA tensors on a worker
+    thread, where the caller's `plain_ops()` is not in effect."""
+    return contextlib.nullcontext() if kernel else plain_ops()
 
 
 def _sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -422,6 +431,85 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     else:
         dist2, idx = _three_nn_plain(unknown, known)
     return torch.sqrt(dist2), idx
+
+
+# ---------------------------------------------------------------------------
+# k nearest neighbours
+# ---------------------------------------------------------------------------
+
+
+def _nn1_plain(query: torch.Tensor, points: torch.Tensor):
+    """Squared distance to and index of the nearest point: the min, then the
+    lowest index attaining it (ties to the lower index)."""
+    n = points.shape[1]
+    iota = torch.arange(n, device=points.device)
+    dists, idxs = [], []
+    for q0 in range(0, query.shape[1], _CHUNK):
+        d2 = _sqdist(query[:, q0:q0 + _CHUNK, None, :], points[:, None, :, :])
+        best = d2.min(dim=-1, keepdim=True).values
+        dists.append(best[..., 0])
+        idxs.append(torch.where(d2 <= best, iota, n).min(dim=-1).values)
+    return torch.cat(dists, dim=1), torch.cat(idxs, dim=1).to(torch.int32)
+
+
+def _nn1_kernel(query: torch.Tensor, points: torch.Tensor):
+    _build.refuse_grad("nn1", query, points)
+    dev = query.device
+    _build.require(query, "query", torch.float32, 3, dev)
+    _build.require(points, "points", torch.float32, 3, dev)
+    B, M, _ = query.shape
+    N = points.shape[1]
+    if query.shape[2] != 3 or points.shape[0] != B or points.shape[2] != 3 or N < 1:
+        raise ValueError(f"nn1: query {tuple(query.shape)}, points {tuple(points.shape)}")
+    d2 = torch.empty((B, M), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, M), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    _build.launch_counts["nn1"] += 1
+    _build.check(lib.g4d_nn1(query.data_ptr(), points.data_ptr(), B, M, N,
+                             d2.data_ptr(), idx.data_ptr(), _build.stream_of(query)),
+                 "nn1")
+    return d2, idx
+
+
+class _NN1(torch.autograd.Function):
+    """1-NN squared distance and index; the gradient of the distance is
+    2 (q - p[idx]) for the query and its negation, scattered, for the
+    points (JAX's `_nn1_bwd`, plain torch on every device)."""
+
+    @staticmethod
+    def forward(ctx, query, points):
+        if use_kernel(query):  # the backward is plain torch on every path
+            d2, idx = _nn1_kernel(query.contiguous(), points.contiguous())
+        else:
+            d2, idx = _nn1_plain(query, points)
+        ctx.save_for_backward(query, points, idx)
+        ctx.mark_non_differentiable(idx)
+        return d2, idx
+
+    @staticmethod
+    def backward(ctx, g, _g_idx):
+        query, points, idx = ctx.saved_tensors
+        dq = 2.0 * (query - _gather_rows_plain(points, idx)) * g[..., None]
+        dp = None
+        if ctx.needs_input_grad[1]:
+            B, N, _ = points.shape
+            flat = (idx.long() + N * torch.arange(B, device=idx.device)[:, None]).reshape(-1)
+            dp = torch.zeros_like(points).reshape(B * N, 3).index_add_(
+                0, flat, -dq.reshape(-1, 3)).reshape(B, N, 3)
+        return (dq if ctx.needs_input_grad[0] else None), dp
+
+
+def knn_points(query: torch.Tensor, points: torch.Tensor, K: int = 1):
+    """K nearest neighbours of `query` (B, M, 3) in `points` (B, N, 3) ->
+    (dists (B, M, K) SQUARED distances ascending, idx (B, M, K) int32).
+    Differentiable in the distances. K=1 is the 1-NN kernel on the card
+    (counter `nn1`; diff-form fp32, ties to the lower index, any N); K > 1
+    is plain `pairwise_sqdist` + top-k."""
+    if K == 1:
+        d2, idx = _NN1.apply(query, points)
+        return d2[..., None], idx[..., None]
+    neg, idx = torch.topk(-pairwise_sqdist(query, points), K, dim=-1)
+    return -neg, idx.to(torch.int32)
 
 
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor,

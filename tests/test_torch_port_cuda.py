@@ -9,10 +9,15 @@ The shapes are the awkward ones the forward does not reach: ragged tiles,
 one point, no-hit centers, odd radius counts, 1- to 4-layer chains with a
 linear last layer, points at exactly the radius, empty and full valid
 counts, distance ties at the k-th neighbour and zero distances, GCN frames
-that are not a multiple of the vertex tile with offsets near V. Indices and
-masks must be bitwise equal; the fused chain and the GCN stack agree within
-rtol 1e-4 / atol 1e-5, the K-NN weights within rtol 1e-4 / atol 1e-6 (fp32
-summation order).
+that are not a multiple of the vertex tile with offsets near V, 1-NN ties and
+tables around the 2048-point tile, banded products with 1 to 64 diagonals at
+C = 3, 5 and 128 and their transposes, PE backwards with padded S (4, 12)
+and tables up to 387 wide. Indices, masks, the 1-NN and the banded product
+must be bitwise equal; the fused chain, the GCN stack and the PE backward's
+dcenters agree within rtol 1e-4 / atol 1e-5, its weight gradients within
+1e-4 of their largest magnitude, the K-NN weights within rtol 1e-4 /
+atol 1e-6 (fp32 summation order); two PE-backward launches are bitwise
+equal. A small posed train step on the card matches the CPU's.
 """
 
 import numpy as np
@@ -303,17 +308,24 @@ def test_gcn_stack(dev, V, offsets, attn):
 
 
 def test_posed_wrappers_refuse_autograd(dev):
+    """The K-NN transfer stays forward-only, and a PE table that requires
+    grad (table_grad=True) raises on the card (its scatter-add gradient is
+    not ported); the GCN stack and a frozen-table PE block differentiate."""
     x = torch.zeros(1, 16, 3, device=dev, requires_grad=True)
-    w = torch.zeros(3, 8, device=dev)
+    w = torch.zeros(3, 8, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="knn_transfer: the CUDA kernel is forward-only"):
         skinning.knn_transfer(x, x.detach(), torch.zeros(1, 16, 4, device=dev), 2, 2)
-    with pytest.raises(RuntimeError, match="gcn_stack: the CUDA kernel is forward-only"):
-        ops.gcn_stack([x], [w], [torch.zeros(8, device=dev)],
-                      torch.eye(16, device=dev), (0,), (True,), 0)
-    with pytest.raises(RuntimeError, match="group_pe_max: the CUDA kernel is forward-only"):
-        ops.group_pe_max(x, torch.zeros(1, 2, 8, dtype=torch.int32, device=dev),
-                         x[:, :2].detach(), w, torch.zeros(8, device=dev),
-                         torch.zeros(8, 8, device=dev), torch.zeros(8, device=dev))
+    pe_args = (torch.zeros(1, 2, 8, dtype=torch.int32, device=dev), x[:, :2].detach(), w,
+               torch.zeros(8, device=dev), torch.zeros(8, 8, device=dev),
+               torch.zeros(8, device=dev))
+    with pytest.raises(RuntimeError, match="canonical-stage training slice"):
+        ops.group_pe_max(x, *pe_args)
+    ops.group_pe_max(x, *pe_args, table_grad=False).sum().backward()
+    assert x.grad is None and w.grad is not None
+    out, _ = ops.gcn_stack([x], [w], [torch.zeros(8, device=dev)],
+                           torch.eye(16, device=dev), (0,), (True,), 0)
+    out.sum().backward()
+    assert x.grad is not None
     with torch.no_grad():  # the same calls launch under no_grad
         skinning.knn_transfer(x, x, torch.zeros(1, 16, 4, device=dev), 2, 2)
 
@@ -330,6 +342,173 @@ def test_posed_wrappers_count_launches(dev):
                   torch.eye(48, device=dev), (0,), (True,), 0)
     assert dict(ops.launch_counts) == {"coverage": 1, "ball_query_grouped": 1,
                                        "knn_transfer": 1, "gcn_stack": 1}
+
+
+# ---- posed train-step kernels ----------------------------------------------
+
+
+@pytest.mark.parametrize("N", [1, 5, 2047, 2049, 6890])
+@pytest.mark.parametrize("M", [1, 300])
+def test_nn1(dev, N, M):
+    """Ties (every point duplicated, queries on points), one query, N
+    around the 2048-point tile: d^2 and idx bitwise the plain version's."""
+    base = cloud(17, 2, (N + 1) // 2)
+    points = torch.cat([base, base], 1)[:, :N].contiguous()
+    query = cloud(18, 2, M)
+    query[:, : min(M, N)] = points[:, : min(M, N)]
+    dk, ik = pc._nn1_kernel(query, points)
+    dp, ip = pc._nn1_plain(query, points)
+    torch.testing.assert_close(ik, ip, rtol=0, atol=0)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=0)
+
+
+def test_knn_points_gradient(dev):
+    q = cloud(19, 2, 500).requires_grad_(True)
+    p = cloud(20, 2, 3000)
+    g = torch.randn(2, 500, 1, device=dev)
+    d, _ = ops.knn_points(q, p, K=1)
+    (dq,) = torch.autograd.grad((d * g).sum(), q)
+    with ops.plain_ops():
+        d2, _ = ops.knn_points(q, p, K=1)
+        (dq2,) = torch.autograd.grad((d2 * g).sum(), q)
+    torch.testing.assert_close(dq, dq2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("V,D", [(5, 1), (7, 3), (48, 7), (200, 64), (2000, 7)])
+@pytest.mark.parametrize("C", [3, 128, 5])
+def test_banded(dev, V, D, C):
+    """Random offsets (0 and wrapping ones) and random diagonal values:
+    the product and its transposed band bitwise the plain roll loop."""
+    g = torch.Generator().manual_seed(21)
+    offsets = tuple(sorted(torch.randperm(V, generator=g)[:D].tolist()))
+    vals = torch.rand(D, V, generator=g).to(dev)
+    x = torch.randn(4, V, C, generator=g).to(dev)
+    torch.testing.assert_close(graph._banded_kernel(vals, x, offsets),
+                               graph._banded_plain(vals, x, offsets), rtol=0, atol=0)
+    vt, ot = graph.transposed_band(vals, offsets)
+    torch.testing.assert_close(graph._banded_kernel(vt.contiguous(), x, ot),
+                               graph._banded_plain(vt, x, ot), rtol=0, atol=0)
+
+
+PE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _pe_inputs(seed, B, N, M, S, C, F=32, G=32):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn(B, N, C, generator=g)
+    idx = torch.randint(0, N, (B, M, S), generator=g, dtype=torch.int32)
+    idx[:, :, S // 2:] = idx[:, :, :1]  # replicated slots: exact ties
+    centers = torch.randn(B, M, 3, generator=g)
+    k0 = 0.3 * torch.randn(C, F, generator=g)
+    b0 = 0.1 * torch.randn(F, generator=g)
+    k1 = 0.3 * torch.randn(F, G, generator=g)
+    cot = torch.randn(B, M, G, generator=g)
+    return [t.to("cuda") for t in (table, idx, centers, k0, b0, k1, cot)]
+
+
+@pytest.mark.parametrize("C,S,M", [(6, 32, 2000), (6, 4, 37), (67, 32, 300),
+                                   (387, 8, 2000), (99, 16, 1), (99, 16, 2000),
+                                   (3, 12, 50)])
+def test_pe_bwd(dev, C, S, M):
+    """S=4 and 12 (padded with slot 0), C up to 387, one center, ragged
+    tiles: dcenters within rtol 1e-4 / atol 1e-5 and the weight gradients
+    within 1e-4 of their largest magnitude (sums of up to ~1e5 terms in
+    another order), both of the plain version and of the plain version in
+    float64, and two launches bitwise equal (fixed block count, partials
+    summed in block order). The cotangent is zero at the (center, channel)
+    pairs whose max another summation order may put on another slot
+    (`chip_smoke.pe_near_ties`, at most 2% of them); the float64 version
+    takes the plain version's routing and ReLU masks (`chip_smoke.pe_routing`)."""
+    from chip_smoke import pe_bwd_float64, pe_near_ties, pe_routing
+
+    args = _pe_inputs(22, 2, 700, M, S, C)
+    near = pe_near_ties(*args[:6])
+    assert near.float().mean() <= 0.02
+    args[-1] = args[-1] * ~near
+    got = pemax._pe_bwd_kernel(*args)
+    again = pemax._pe_bwd_kernel(*args)
+    want = pemax._pe_bwd_plain(*args)
+    exact = pe_bwd_float64(*args, pe_routing(*args[:6]))
+    for ref in (want, exact):
+        ref = [r.float() for r in ref]
+        torch.testing.assert_close(got[0], ref[0], **PE_TOL)
+        for g, w in zip(got[1:], ref[1:]):
+            assert g.shape == w.shape
+            assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    for g, a in zip(got, again):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+
+
+def test_train_wrappers_count_launches(dev):
+    """One launch per call: pe_bwd for a PE block's backward, banded for
+    each product (forward and transposed), nn1 for a 1-NN query."""
+    args = _pe_inputs(23, 1, 300, 40, 8, 6)
+    table, idx, centers, k0, b0, k1, cot = args
+    k0.requires_grad_(True)
+    ops.reset_counts()
+    out = ops.group_pe_max(table, idx, centers, k0, b0, k1, torch.zeros(32, device=dev),
+                           table_grad=False)
+    (out * cot).sum().backward()
+    x = torch.randn(2, 48, 3, device=dev, requires_grad=True)
+    ops.graph_matmul_banded(torch.eye(48, device=dev).roll(1, 1), x, (1,)).sum().backward()
+    ops.knn_points(x, torch.randn(2, 100, 3, device=dev), K=1)
+    assert dict(ops.launch_counts) == {"group_pe_max": 1, "pe_bwd": 1, "banded": 2,
+                                       "nn1": 1}
+
+
+def test_plain_ops_reaches_the_backward(dev):
+    """Inside `plain_ops()` the PE block, the banded product and the GCN
+    stack launch no kernel, in the forward or in the backward that autograd
+    runs on its CUDA worker thread."""
+    table, idx, centers, k0, b0, k1, cot = _pe_inputs(24, 1, 300, 40, 8, 6)
+    k0.requires_grad_(True)
+    x = torch.randn(2, 48, 3, device=dev, requires_grad=True)
+    w = torch.randn(3, 8, device=dev, requires_grad=True)
+    adj = torch.eye(48, device=dev) + torch.eye(48, device=dev).roll(1, 1)
+    ops.reset_counts()
+    with ops.plain_ops():
+        out = ops.group_pe_max(table, idx, centers, k0, b0, k1, torch.zeros(32, device=dev),
+                               table_grad=False)
+        y = ops.graph_matmul_banded(adj, x, (0, 1))
+        h, _ = ops.gcn_stack([x], [w], [torch.zeros(8, device=dev)], adj, (0, 1), (True,), 0)
+    ((out * cot).sum() + (y * y).sum() + h.sum()).backward()
+    assert dict(ops.launch_counts) == {}
+    assert k0.grad is not None and x.grad is not None and w.grad is not None
+
+
+def test_train_step_cuda_matches_cpu(dev):
+    """One posed train step on the card and on the CPU from the same
+    weights: every loss term within rtol 1e-4, every parameter gradient
+    within 1e-3 relative L2 (fp32 rounding may move a radius-boundary
+    membership)."""
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.models import GarmentAssets
+    from garment4d_tpu_torch.smpl import synthetic_smpl
+    from garment4d_tpu_torch.train import make_posed_steps, make_state_for
+
+    torch.manual_seed(0)
+    assets = GarmentAssets.synthetic(num_rings=12, ring_size=16)
+    body = synthetic_smpl(1100, device="cpu")
+    batch = make_batch(assets, body, batch_size=2, T=3, npoints=2048, device="cpu")
+    weights = GarmentReconstructor.from_assets(assets, body, "cpu").model.state_dict()
+    runs = []
+    for device in ("cpu", dev):
+        recon = GarmentReconstructor.from_assets(assets, body, device, lbs_k=64,
+                                                 state_dict=weights)
+        state = make_state_for(recon.model, lr=1e-3, freeze_canonical=True)
+        train_step, _ = make_posed_steps(recon.model, assets, body.faces)
+        ops.reset_counts()
+        losses = train_step(state, {k: v.to(device) for k, v in batch.items()})
+        grads = {k: p.grad.cpu() for k, p in recon.model.named_parameters()
+                 if p.requires_grad}
+        runs.append((losses, grads, dict(ops.launch_counts)))
+    (lc, gc, _), (lg, gg, counts) = runs
+    assert all(counts.get(k, 0) > 0 for k in ("pe_bwd", "banded", "nn1", "gcn_stack"))
+    for k, v in lc.items():
+        torch.testing.assert_close(lg[k].cpu(), v, rtol=1e-4, atol=1e-6)
+    for k, v in gc.items():
+        assert float((gg[k] - v).norm() / v.norm().clamp_min(1e-12)) <= 1e-3, k
 
 
 @pytest.mark.parametrize("shuffle", [False, True])
