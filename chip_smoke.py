@@ -74,8 +74,36 @@ then:
    PE backward of both, and printed beside it the unmasked reading and the
    kernel path against the plain path each run forward and backward. Train
    frames/s (40 / median of 5 steps after 2 warm-ups), the plain path's (2
-   steps) and a profile of one step;
-6. prints a JSON line of the kernels, then the card line, then as the last
+   steps) and a profile of one step. Beside them, two op-level checks: the
+   PE backward's dtable half (table_grad=True: the slots' row gradients
+   summed by the scatter-add) at garment pe0 unsplit, 67-32-32 at S=32, all
+   six gradients against the plain version and the float64 witness with the
+   near-tie mask, two launches bitwise equal; and (in phase 2) the
+   valid-count chain call at the body PE shape, bitwise the chain kernel
+   without the count;
+6. canonical train step at the recipe's shape (B=20, T=10, N=6890, the
+   seed-1 batch, the canonical subtree of `posed_synth.npz`, Adam at lr 1e-3
+   over every parameter, dropout 0.5 from a seeded generator): zeroes the
+   counters and runs `train_step` once, requiring fps, ball_query,
+   gather_rows, three_nn, nn1 and scatter_add to have launched (counts
+   printed), every loss term finite, every parameter with a finite gradient
+   and moved, every BatchNorm running statistic changed. On the inputs
+   recorded from the step, each of the scatter-add's shapes: within rtol
+   1e-5 / atol 1e-6 of its plain version on the card (`index_add_`),
+   bitwise the ascending-order sum on the CPU, two launches bitwise equal;
+   timed beside its bound (bytes), its plain version and one `index_add_`.
+   The eval step (fused SA path, the eval-tail mask) once; the same train
+   step on the plain path from the same weights and dropout seed, which
+   must launch no kernel, run twice: every loss term within 1e-3
+   relative; the two paths' gradients, and the plain path's against
+   itself, printed (its atomics and the train-mode BatchNorms move them by
+   up to ~1e-3). Then one kernel-path forward and its backward through the
+   scatter-add kernel and, three times, through its plain version: every
+   parameter's gradient, kernel vs plain, within 1e-4 relative L2 or within
+   3x the plain version's own run-to-run difference. Train frames/s (200 /
+   median of 5 steps after 2 warm-ups), the plain path's (1 step), a
+   profile of one step and the peak memory;
+7. prints a JSON line of the kernels, then the card line, then as the last
    line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero without the last line; so
@@ -128,8 +156,20 @@ KERNELS = {
     "pe_bwd": ("pe_bwd.cu", "fusedpe.py:559", "train"),
     "banded": ("banded.cu", "banded.py:56", "train"),
     "nn1": ("nn1.cu", "nn1.py:57", "train"),
+    "scatter_add": ("scatter_add.cu", "scatter.py:79", "canonical_train"),
+    # held against their plain versions at the op level; no main path calls them
+    "pe_bwd_dtable": ("pe_bwd.cu", "fusedpe.py:559", None),
+    "group_pe_max_nv": ("fused_chain.cu", "fusedpe.py:289", None),
 }
-FORWARD_KERNELS = [k for k, v in KERNELS.items() if v[2] != "train"]
+FORWARD_KERNELS = [k for k, v in KERNELS.items() if v[2] in ("canonical", "posed")]
+POSED_TRAIN_KERNELS = FORWARD_KERNELS + [k for k, v in KERNELS.items() if v[2] == "train"]
+# the canonical train step: the recipe's shape (scripts/train/train_skirt_canonical.sh)
+CANON_B = 20
+CANON_F = CANON_B * T
+CANON_TRAIN_KERNELS = ["fps", "ball_query", "gather_rows", "three_nn", "nn1", "scatter_add"]
+# a canonical-step gradient, kernel vs plain path, may differ by this many
+# times the plain path's own run-to-run difference where that exceeds GRAD_TOL
+SPREAD_FACTOR = 3
 TRAIN_B = 4  # sequences per train step (the JAX package's train bench)
 TRAIN_F = TRAIN_B * T
 TRAIN_LR = 1e-3
@@ -284,6 +324,16 @@ def coverage_tests(xyz, centers, radius) -> int:
     return total
 
 
+def chain_plain(table, idx, centers, weights, biases, relus, n_valid=None):
+    """The chain's plain version (every gather plain too), with the
+    valid-count check when `n_valid` is given."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.ops import pemax
+
+    with ops.plain_ops():
+        return pemax._chain(table, idx, centers, weights, biases, relus, "plain", n_valid)
+
+
 def chain_ops(idx, table, weights) -> float:
     Bc, M, S = idx.shape
     widths = [table.shape[-1]] + [w.shape[1] for w in weights]
@@ -380,14 +430,14 @@ def check_kernels(recon, pcd, res: Results):
         ws, bs = getattr(sa, f"mlp{scale}").folded()
         relus = (True,) * len(ws)
         out_k = pemax._chain_kernel(table, idx, ctr, ws, bs, relus)
-        out_p = pemax._chain_reference(table, idx, ctr, ws, bs, relus)
+        out_p = chain_plain(table, idx, ctr, ws, bs, relus)
         err = (out_k - out_p).abs().max().item()
         require(torch.allclose(out_k, out_p, **CHAIN_TOL),
                 f"fused chain {name}: max abs err {err} beyond {CHAIN_TOL}")
         widths = [table.shape[-1]] + [w.shape[1] for w in ws]
         res.record("fused_chain", f"{name} {tuple(idx.shape)} widths {widths}", err,
                    lambda: pemax._chain_kernel(table, idx, ctr, ws, bs, relus),
-                   lambda: pemax._chain_reference(table, idx, ctr, ws, bs, relus),
+                   lambda: chain_plain(table, idx, ctr, ws, bs, relus),
                    nbytes(table, idx, ctr, out_k, *ws, *bs), chain_ops(idx, table, ws))
 
     chain_case("sa1.mlp1", model.pointnet.sa1, xyz0, None, 1)
@@ -454,17 +504,32 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
     def pe_case(case, tbl, idx, ctr, k0, b0, k1, b1):
         ws, bs, relus = [k0.contiguous(), k1.contiguous()], [b0, b1], (True, False)
         out_k = pemax._chain_kernel(tbl, idx, ctr, ws, bs, relus, name="group_pe_max")
-        out_p = pemax._chain_reference(tbl, idx, ctr, ws, bs, relus)
+        out_p = chain_plain(tbl, idx, ctr, ws, bs, relus)
         err = (out_k - out_p).abs().max().item()
         require(torch.allclose(out_k, out_p, **CHAIN_TOL),
                 f"group_pe_max {case}: max abs err {err} beyond {CHAIN_TOL}")
         res.record("group_pe_max", f"{case} {tuple(idx.shape)} widths "
                    f"{[tbl.shape[-1], k0.shape[1], k1.shape[1]]}", err,
                    lambda: pemax._chain_kernel(tbl, idx, ctr, ws, bs, relus, name="group_pe_max"),
-                   lambda: pemax._chain_reference(tbl, idx, ctr, ws, bs, relus),
+                   lambda: chain_plain(tbl, idx, ctr, ws, bs, relus),
                    nbytes(tbl, idx, ctr, out_k, *ws, *bs), chain_ops(idx, tbl, ws))
 
     pe_case("body pe2", cpacked.contiguous(), qk[2], centers, *pe_params[2])
+
+    # the valid-count variant at the body PE shape: bitwise the chain kernel
+    # without the count (the same gathers), its flag read once per call
+    tbl, k0, b0, k1, b1 = cpacked.contiguous(), *pe_params[2]
+    ws, bs, relus = [k0.contiguous(), k1.contiguous()], [b0, b1], (True, False)
+    out_nv = pemax._chain_kernel(tbl, qk[2], centers, ws, bs, relus, name="group_pe_max_nv",
+                                 n_valid=counts)
+    out_k = pemax._chain_kernel(tbl, qk[2], centers, ws, bs, relus, name="group_pe_max")
+    require(torch.equal(out_nv, out_k), "group_pe_max_nv differs from the chain kernel")
+    res.record("group_pe_max_nv", f"body pe2 {tuple(qk[2].shape)} over {tbl.shape[1]} rows, "
+               f"counts {int(counts.min())}..{int(counts.max())}", 0,
+               lambda: pemax._chain_kernel(tbl, qk[2], centers, ws, bs, relus,
+                                           name="group_pe_max_nv", n_valid=counts),
+               lambda: chain_plain(tbl, qk[2], centers, ws, bs, relus, counts),
+               nbytes(tbl, qk[2], centers, counts, out_nv, *ws, *bs), chain_ops(qk[2], tbl, ws))
     g_xyz, g_ctr, g_feat = got["garment_pe2"]
     gpe = recon.model.garment_pe2
     g_idx = pc.ball_query(gpe.radius, gpe.nsample, g_xyz, g_ctr)
@@ -540,19 +605,26 @@ def pe_routing(table, idx, centers, k0, b0, k1):
 
 
 @torch.no_grad()
-def pe_bwd_float64(table, idx, centers, k0, b0, k1, cot, routing):
+def pe_bwd_float64(table, idx, centers, k0, b0, k1, cot, routing, table_grad=False):
     """The PE backward in float64 with its routing and ReLU masks given
     (`pe_routing`): exact values for an fp32 implementation that decides as
-    the plain fp32 version does."""
+    the plain fp32 version does; led by dtable with `table_grad`."""
+    from garment4d_tpu_torch.ops.pointcloud import _scatter_add_rows_plain
+
     tie, active = routing
     qg = _pe_rows(table, idx, centers).double()
     k0, b0, k1, cot = (t.double() for t in (k0, b0, k1, cot))
     h = torch.where(active, torch.matmul(qg, k0) + b0, 0.0)
     dh2 = torch.where(tie, (cot / tie.sum(dim=2, dtype=cot.dtype))[:, :, None, :], 0.0)
     dh1 = torch.where(active, torch.matmul(dh2, k1.t()), 0.0)
-    return (-torch.matmul(dh1, k0[:3].t()).sum(dim=2),
-            torch.einsum("bmsc,bmsf->cf", qg, dh1), dh1.sum(dim=(0, 1, 2)),
-            torch.einsum("bmsf,bmsg->fg", h, dh2), cot.sum(dim=(0, 1)))
+    grads = (-torch.matmul(dh1, k0[:3].t()).sum(dim=2),
+             torch.einsum("bmsc,bmsf->cf", qg, dh1), dh1.sum(dim=(0, 1, 2)),
+             torch.einsum("bmsf,bmsg->fg", h, dh2), cot.sum(dim=(0, 1)))
+    if not table_grad:
+        return grads
+    B, M, S = idx.shape
+    dqg = torch.matmul(dh1, k0.t()).reshape(B, M * S, -1)
+    return (_scatter_add_rows_plain(dqg, idx.reshape(B, M * S), table.shape[1]),) + grads
 
 
 @torch.no_grad()
@@ -598,12 +670,12 @@ def tie_free_pe_backward():
 
     backward, shares = pemax._pe_bwd, []
 
-    def tie_free(table, idx, centers, k0, b0, k1, cot):
+    def tie_free(table, idx, centers, k0, b0, k1, cot, table_grad=False):
         near = pe_near_ties(table, idx, centers, k0, b0, k1)
         shares.append(near.float().mean().item())
         require(shares[-1] <= NEAR_TIE_CAP, f"PE backward of a {tuple(table.shape)} "
                 f"table: near-tie share {shares[-1]} > {NEAR_TIE_CAP}")
-        return backward(table, idx, centers, k0, b0, k1, cot * ~near)
+        return backward(table, idx, centers, k0, b0, k1, cot * ~near, table_grad)
 
     pemax._pe_bwd = tie_free
     try:
@@ -692,7 +764,7 @@ def check_train_kernels(calls, res: Results):
     # garment unsplit 67/99/387 wide at S=32/16/8
     shapes = {}
     for a, _, _ in calls["pe_bwd"]:
-        shapes.setdefault((a[0].shape[2], a[1].shape[2]), a)
+        shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
     failed = []
     for (C, S), args in sorted(shapes.items()):
         table, idx, centers, k0, b0, k1, cot = args
@@ -734,6 +806,59 @@ def check_train_kernels(calls, res: Results):
                    nbytes(*args, *got), pe_bwd_ops(idx, k0, k1, routing[0]),
                    near_tie_share=share, err_vs_plain=vs_plain, err_vs_float64=vs_f64,
                    unmasked_err_vs_plain=unmasked, fp32_routing_differs_from_float64=flips)
+    failed += check_pe_dtable(shapes[(67, 32)], res)
+    return failed
+
+
+def check_pe_dtable(args, res: Results):
+    """The PE backward's dtable half (`table_grad=True`: the slots' row
+    gradients, summed by the scatter-add kernel) at garment pe0 unsplit,
+    67-32-32 at S=32, with the table treated as trainable: all six
+    gradients against the plain version and the float64 witness with the
+    near-tie mask (dtable, like the weight gradients, within 1e-4 of its
+    largest magnitude), two launches bitwise equal."""
+    from garment4d_tpu_torch.ops import pemax
+
+    table, idx, centers, k0, b0, k1, cot = args
+    near = pe_near_ties(*args[:6])
+    masked = (*args[:6], cot * ~near)
+    got = pemax._pe_bwd_kernel(*masked, table_grad=True)
+    again = pemax._pe_bwd_kernel(*masked, table_grad=True)
+    want = pemax._pe_bwd_plain(*masked, table_grad=True)
+    routing = pe_routing(*args[:6])
+    exact = pe_bwd_float64(*masked, routing, table_grad=True)
+    bits = all(torch.equal(g, a) for g, a in zip(got, again))
+
+    def agree(a, b):
+        return (float((a[0] - b[0].to(a[0].dtype)).abs().max())
+                <= 1e-4 * float(b[0].abs().max()) and pe_grads_agree(a[1:], b[1:]))
+
+    def errs(a, b):
+        return dict(dtable=float((a[0].double() - b[0].double()).abs().max()
+                                 / b[0].double().abs().max().clamp_min(1e-30)),
+                    **pe_grad_errors(a[1:], b[1:]))
+
+    vs_plain, vs_f64 = errs(got, want), errs(got, exact)
+    failed = [f"pe_bwd dtable half: {what}" for ok, what in (
+        (bits, "two launches differ"),
+        (agree(got, want), f"beyond tolerance of plain: {vs_plain}"),
+        (agree(got, exact), f"beyond tolerance of float64: {vs_f64}")) if not ok]
+    del exact
+    print(f"pe_bwd dtable half, garment pe0 {tuple(idx.shape)} widths "
+          f"{[table.shape[-1], k0.shape[1], k1.shape[1]]}: max err / max, kernel vs plain "
+          f"{max(vs_plain.values()):.2e} (dtable {vs_plain['dtable']:.2e}), vs float64 "
+          f"{max(vs_f64.values()):.2e}; two launches bitwise {bits}", flush=True)
+    Bt, M, S = idx.shape
+    C, F = k0.shape
+    won = int(routing[0].any(dim=-1).sum())
+    res.record("pe_bwd_dtable", f"garment pe0 unsplit {tuple(idx.shape)} widths "
+               f"{[C, F, k1.shape[1]]}, table_grad=True",
+               max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               lambda: pemax._pe_bwd_kernel(*args, table_grad=True),
+               lambda: pemax._pe_bwd_plain(*args, table_grad=True),
+               nbytes(*args, *got),
+               pe_bwd_ops(idx, k0, k1, routing[0]) + won * 2.0 * C * F + Bt * M * S * C,
+               err_vs_plain=vs_plain, err_vs_float64=vs_f64)
     return failed
 
 
@@ -846,7 +971,7 @@ def train_phase(assets, body, weights, res: Results):
             recording(graph, "_banded_kernel") as banded_calls, \
             recording(pemax, "_pe_bwd_kernel") as pe_calls, \
             recording(model, "refine") as steps:
-        losses, launches = counted("train", lambda: train_step(state, batch), list(KERNELS))
+        losses, launches = counted("train", lambda: train_step(state, batch), POSED_TRAIN_KERNELS)
     for name, n in TRAIN_LAUNCHES.items():
         require(launches[name] == n, f"{name}: {launches[name]} launches in a train "
                 f"step, {n} expected")
@@ -901,6 +1026,206 @@ def train_phase(assets, body, weights, res: Results):
                 plain_frames_per_sec=TRAIN_F / plain_s, device_ms_per_step=dev_ms,
                 idle_share=idle, loss_rel_err=loss_err, forced=forced,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+@torch.no_grad()
+def check_scatter_add(calls, res: Results):
+    """The scatter-add at each of its shapes in the canonical train step, on
+    the inputs recorded from the step: against its plain version on the card
+    (`index_add_`, atomics: rtol 1e-5 / atol 1e-6), bitwise against the
+    ascending-order sum on the CPU (the plain version there), two launches
+    bitwise equal; timed beside its bound (bytes), its plain version and
+    one `index_add_` call on the flattened rows."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    for (grads, idx, n), _, out in calls:
+        Bs, R, C = grads.shape
+        case = f"({Bs}, {R}, {C}) into {n} rows"
+        plain = pc._scatter_add_rows_plain(grads, idx, n)
+        err = float((out - plain).abs().max())
+        require(torch.allclose(out, plain, rtol=1e-5, atol=1e-6),
+                f"scatter_add {case}: max abs err {err} against index_add_")
+        require(torch.equal(out, pc._scatter_add_rows_kernel(grads, idx, n)),
+                f"scatter_add {case}: two launches differ")
+        cpu = pc._scatter_add_rows_plain(grads.cpu(), idx.cpu(), n)
+        require(torch.equal(out.cpu(), cpu),
+                f"scatter_add {case}: not bitwise the CPU's ascending-order sum")
+        del plain, cpu
+        flat = (idx.long() + n * torch.arange(Bs, device=idx.device)[:, None]).reshape(-1)
+        rows, lib_out = grads.reshape(-1, C), torch.zeros(Bs * n, C, device=grads.device)
+        res.record("scatter_add", case, err, lambda: pc._scatter_add_rows_kernel(grads, idx, n),
+                   lambda: pc._scatter_add_rows_plain(grads, idx, n),
+                   nbytes(grads, idx, out), float(grads.numel()), reps_k=10,
+                   library=lambda: lib_out.index_add_(0, flat, rows),
+                   bitwise_cpu=True, bitwise_repeat=True)
+        del lib_out
+
+
+@contextlib.contextmanager
+def plain_scatter():
+    """The scatter-add kernel swapped for its plain version (a module
+    function, which autograd's worker thread looks up too)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    saved = pc._scatter_add_rows_kernel
+    pc._scatter_add_rows_kernel = pc._scatter_add_rows_plain
+    try:
+        yield
+    finally:
+        pc._scatter_add_rows_kernel = saved
+
+
+def forced_scatter_backward(model, assets, body, batch, generator):
+    """One canonical train-mode forward on the kernel path, its loss's
+    backward run four times: through the scatter-add kernel, and three times
+    through its plain version (`index_add_`, atomics) swapped in. Every
+    parameter's gradient, kernel vs plain, within 1e-4 relative L2, or
+    within 3x the larger of two readings of the plain version against
+    itself where its atomics and the train-mode BatchNorms make those wider
+    (the gate); the readings per parameter are returned."""
+    import numpy as np
+    from garment4d_tpu_torch import losses as L
+
+    dev = torch.device("cuda")
+    model.train()
+    faces_tri = torch.as_tensor(np.asarray(assets.faces_tri), dtype=torch.long, device=dev)
+    faces = torch.as_tensor(np.asarray(body.faces), dtype=torch.long, device=dev)
+    out = model(batch["pcd"], generator())
+    total = L.canonical_stage_loss(out, batch, faces_tri, faces, L.LossWeights())["total_loss"]
+    names, params = zip(*model.named_parameters())
+    kernel = torch.autograd.grad(total, params, retain_graph=True)
+    with plain_scatter():
+        plain = [torch.autograd.grad(total, params, retain_graph=i < 2) for i in range(3)]
+    del out, total
+    err = {n: rel_l2(k, p) for n, k, p in zip(names, kernel, plain[0])}
+    spread = {n: max(rel_l2(a, p), rel_l2(b, p)) for n, a, b, p in
+              zip(names, plain[1], plain[2], plain[0])}
+    worst = max(err, key=err.get)
+    print(f"canonical train step, one kernel-path forward, its backward through the "
+          f"scatter-add kernel vs through its plain version: largest relative L2 "
+          f"{err[worst]:.3e} ({worst}; the plain version against itself there "
+          f"{spread[worst]:.3e}, at most {max(spread.values()):.3e})", flush=True)
+    failed = [f"{n}: relative L2 {e} > {GRAD_TOL} and > {SPREAD_FACTOR}x the plain "
+              f"version's own {spread[n]}" for n, e in err.items()
+              if e > max(GRAD_TOL, SPREAD_FACTOR * spread[n])]
+    require(not failed, "canonical train, scatter-add kernel vs plain backward: "
+            + "; ".join(failed[:8]))
+    return dict(worst=worst, max_rel_l2=err[worst], max_plain_spread=max(spread.values()),
+                rel_l2=err, plain_spread=spread)
+
+
+def canonical_train_phase(assets, body, weights, res: Results):
+    """The canonical-stage train step at the recipe's shape (B=20, T=10,
+    N=6890, the seed-1 batch, the canonical subtree of `posed_synth.npz`,
+    Adam at lr 1e-3 over every parameter, dropout from a seeded generator):
+    one counted step and its gates, the scatter-add against its plain
+    version and the CPU on the step's own inputs, the same step on the
+    plain path, speed, a profile and the peak memory."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.models import CanonicalGarmentModel
+    from garment4d_tpu_torch.ops import pointcloud as pc
+    from garment4d_tpu_torch.train import load_npz_subtree, make_canonical_steps, make_state_for
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = make_batch(assets, body, batch_size=CANON_B, T=T, npoints=N, seed=1, device=dev)
+    state_dict = load_npz_subtree(weights, "canonical")
+
+    def new_state():
+        model = CanonicalGarmentModel(assets).to(dev)
+        model.load_state_dict(state_dict, strict=True)
+        state = make_state_for(model, lr=TRAIN_LR)
+        return state, make_canonical_steps(model, assets, body.faces)
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(1)
+
+    state, (train_step, eval_step) = new_state()
+    model = state.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    with recording(pc, "_scatter_add_rows_kernel") as scatter_calls:
+        losses, launches = counted("canonical train", lambda: train_step(state, batch, generator()),
+                                   CANON_TRAIN_KERNELS)
+    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"canonical train step: peak device memory {peak_step:.2f} GiB (scatter-add inputs "
+          f"held for the checks)", flush=True)
+    for k, v in losses.items():
+        require(bool(torch.isfinite(v).all()), f"canonical loss {k} is not finite")
+    print("canonical train step losses: " + ", ".join(
+        f"{k} {v.item():.6g}" for k, v in losses.items()), flush=True)
+    grads = {}
+    for name, p in model.named_parameters():
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"{name}: no finite gradient")
+        require(not torch.equal(p.detach(), before[name]), f"{name}: not changed by the step")
+        grads[name] = p.grad.detach().clone()
+    buffers = dict(model.named_buffers())
+    for name, b in stats.items():
+        require(not torch.equal(buffers[name], b), f"{name}: running statistic unchanged")
+    print(f"{len(grads)} parameters, all with finite gradients and moved; {len(stats)} "
+          f"running statistics changed", flush=True)
+    check_scatter_add(scatter_calls, res)
+    del scatter_calls[:], before
+
+    # the eval step: inference mode, the fused eval-mode SA path, the mask
+    valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
+    eval_losses, eval_launches = counted(
+        "canonical eval", lambda: eval_step(state, dict(batch, valid_mask=valid)),
+        ["fused_chain", "nn1"])
+    for k, v in eval_losses.items():
+        require(bool(torch.isfinite(v).all()), f"canonical eval loss {k} is not finite")
+
+    # the same step on the plain path from the same weights and dropout
+    # seed, twice: it must launch no kernel and give the same losses. Its
+    # gradients are printed beside the kernel path's, not gated: the plain
+    # scatter and the losses' index_add_ use atomics, so the plain path
+    # does not repeat itself, and the train-mode BatchNorms amplify that
+    # rounding (up to ~1e-3 relative L2 between two plain runs)
+    plain_grads = []
+    for _ in range(2):
+        state_plain, (train_plain, _) = new_state()
+        ops.reset_counts()
+        with ops.plain_ops():
+            losses_plain = train_plain(state_plain, batch, generator())
+        torch.cuda.synchronize()
+        require(not any(ops.launch_counts.values()),
+                f"the plain canonical train step launched kernels: {dict(ops.launch_counts)}")
+        plain_grads.append({n: p.grad.detach().clone()
+                            for n, p in state_plain.model.named_parameters()})
+    loss_err = {k: float(((losses[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                for k, v in losses_plain.items()}
+    path_err = {n: rel_l2(grads[n], g) for n, g in plain_grads[0].items()}
+    path_spread = {n: rel_l2(plain_grads[1][n], g) for n, g in plain_grads[0].items()}
+    worst, widest = max(path_err, key=path_err.get), max(path_spread, key=path_spread.get)
+    print(f"canonical train step, kernel vs plain path, each forward and backward: losses "
+          f"within {max(loss_err.values()):.3e} relative ({max(loss_err, key=loss_err.get)}); "
+          f"gradients within {path_err[worst]:.3e} relative L2 ({worst}), the plain path "
+          f"against itself within {path_spread[widest]:.3e} ({widest})", flush=True)
+    require(max(loss_err.values()) <= LOSS_TOL,
+            f"canonical train losses, kernel vs plain path: {loss_err}")
+    del grads, plain_grads
+    forced = forced_scatter_backward(new_state()[0].model, assets, body, batch, generator)
+
+    step_s = wall_s(lambda: train_step(state, batch, generator()), runs=5, warmup=2)
+    print(f"canonical train step, kernel path: {CANON_F / step_s:.2f} frames/s "
+          f"({step_s * 1e3:.2f} ms per step of {CANON_F} frames)", flush=True)
+    with ops.plain_ops():
+        plain_s = wall_s(lambda: train_plain(state_plain, batch, generator()), runs=1, warmup=0)
+    print(f"canonical train step, plain path on the card: {CANON_F / plain_s:.2f} frames/s "
+          f"({plain_s * 1e3:.2f} ms)", flush=True)
+    del state_plain, train_plain
+    rows, dev_ms = profile_device(lambda: train_step(state, batch, generator()), runs=1)
+    idle = print_profile("canonical train", rows, dev_ms, step_s * 1e3, top=20)
+    torch.cuda.synchronize()
+    return dict(launches=launches, eval_launches=eval_launches, forced=forced,
+                path_grad_rel_l2=path_err, path_grad_plain_spread=path_spread,
+                frames_per_sec=CANON_F / step_s,
+                plain_frames_per_sec=CANON_F / plain_s, device_ms_per_step=dev_ms,
+                idle_share=idle, loss_rel_err=loss_err,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, peak_step_gib=peak_step)
 
 
 def counted(label, fn, names):
@@ -1112,17 +1437,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(assets, body, weights, res)
 
-    # ---- 6. results --------------------------------------------------------
-    all_launches = dict(canon_launches)
+    # ---- 6. canonical train step ---------------------------------------------
+    torch.cuda.empty_cache()
+    canon_train = canonical_train_phase(assets, body, weights, res)
+
+    # ---- 7. results --------------------------------------------------------
+    path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
+                     "canonical_train": canon_train["launches"], None: {}}
     kernels = []
     for name, cases in res.cases.items():
         source, replaces, path = KERNELS[name]
         main_case = max(cases, key=lambda c: c["plain_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=CSRC + source, replaces=PALLAS + replaces,
-            launches=(train["launches"] if path == "train" else launches)[name],
-            launches_canonical=all_launches.get(name, 0),
+            launches=path_launches[path].get(name, 0), main_path=path,
+            launches_canonical=canon_launches.get(name, 0),
             launches_train_step=train["launches"].get(name, 0),
+            launches_canonical_train_step=canon_train["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -1142,7 +1473,18 @@ def main() -> int:
         "posed_train_idle_share": train["idle_share"],
         "posed_train_peak_gib": train["peak_gib"],
         "train_loss_rel_err_kernel_vs_plain": train["loss_rel_err"],
-        "train_forced_grads": train["forced"], "build_s": build_s,
+        "train_forced_grads": train["forced"],
+        "canonical_train_frames_per_sec": canon_train["frames_per_sec"],
+        "canonical_train_plain_frames_per_sec": canon_train["plain_frames_per_sec"],
+        "canonical_train_device_ms_per_step": canon_train["device_ms_per_step"],
+        "canonical_train_idle_share": canon_train["idle_share"],
+        "canonical_train_peak_gib": canon_train["peak_gib"],
+        "canonical_train_step_peak_gib": canon_train["peak_step_gib"],
+        "canonical_train_loss_rel_err_kernel_vs_plain": canon_train["loss_rel_err"],
+        "canonical_train_forced_grads": canon_train["forced"],
+        "canonical_train_path_grad_rel_l2": canon_train["path_grad_rel_l2"],
+        "canonical_train_path_grad_plain_spread": canon_train["path_grad_plain_spread"],
+        "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""Posed-stage losses and metrics.
+"""Losses and metrics of both stages.
 
 Counterpart of `garment4d_tpu/losses/losses.py` (reference
-`smplx/loss/temporal_loss.py`): vertex L2 / MSRE, body-garment
-interpenetration, the uniform-Laplacian regulariser, temporal smoothness,
-the acceleration error, and the posed stage's bundle `posed_stage_loss`.
-The interpenetration term's 1-NN query is the 1-NN kernel on the card
-(`ops.knn_points`), the banded Laplacian the banded kernel
-(`ops.graph_matmul_banded`), both differentiable.
+`smplx/loss/temporal_loss.py`): segmentation cross-entropy, PCA-coefficient
+MSE, vertex L2 / MSRE, body-garment interpenetration, cotangent-Laplacian
+matching, the uniform-Laplacian regulariser, temporal smoothness, the
+acceleration error, and the stage bundles `canonical_stage_loss` and
+`posed_stage_loss`. The interpenetration term's 1-NN query is the 1-NN
+kernel on the card (`ops.knn_points`), the banded Laplacian the banded
+kernel (`ops.graph_matmul_banded`), both differentiable. The vertex normals
+and the cotangent Laplacian scatter with `index_add_` (atomics on the
+card), so the canonical losses are not bitwise from run to run there.
 """
 
 from __future__ import annotations
@@ -33,6 +36,18 @@ class LossWeights:
     lbs_garment_lap: float = 10.0
     lbs_interpenetration: float = 100.0
     temporal_constraint: float = 5.0
+
+
+def sem_seg_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over the point classes: logits (..., C), labels (...)
+    int."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0].mean()
+
+
+def shape_l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Plain MSE."""
+    return ((pred - target) ** 2).mean()
 
 
 def vertex_l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -66,6 +81,22 @@ def interpenetration_loss(garment_v: torch.Tensor, body_v: torch.Tensor,
     if reduce == "mean":
         return pen.mean()
     raise ValueError(reduce)
+
+
+def cot_laplacian_residuals(pred_v: torch.Tensor, gt_v: torch.Tensor,
+                            faces_tri) -> torch.Tensor:
+    """| ||L(pred) pred|| - ||L(gt) gt|| | per vertex, each side's cotangent
+    Laplacian built from its own vertices, its weights constant for
+    autodiff; the ground truth's side gets no gradient."""
+    lx_pred = ops.cot_laplacian_apply(pred_v, pred_v, faces_tri)
+    with torch.no_grad():
+        n_gt = torch.linalg.vector_norm(ops.cot_laplacian_apply(gt_v, gt_v, faces_tri), dim=-1)
+    return (torch.linalg.vector_norm(lx_pred, dim=-1) - n_gt).abs()
+
+
+def cot_laplacian_loss(pred_v: torch.Tensor, gt_v: torch.Tensor,
+                       faces_tri) -> torch.Tensor:
+    return cot_laplacian_residuals(pred_v, gt_v, faces_tri).mean()
 
 
 def uniform_laplacian_norms(pred_v: torch.Tensor, lap_adj: torch.Tensor,
@@ -121,6 +152,54 @@ def _bmean(x: torch.Tensor, batch: int, valid: torch.Tensor) -> torch.Tensor:
     per = x.reshape(batch, -1).mean(dim=1)
     w = valid.to(per.dtype)
     return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def canonical_stage_loss(output, batch: Dict[str, torch.Tensor], faces_tri,
+                         body_faces, weights: LossWeights, only_seg: bool = False,
+                         valid: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+    """All canonical-stage losses (reference `temporal_loss_PCA`). `output`
+    is a CanonicalOutput; `valid` an optional (B,) mask excluding eval-tail
+    padding duplicates; `only_seg` keeps the segmentation term alone."""
+    B, T = batch["pose"].shape[:2]
+    losses: Dict[str, torch.Tensor] = {}
+
+    def mean(x):
+        return x.mean() if valid is None else _bmean(x, B, valid)
+
+    logits = output.backbone.sem_logits
+    logits = logits.reshape(B * T, -1, logits.shape[-1])
+    labels = batch["pcd_label"].reshape(B * T, -1).long()
+    picked = torch.gather(torch.log_softmax(logits, dim=-1), -1, labels[..., None])[..., 0]
+    l_seg = mean(-picked.reshape(B, -1))
+    losses["sem_seg_loss"] = l_seg
+    total = l_seg * weights.sem_seg
+    if only_seg:
+        losses["total_loss"] = total
+        return losses
+
+    l_pca = mean((output.pca_coeff - batch["pca_coeff"]) ** 2)
+    losses["garment_pca_coeff_l2"] = l_pca
+    total = total + l_pca * weights.garment_pca_coeff_l2
+
+    gt_garment = batch["garment_template_vertices"]  # (B, V, 3)
+    pred = output.tpose_garment
+    sq = ((pred - gt_garment) ** 2).sum(dim=-1)
+    losses["garment_l2_loss"] = mean(sq)
+    losses["garment_msre"] = mean(torch.sqrt(sq))
+    total = total + losses["garment_l2_loss"] * weights.garment_l2
+
+    tpose_body = batch["tpose_smpl_vertices"]  # (B, Vb, 3)
+    body_vn = ops.vertex_normals(tpose_body, body_faces)
+    garment_rooted = pred + batch["tpose_smpl_root_joints"][:, None, :]
+    l_pen = mean(interpenetration_penalties(garment_rooted, tpose_body, body_vn))
+    losses["interpenetration_loss"] = l_pen
+    total = total + l_pen * weights.interpenetration
+
+    l_lap = mean(cot_laplacian_residuals(pred, gt_garment, faces_tri))
+    losses["garment_lap_loss"] = l_lap
+    total = total + l_lap * weights.garment_lap
+    losses["total_loss"] = total
+    return losses
 
 
 def posed_stage_loss(output, batch: Dict[str, torch.Tensor], lap_adj: torch.Tensor,

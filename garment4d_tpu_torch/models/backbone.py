@@ -4,17 +4,18 @@ Counterpart of `garment4d_tpu/models/backbone.py` (reference Pointnet2MSGSEG):
 3 MSG set-abstraction stages (1024/256/64 centres), 3 feature-propagation
 stages and a Conv-Dropout-Conv head over 7 classes, as the canonical model
 uses it (no global stage: `global_feat=False`). Channel-last throughout.
+The head's dropout draws from the `torch.Generator` the caller passes.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from garment4d_tpu_torch.models.assets import CLASS_NUM
-from garment4d_tpu_torch.nn import ConvBNRelu, FPModule, SAModuleMSG
+from garment4d_tpu_torch.nn import ConvBNRelu, Dropout, FPModule, SAModuleMSG
 
 
 class BackboneOutput(NamedTuple):
@@ -37,11 +38,13 @@ class PointNet2SegBackbone(nn.Module):
         self.fp2 = FPModule((256, 128), 256 + 96)
         self.fp3 = FPModule((512, 256), 384 + 192)
         self.head0 = ConvBNRelu(64, 32, bn=True)
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
         self.head1 = ConvBNRelu(32, CLASS_NUM, bn=False, relu=False)
 
-    def forward(self, pointcloud: torch.Tensor) -> BackboneOutput:
-        """pointcloud (B, N, 3) -> BackboneOutput."""
+    def forward(self, pointcloud: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> BackboneOutput:
+        """pointcloud (B, N, 3) -> BackboneOutput; `generator` feeds the
+        head's dropout in training."""
         l_xyz, l_features = [pointcloud.contiguous()], [None]
         for sa in (self.sa1, self.sa2, self.sa3):
             li_xyz, li_feat = sa(l_xyz[-1], l_features[-1])
@@ -53,7 +56,7 @@ class PointNet2SegBackbone(nn.Module):
             l_features[i - 1] = fps[i](l_xyz[i - 1], l_xyz[i], l_features[i - 1],
                                        l_features[i])
 
-        x = self.dropout(self.head0(l_features[0]))
+        x = self.dropout(self.head0(l_features[0]), generator)
         sem_logits = self.head1(x)
         return BackboneOutput(sem_logits=sem_logits, features=tuple(l_features),
                               xyz=tuple(l_xyz))

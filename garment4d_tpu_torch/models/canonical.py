@@ -4,12 +4,15 @@ Counterpart of `garment4d_tpu/models/canonical.py` (reference
 PCAGarmentEncoderSeg): per-frame PointNet++ semantic segmentation,
 fixed-size garment point selection from the predicted labels, a 2-stage MSG
 garment encoder with a global summary, temporal max-pool, and a small head
-regressing PCA coefficients of the canonical garment mesh.
+regressing PCA coefficients of the canonical garment mesh. With `only_seg`
+the forward stops after the segmentation. In training (`train()`) the
+BatchNorms use batch statistics and the head's dropout draws from the
+generator passed to `forward`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -43,9 +46,9 @@ class CanonicalOutput(NamedTuple):
     backbone: BackboneOutput
     garment_xyz: tuple                      # garment-encoder per-level xyz
     garment_features: tuple                 # garment-encoder per-level features
-    garment_summary: torch.Tensor           # (B, T, 512)
-    pca_coeff: torch.Tensor                 # (B, pca_dim)
-    tpose_garment: torch.Tensor             # (B, V, 3)
+    garment_summary: Optional[torch.Tensor]  # (B, T, 512); None with only_seg
+    pca_coeff: Optional[torch.Tensor]       # (B, pca_dim)
+    tpose_garment: Optional[torch.Tensor]   # (B, V, 3)
 
 
 class CanonicalGarmentModel(nn.Module):
@@ -54,9 +57,10 @@ class CanonicalGarmentModel(nn.Module):
     Submodules are named by the Flax paths (`pointnet.sa1.mlp0.layer0.conv`,
     `garment_sa1`, `pca_head0`, ...)."""
 
-    def __init__(self, assets: GarmentAssets):
+    def __init__(self, assets: GarmentAssets, only_seg: bool = False):
         super().__init__()
         self.garment_label = assets.label
+        self.only_seg = only_seg
         self.pointnet = PointNet2SegBackbone()
         # garment encoder widths per reference `mesh_encoder.py:54-78`
         self.garment_sa1 = SAModuleMSG(512, (0.05, 0.1), (16, 32),
@@ -83,10 +87,14 @@ class CanonicalGarmentModel(nn.Module):
         flat = (coeff @ self.pca_components + self.pca_mean) * self.pca_scale
         return flat.reshape(coeff.shape[0], -1, 3)
 
-    def forward(self, x: torch.Tensor) -> CanonicalOutput:
-        """x: (B, T, N, 3) point-cloud sequence."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> CanonicalOutput:
+        """x: (B, T, N, 3) point-cloud sequence; `generator` feeds the
+        dropout in training."""
         B, T, N, C = x.shape
-        backbone = self.pointnet(x.reshape(B * T, N, C))
+        backbone = self.pointnet(x.reshape(B * T, N, C), generator)
+        if self.only_seg:
+            return CanonicalOutput(backbone, (), (), None, None, None)
 
         labels = torch.argmax(backbone.sem_logits.detach(), dim=-1)
         garment_v, garment_f = select_garment_points(

@@ -1,6 +1,6 @@
 """Neural-network building blocks."""
 
-from garment4d_tpu_torch.nn.layers import ConvBNRelu, SharedMLP
+from garment4d_tpu_torch.nn.layers import BatchNorm, ConvBNRelu, Dropout, SharedMLP
 from garment4d_tpu_torch.nn.pointnet import FPModule, SAModuleMSG
 
-__all__ = ["ConvBNRelu", "FPModule", "SAModuleMSG", "SharedMLP"]
+__all__ = ["BatchNorm", "ConvBNRelu", "Dropout", "FPModule", "SAModuleMSG", "SharedMLP"]

@@ -1,11 +1,12 @@
 """Dense building blocks over the trailing channel axis.
 
 Counterpart of `garment4d_tpu/nn/layers.py`: a 1x1 convolution is a Linear
-over the last axis, followed by BatchNorm with torch's defaults (eps 1e-5,
-momentum 0.1; eval uses the running statistics) and an optional ReLU.
-Submodule names follow the Flax parameter paths (`layer0.conv`,
-`layer0.bn`), so a Flax checkpoint maps onto them by renaming
-(`train/convert.py`).
+over the last axis, followed by BatchNorm (eps 1e-5, momentum 0.1 in
+torch's convention, 0.9 in Flax's) and an optional ReLU. Train-mode
+BatchNorm computes its statistics and updates its running ones as Flax
+does; eval uses the running statistics. Submodule names follow the Flax
+parameter paths (`layer0.conv`, `layer0.bn`), so a Flax checkpoint maps
+onto them by renaming (`train/convert.py`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,54 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over (rows, C) with Flax's train mode (flax.linen
+    `BatchNorm` with `use_fast_variance`): mean = E[x], var = max(0,
+    E[x^2] - E[x]^2), the biased variance, y = (x - mean) * (rsqrt(var +
+    eps) * weight) + bias, and running statistics r = 0.9 r + 0.1 stat with
+    that biased variance (torch's own BatchNorm updates with the unbiased
+    one and refuses a batch of one row; Flax takes it). Eval mode is
+    torch's, on the running statistics. The parameters and buffers are
+    torch's, so state_dicts keep their names."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=0)
+        var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+            self.num_batches_tracked += 1
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class Dropout(nn.Module):
+    """Flax's `nn.Dropout` with its random bits from an explicit
+    `torch.Generator` (no global RNG): in training each element is kept
+    where a uniform draw falls below 1 - p and scaled by 1 / (1 - p), else
+    zeroed; in eval, and at p = 0, the identity."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training draws from an explicit torch.Generator; "
+                             "none was given")
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class ConvBNRelu(nn.Module):
@@ -26,7 +75,7 @@ class ConvBNRelu(nn.Module):
         use_bias = bias if bias is not None else not bn
         self.conv = nn.Linear(in_features, features, bias=use_bias)
         nn.init.kaiming_normal_(self.conv.weight)
-        self.bn = nn.BatchNorm1d(features, eps=1e-5, momentum=0.1) if bn else None
+        self.bn = BatchNorm(features) if bn else None
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

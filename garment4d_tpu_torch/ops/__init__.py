@@ -13,7 +13,12 @@ from garment4d_tpu_torch.ops.graph import (
     row_normalize,
     smoothing_operator,
 )
-from garment4d_tpu_torch.ops.meshmath import face_normals, vertex_normals
+from garment4d_tpu_torch.ops.meshmath import (
+    cot_laplacian_apply,
+    cotangent_weights,
+    face_normals,
+    vertex_normals,
+)
 from garment4d_tpu_torch.ops.pemax import (
     group_chain_max,
     group_pe_max,
@@ -33,6 +38,7 @@ from garment4d_tpu_torch.ops.pointcloud import (
     pairwise_sqdist,
     plain_ops,
     query_and_group,
+    scatter_add_rows,
     three_interpolate,
     three_nn,
     use_kernel,
@@ -40,7 +46,8 @@ from garment4d_tpu_torch.ops.pointcloud import (
 
 __all__ = [
     "ball_query", "ball_query_multi", "bandwidth_permutation",
-    "build_mesh_adjacency", "covered_mask", "cyclic_diagonals",
+    "build_mesh_adjacency", "cot_laplacian_apply", "cotangent_weights",
+    "covered_mask", "cyclic_diagonals",
     "face_normals", "furthest_point_sample", "gather_points",
     "gcn_adjacency", "gcn_stack", "graph_matmul", "graph_matmul_banded",
     "group_all", "group_chain_max", "group_pe_max",
@@ -48,7 +55,7 @@ __all__ = [
     "interp_weights_from_dists", "knn_points", "laplacian_adjacency",
     "launch_counts",
     "pairwise_sqdist", "plain_ops", "query_and_group",
-    "query_group_pe_multi", "reset_counts", "row_normalize",
+    "query_group_pe_multi", "reset_counts", "row_normalize", "scatter_add_rows",
     "smoothing_operator", "three_interpolate", "three_nn", "use_kernel",
     "vertex_normals",
 ]

@@ -17,7 +17,8 @@ failed build or a failed launch raises.
 `models/skinning.py` adds one where it launches its kernel and nowhere
 else, so a run can show which kernels its main path went through (the
 PE-backward wrapper counts its two launches, the per-block pass and the
-ordered sum of the partials, as one).
+ordered sum of the partials, as one; its dtable half's scatter-add counts
+under `scatter_add`).
 """
 
 from __future__ import annotations
@@ -53,16 +54,17 @@ _SIGNATURES = {
                                _I, _P, _F, _I, _P, _P),
     "g4d_three_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
     "g4d_fused_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _P, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "g4d_coverage": (_P, _P, _I, _I, _I, _F, _P, _P),
     "g4d_knn_transfer": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P),
     "g4d_gcn_layer": (_PP, _IP, _I, _I, _I, _I, _P, _IP, _I, _P, _P, _I, _I,
                       _I, _I, _I, _P, _P),
     "g4d_pe_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _P, _P, _P, _P),
+                   _I, _I, _P, _P, _P, _P, _P, _P),
     "g4d_banded": (_P, _IP, _I, _P, _I, _I, _I, _P, _P),
     "g4d_nn1": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "g4d_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 # shared memory, in bytes, that one block may use on the H100, and that

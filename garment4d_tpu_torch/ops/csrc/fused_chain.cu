@@ -5,7 +5,14 @@
 // only.
 //
 // Replaces garment4d_tpu/ops/pallas/fusedpe.py:fused_chain_pallas
-// (pallas_call at :179, body _chain_kernel at :75).
+// (pallas_call at :179, body _chain_kernel at :75) and its valid-count
+// variant fused_chain_pallas_nv (pallas_call at :363, body _chain_kernel_nv;
+// group_pe_max_pallas_nv at :371). The TPU variant's chunk scan stopped at
+// the per-frame count n_valid[b] of real rows of a sentinel-padded table,
+// exact only while no index reaches max(n_valid[b], 1). This kernel gathers
+// by index and never reads rows past the largest index anyway, so given
+// n_valid it computes the same output and reports any index at or past
+// max(n_valid[b], 1) in a device flag that the wrapper checks.
 //
 // What bounds it on the H100: FP32 FMAs (up to 74k per sample row at the sa3
 // scale) and the loads that feed them; the weights do not fit in a block's
@@ -45,6 +52,7 @@ fused_chain_kernel(const float* __restrict__ table,
                    const float* __restrict__ w_all,
                    const float* __restrict__ b_all, ChainDims dims, int N,
                    int M, int S, int G, int width_a, int width_b,
+                   const int* __restrict__ n_valid, int* __restrict__ past_valid,
                    float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -56,6 +64,7 @@ fused_chain_kernel(const float* __restrict__ table,
   const int m0 = blockIdx.x * G;
   const int C = dims.K[0];
   const int P0 = pitch_of(C);
+  const int valid = n_valid != nullptr ? max(__ldg(n_valid + b), 1) : 0x7fffffff;
 
   // gather the rows of G centers and subtract each center on xyz channels
   for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
@@ -65,6 +74,7 @@ fused_chain_kernel(const float* __restrict__ table,
     float v = 0.f;
     if (m < M) {
       const int j = __ldg(idx + ((size_t)b * M + m) * S + (r % S));
+      if (j >= valid) *past_valid = 1;
       v = (unsigned)j < (unsigned)N
               ? __ldg(table + ((size_t)b * N + j) * C + c)
               : __int_as_float(0x7fc00000);
@@ -140,13 +150,16 @@ fused_chain_kernel(const float* __restrict__ table,
 // f0..f3 (unused ones 0, used ones multiples of 4); relu_mask bit l = ReLU
 // after layer l; G centers per block; width_a / width_b the row pitches of
 // the two activation buffers; smem_bytes = (G * S * (width_a + width_b) +
-// G * S / 8 * F_last) * 4 -> out (B, M, F_{L-1}).
+// G * S / 8 * F_last) * 4; n_valid (B) i32 or null; past_valid (1) i32, set
+// to 1 where an index is >= max(n_valid[b], 1) (untouched without n_valid)
+// -> out (B, M, F_{L-1}).
 extern "C" int g4d_fused_chain(const float* table, const int* idx,
                                const float* centers, const float* w_all,
                                const float* b_all, int B, int N, int C, int M,
                                int S, int L, int f0, int f1, int f2, int f3,
                                int relu_mask, int G, int width_a, int width_b,
-                               int smem_bytes, float* out,
+                               int smem_bytes, const int* n_valid,
+                               int* past_valid, float* out,
                                cudaStream_t stream) {
   if (L < 1 || L > kMaxLayers || S % kRows != 0) return (int)cudaErrorInvalidValue;
   ChainDims dims;
@@ -165,6 +178,6 @@ extern "C" int g4d_fused_chain(const float* table, const int* idx,
   dim3 grid(g4d_blocks(M, G), B);
   fused_chain_kernel<<<grid, kThreads, smem_bytes, stream>>>(
       table, idx, centers, w_all, b_all, dims, N, M, S, G, width_a, width_b,
-      out);
+      n_valid, past_valid, out);
   return (int)cudaGetLastError();
 }

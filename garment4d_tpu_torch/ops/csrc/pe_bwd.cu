@@ -1,15 +1,21 @@
-// Backward of the posed stage's positional-encoding (PE) block over a frozen
-// table. The forward is
+// Backward of the posed stage's positional-encoding (PE) block. The forward
+// is
 //   out[b, m, :] = max_s (relu(qg[b, m, s] @ k0 + b0) @ k1 + b1),
 //   qg[b, m, s] = table[b, idx[b, m, s], :] - pad(center[b, m]) (xyz only),
 // and given its cotangent cot (B, M, G) this computes dcenters (B, M, 3) and
-// the gradients of k0 (C, F), b0 (F), k1 (F, G) and b1 (G). The table gets
-// no gradient (the body xyz + normals and the stage-1 garment levels are
-// batch data or frozen).
+// the gradients of k0 (C, F), b0 (F), k1 (F, G) and b1 (G). With the dtable
+// half on (a `dqg` output), it also writes each slot's row gradient
+// dqg[b, m, s] = dh1[b, m, s] @ k0^T (B, M*S, C); the wrapper sums those into
+// dtable (B, N, C) with the deterministic scatter-add (scatter_add.cu).
 //
-// Replaces garment4d_tpu/ops/pallas/fusedpe.py:fused_pe_bwd_pallas with
-// table_grad=False (pallas_call at :616, body _pe_bwd_kernel at :423). The
-// dtable half (the one-hot scatter) is not here.
+// Replaces garment4d_tpu/ops/pallas/fusedpe.py:fused_pe_bwd_pallas
+// (pallas_call at :616, body _pe_bwd_kernel at :423), both halves: with
+// table_grad=False and, through `dqg` plus the scatter-add, with
+// table_grad=True. The TPU kernel summed dtable in VMEM with a one-hot MXU
+// product; here the row gradients leave the block and the scatter-add sums
+// them in ascending slot order, no atomics, so dtable too is bitwise
+// repeatable. Without `dqg` (a null pointer, the posed train step's frozen
+// tables) the kernel does exactly what it did before.
 //
 // What bounds it on the H100: the fp32 FMAs on the CUDA cores; the bytes (one
 // read of the gathered rows, the cotangent and the weights, one write of
@@ -148,7 +154,8 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
               const float* __restrict__ centers, const float* __restrict__ k0,
               const float* __restrict__ b0, const float* __restrict__ k1,
               const float* __restrict__ cot, PeDims d, int n_tiles,
-              float* __restrict__ dcenters, float* __restrict__ partials) {
+              float* __restrict__ dcenters, float* __restrict__ partials,
+              const float* __restrict__ k0t, float* __restrict__ dqg) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = d.C, Pc = d.Pc, F = d.F, G = d.G, S = d.S, M = d.M, Gc = d.Gc;
@@ -316,6 +323,22 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
         dq[r * 4 + 2] = p2;
       }
     }
+    // the dtable half: row gradients dqg = dh1 @ k0^T, summed in ascending
+    // f, one thread per (row, channel) with the channels of a row on
+    // neighbouring threads: the k0^T row reads (from L1/L2) and the dqg
+    // writes are coalesced, dh1 is a shared-memory broadcast
+    if (dqg != nullptr) {
+      for (int e = tid; e < R * C; e += kThreads) {
+        const int r = e / C;
+        const int c = e - r * C;
+        const int m = m0 + r / S;
+        if (m >= M) continue;
+        const float* dh = hp + r * F;
+        float a = 0.f;
+        for (int f = 0; f < F; ++f) a = fmaf(dh[f], __ldg(k0t + (size_t)f * d.Pc + c), a);
+        dqg[(((size_t)b * M + m) * S + r % S) * C + c] = a;
+      }
+    }
     __syncthreads();
 
     // dcenters = -sum_s dq
@@ -366,14 +389,17 @@ __global__ void pe_bwd_reduce_kernel(const float* __restrict__ partials,
 // smem_bytes = (Gc*S*(Pc + F + G + 4) + 2*F*G + 3*F + 4096) * 4 ->
 // dcenters (B, M, 3);
 // partials (n_blocks, n_acc) scratch; sums (n_acc) = dk0 (C, F) | db0 (F) |
-// dk1 (F, G) | db1 (G), n_acc = C*F + F + F*G + G.
+// dk1 (F, G) | db1 (G), n_acc = C*F + F + F*G + G; dqg (B, M*S, C) the row
+// gradients and k0t (F, Pc) = k0^T, or both null to skip the dtable half.
 extern "C" int g4d_pe_bwd(const float* table, const int* idx,
                           const float* centers, const float* k0,
                           const float* b0, const float* k1, const float* cot,
                           int B, int N, int C, int M, int S, int F, int G,
                           int Gc, int n_blocks, int smem_bytes, float* dcenters,
-                          float* partials, float* sums, cudaStream_t stream) {
+                          float* partials, float* sums, const float* k0t,
+                          float* dqg, cudaStream_t stream) {
   if (C < 3 || S < 1 || F < 4 || G < 4 || F % 4 || G % 4 || F > kThreads ||
+      (dqg != nullptr) != (k0t != nullptr) ||
       Gc < 1 || n_blocks < 1 || (C + 3) / 4 * (F / 4) > kMaxDk0 * kThreads ||
       F * G / 16 > kMaxDk1 * kThreads)
     return (int)cudaErrorInvalidValue;
@@ -384,7 +410,7 @@ extern "C" int g4d_pe_bwd(const float* table, const int* idx,
       pe_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   pe_bwd_kernel<<<n_blocks, kThreads, smem_bytes, stream>>>(
-      table, idx, centers, k0, b0, k1, cot, d, n_tiles, dcenters, partials);
+      table, idx, centers, k0, b0, k1, cot, d, n_tiles, dcenters, partials, k0t, dqg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pe_bwd_reduce_kernel<<<g4d_blocks(n_acc, kThreads), kThreads, 0, stream>>>(

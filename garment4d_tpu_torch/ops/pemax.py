@@ -8,18 +8,22 @@ eval-mode set-abstraction pattern; `group_pe_max` its 2-layer PE case
 activations in shared memory and writes only the (M, C_L) max; a CPU tensor
 (or any tensor inside `plain_ops()`) runs `_chain_reference`, the unfused
 formulation. Each entry counts its launches under its own name
-(`fused_chain`, `group_pe_max`).
+(`fused_chain`, `group_pe_max`, and `group_pe_max_nv` for the PE block over
+a sentinel-padded table with its valid-row count, `n_valid`).
 
-The PE blocks train through two autograd Functions over a frozen table
-(JAX's `_group_pe_max_nt` and `group_pe_max_split_frozen` custom VJPs):
-forward is the chain kernel, backward the fused PE-backward kernel
-`ops/csrc/pe_bwd.cu` (counter `pe_bwd`), which recomputes the block, routes
-the cotangent through the max (split evenly among exact ties, as JAX's
-`jnp.max` does) and returns the gradients of the centers and the four
-weights; `_pe_bwd_plain` is its plain version. Only the Functions' inputs
-are saved: no (B, M, S, C) activation outlives the forward. A table that
-requires grad (`table_grad=True`) trains through plain autograd on the CPU
-and raises on the card: its gradient is a scatter-add, not ported yet.
+Both are differentiable on every device through autograd Functions that
+save only their inputs, so no (B, M, S, C) activation outlives the forward.
+`group_chain_max` recomputes `_chain_reference` in its backward, as JAX's
+`_chain_bwd` does; on the card that recompute runs the gather kernel, and
+the table's gradient the scatter-add kernel. The PE block's backward is the
+fused PE-backward kernel `ops/csrc/pe_bwd.cu` (counter `pe_bwd`), which
+recomputes the block, routes the cotangent through the max (split evenly
+among exact ties, as JAX's `jnp.max` does) and returns the gradients of
+the centers and the four weights; for a table that requires grad
+(`table_grad=True`) it also writes each slot's row gradient, which the
+scatter-add kernel sums into the table's gradient (JAX's
+`fused_pe_bwd_pallas` with `table_grad=True`). `_pe_bwd_plain` is its
+plain version.
 
 `query_group_pe_multi` is the body-query front end: a coverage mask at the
 largest radius, an order-preserving compaction of the covered body points
@@ -40,6 +44,8 @@ import torch
 from garment4d_tpu_torch.ops import _build
 from garment4d_tpu_torch.ops.pointcloud import (
     _gather_rows_plain,
+    _scatter_add_rows_kernel,
+    _scatter_add_rows_plain,
     _sqdist,
     _f32,
     ball_query_multi,
@@ -57,10 +63,11 @@ def _chain_reference(table: torch.Tensor, idx: torch.Tensor,
                      centers: torch.Tensor, weights, biases,
                      relus) -> torch.Tensor:
     """Unfused L-layer chain: gather, subtract the center on xyz channels,
-    x @ W + b (+ ReLU) per layer, max over S."""
+    x @ W + b (+ ReLU) per layer, max over S. The gather is
+    `gather_points`, differentiable in the table on every device."""
     B, M, S = idx.shape
     C = table.shape[-1]
-    h = _gather_rows_plain(table, idx.reshape(B, M * S)).reshape(B, M, S, C)
+    h = gather_points(table, idx.reshape(B, M * S)).reshape(B, M, S, C)
     ctr = torch.nn.functional.pad(centers, (0, C - 3))
     h = h - ctr[:, :, None, :]
     for w, b, r in zip(weights, biases, relus):
@@ -82,8 +89,20 @@ def _pad_slots(idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([idx, idx[..., :1].expand(B, M, pad)], dim=-1).contiguous()
 
 
+def _past_valid(idx: torch.Tensor, n_valid: torch.Tensor) -> bool:
+    """Whether an index of frame b reaches max(n_valid[b], 1): past the
+    rows a valid-count chain may gather."""
+    bound = torch.clamp(n_valid.to(idx.device, torch.int64), min=1)
+    return bool((idx.reshape(idx.shape[0], -1) >= bound[:, None]).any())
+
+
+def _refuse_past_valid(name: str) -> None:
+    raise ValueError(f"{name}: an index reaches past max(n_valid[b], 1), the "
+                     f"frame's valid rows")
+
+
 def _chain_kernel(table, idx, centers, weights, biases, relus,
-                  name: str = "fused_chain"):
+                  name: str = "fused_chain", n_valid=None):
     _build.refuse_grad(name, table, centers, *weights, *biases)
     dev = table.device
     _build.require(table, "table", torch.float32, 3, dev)
@@ -97,6 +116,10 @@ def _chain_kernel(table, idx, centers, weights, biases, relus,
                          f"{tuple(idx.shape)}, centers {tuple(centers.shape)}")
     if not 1 <= L <= _MAX_LAYERS or len(biases) != L or len(relus) != L:
         raise ValueError(f"fused_chain: {L} layers (1..{_MAX_LAYERS} supported)")
+    if n_valid is not None:
+        _build.require(n_valid, "n_valid", torch.int32, 1, dev)
+        if n_valid.shape[0] != B:
+            raise ValueError(f"fused_chain: n_valid {tuple(n_valid.shape)} for {B} frames")
     # the max over S is unchanged by a repeated row
     idx = _pad_slots(idx)
     S = idx.shape[2]
@@ -131,23 +154,63 @@ def _chain_kernel(table, idx, centers, weights, biases, relus,
     fs = widths[1:] + [0] * (_MAX_LAYERS - L)
     relu_mask = sum(1 << l for l, r in enumerate(relus) if r)
     out = torch.empty((B, M, widths[-1]), dtype=torch.float32, device=dev)
+    past = None if n_valid is None else torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.launch_counts[name] += 1
     _build.check(lib.g4d_fused_chain(
         table.data_ptr(), idx.data_ptr(), centers.data_ptr(),
         w_all.data_ptr(), b_all.data_ptr(), B, N, C, M, S, L, *fs, relu_mask,
-        G, width_a, width_b, smem, out.data_ptr(), _build.stream_of(table)),
-        name)
+        G, width_a, width_b, smem, None if n_valid is None else n_valid.data_ptr(),
+        None if past is None else past.data_ptr(), out.data_ptr(),
+        _build.stream_of(table)), name)
+    if past is not None and bool(past.item()):  # the flag's one host read
+        _refuse_past_valid(name)
     return out
 
 
-def _chain(table, idx, centers, weights, biases, relus, name):
+def _chain(table, idx, centers, weights, biases, relus, name, n_valid=None):
     if use_kernel(table):
-        return _chain_kernel(
-            table.contiguous(), idx.to(torch.int32).contiguous(),
-            centers.contiguous(), [w.contiguous() for w in weights],
-            [b.contiguous() for b in biases], relus, name)
+        args = (table.contiguous(), idx.to(torch.int32).contiguous(), centers.contiguous(),
+                [w.contiguous() for w in weights], [b.contiguous() for b in biases],
+                relus, name)
+        if n_valid is None:
+            return _chain_kernel(*args)
+        return _chain_kernel(*args, n_valid=n_valid.to(torch.int32).contiguous())
+    if n_valid is not None and _past_valid(idx, n_valid):
+        _refuse_past_valid(name)
     return _chain_reference(table, idx, centers, weights, biases, relus)
+
+
+class _ChainMax(torch.autograd.Function):
+    """`group_chain_max` (JAX's custom VJP): the chain kernel forward, and a
+    backward that recomputes `_chain_reference` under the forward's
+    dispatch and differentiates it (the table's gradient through the
+    scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, centers, relus, *weights_biases):
+        ctx.kernel = use_kernel(table)
+        ctx.relus = relus
+        ctx.save_for_backward(table, idx, centers, *weights_biases)
+        L = len(relus)
+        return _chain(table, idx, centers, weights_biases[:L], weights_biases[L:],
+                      relus, "fused_chain")
+
+    @staticmethod
+    def backward(ctx, cot):
+        table, idx, centers, *wb = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[0], ctx.needs_input_grad[2],
+                 *ctx.needs_input_grad[4:])
+        with dispatch_as(ctx.kernel), torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip([table, centers, *wb], needs)]
+            L = len(ctx.relus)
+            out = _chain_reference(leaves[0], idx, leaves[1], leaves[2:2 + L],
+                                   leaves[2 + L:], ctx.relus)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, cot) if wanted else ())
+        dt, dc, *dwb = [next(got) if n else None for n in needs]
+        return (dt, None, dc, None, *dwb)
 
 
 def group_chain_max(table: torch.Tensor, idx: torch.Tensor,
@@ -158,10 +221,10 @@ def group_chain_max(table: torch.Tensor, idx: torch.Tensor,
 
     table (B, N, C) with xyz on channels 0..2; idx (B, M, S) int; centers
     (B, M, 3); weights: (C_{i-1}, C_i) matrices; biases: (C_i,); relus: bool
-    per layer. The kernel path is forward-only: it raises when an input or
-    weight requires grad under autograd."""
-    return _chain(table, idx, centers, weights, biases,
-                  tuple(bool(r) for r in relus), "fused_chain")
+    per layer. Differentiable in everything but idx: the backward recomputes
+    the unfused chain."""
+    return _ChainMax.apply(table, idx, centers, tuple(bool(r) for r in relus),
+                           *weights, *biases)
 
 
 # ---------------------------------------------------------------------------
@@ -178,18 +241,21 @@ def candidate_cap(n: int) -> int:
     return ((max(int(n * 0.72), 256) + 127) // 128) * 128
 
 
-def _pe_forward(table, idx, centers, k0, b0, k1, b1):
-    return _chain(table, idx, centers, (k0, k1), (b0, b1), _PE_RELUS, "group_pe_max")
+def _pe_forward(table, idx, centers, k0, b0, k1, b1, n_valid=None):
+    return _chain(table, idx, centers, (k0, k1), (b0, b1), _PE_RELUS,
+                  "group_pe_max" if n_valid is None else "group_pe_max_nv", n_valid)
 
 
-def _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot):
-    """The PE block's VJP with a frozen table, written out as the kernel
-    computes it: recompute, route `cot` (B, M, G) through the max over S
-    (split evenly among exact ties; b1 is constant over S, so the routing
-    compares h @ k1 without it), backprop both layers.
-    -> (dcenters (B, M, 3), dk0 (C, F), db0 (F,), dk1 (F, G), db1 (G,))."""
+def _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot, table_grad=False):
+    """The PE block's VJP, written out as the kernel computes it: recompute,
+    route `cot` (B, M, G) through the max over S (split evenly among exact
+    ties; b1 is constant over S, so the routing compares h @ k1 without
+    it), backprop both layers. -> (dcenters (B, M, 3), dk0 (C, F), db0 (F,),
+    dk1 (F, G), db1 (G,)), led by dtable (B, N, C) with `table_grad` (as
+    JAX's `fused_pe_bwd_pallas`): the scatter-add of the row gradients
+    dh1 @ k0^T."""
     B, M, S = idx.shape
-    C = table.shape[-1]
+    N, C = table.shape[1:]
     qg = _gather_rows_plain(table, idx.reshape(B, M * S)).reshape(B, M, S, C)
     qg = qg - torch.nn.functional.pad(centers, (0, C - 3))[:, :, None, :]
     hpre = torch.matmul(qg, k0) + b0
@@ -202,7 +268,11 @@ def _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot):
     dh1 = torch.where(hpre > 0, torch.matmul(dh2, k1.t()), torch.zeros_like(hpre))
     dk0 = torch.einsum("bmsc,bmsf->cf", qg, dh1)
     dcenters = -torch.matmul(dh1, k0[:3].t()).sum(dim=2)
-    return dcenters, dk0, dh1.sum(dim=(0, 1, 2)), dk1, cot.sum(dim=(0, 1))
+    grads = (dcenters, dk0, dh1.sum(dim=(0, 1, 2)), dk1, cot.sum(dim=(0, 1)))
+    if not table_grad:
+        return grads
+    dqg = torch.matmul(dh1, k0.t()).reshape(B, M * S, C)
+    return (_scatter_add_rows_plain(dqg, idx.reshape(B, M * S), N),) + grads
 
 
 # blocks of the PE-backward kernel: a fixed count, so that each weight
@@ -210,7 +280,7 @@ def _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot):
 _PE_BWD_BLOCKS = 264
 
 
-def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot):
+def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot, table_grad=False):
     _build.refuse_grad("pe_bwd", table, centers, k0, b0, k1, cot)
     dev = table.device
     for t, name, dtype, ndim in ((table, "table", torch.float32, 3),
@@ -260,40 +330,53 @@ def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot):
     dcenters = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     partials = torch.empty((blocks, n_acc), dtype=torch.float32, device=dev)
     sums = torch.empty((n_acc,), dtype=torch.float32, device=dev)
+    # the dtable half: the slots' row gradients, summed by the scatter-add
+    dqg = (torch.empty((B, M * S, C), dtype=torch.float32, device=dev)
+           if table_grad else None)
+    k0t = k0.t().contiguous() if table_grad else None  # (F, Pc)
     lib = _build.library()
     _build.launch_counts["pe_bwd"] += 1
     _build.check(lib.g4d_pe_bwd(
         table.data_ptr(), idx.data_ptr(), centers.data_ptr(), k0.data_ptr(),
         b0.data_ptr(), k1.data_ptr(), cot.data_ptr(), B, N, C, M, S, F, G, gc,
         blocks, smem, dcenters.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+        None if k0t is None else k0t.data_ptr(), None if dqg is None else dqg.data_ptr(),
         _build.stream_of(table)), "pe_bwd")
     dk0, db0, dk1, db1 = torch.split(sums, [C * F, F, F * G, G])
-    return dcenters, dk0.view(C, F), db0, dk1.view(F, G), db1
+    grads = (dcenters, dk0.view(C, F), db0, dk1.view(F, G), db1)
+    if not table_grad:
+        return grads
+    return (_scatter_add_rows_kernel(dqg, idx.reshape(B, M * S), N),) + grads
 
 
-def _pe_bwd(table, idx, centers, k0, b0, k1, cot):
+def _pe_bwd(table, idx, centers, k0, b0, k1, cot, table_grad=False):
     if use_kernel(table):
         return _pe_bwd_kernel(table.contiguous(), idx.to(torch.int32).contiguous(),
                               centers.contiguous(), k0.contiguous(), b0.contiguous(),
-                              k1.contiguous(), cot.contiguous())
-    return _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot)
+                              k1.contiguous(), cot.contiguous(), table_grad)
+    return _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot, table_grad)
 
 
-class _PeMaxFrozenTable(torch.autograd.Function):
-    """`group_pe_max` over a table that gets no gradient (JAX's
-    `_group_pe_max_nt`)."""
+class _PeMax(torch.autograd.Function):
+    """`group_pe_max` (JAX's `_group_pe_max` and `_group_pe_max_nt`
+    custom VJPs): the chain kernel forward, the PE-backward kernel backward,
+    with its dtable half when the table needs a gradient."""
 
     @staticmethod
-    def forward(ctx, table, idx, centers, k0, b0, k1, b1):
+    def forward(ctx, table, idx, centers, k0, b0, k1, b1, n_valid):
         ctx.save_for_backward(table, idx, centers, k0, b0, k1)
         ctx.kernel = use_kernel(table)
-        return _pe_forward(table, idx, centers, k0, b0, k1, b1)
+        return _pe_forward(table, idx, centers, k0, b0, k1, b1, n_valid)
 
     @staticmethod
     def backward(ctx, cot):
         table, idx, centers, k0, b0, k1 = ctx.saved_tensors
+        table_grad = ctx.needs_input_grad[0]
         with dispatch_as(ctx.kernel):
-            return (None, None) + _pe_bwd(table, idx, centers, k0, b0, k1, cot)
+            grads = _pe_bwd(table, idx, centers, k0, b0, k1, cot, table_grad)
+        if not table_grad:
+            grads = (None,) + grads
+        return (grads[0], None, *grads[1:], None)
 
 
 class _PeMaxSplitFrozen(torch.autograd.Function):
@@ -320,27 +403,30 @@ class _PeMaxSplitFrozen(torch.autograd.Function):
 
 def group_pe_max(table: torch.Tensor, idx: torch.Tensor, centers: torch.Tensor,
                  k0: torch.Tensor, b0: torch.Tensor, k1: torch.Tensor,
-                 b1: torch.Tensor, table_grad: bool = True) -> torch.Tensor:
+                 b1: torch.Tensor, table_grad: bool = True,
+                 n_valid: torch.Tensor = None) -> torch.Tensor:
     """max_s (relu((table[idx_s] - pad(centers)) @ k0 + b0) @ k1 + b1):
     table (B, N, C) with xyz on channels 0..2, idx (B, M, S), centers
     (B, M, 3), k0 (C, F), k1 (F, G) -> (B, M, G). The chain kernel with two
-    layers, differentiable in everything but idx.
+    layers, differentiable in everything but idx; the backward is the
+    PE-backward kernel on the card.
 
     `table_grad=False` declares the table non-trainable (the body xyz and
-    normals): it gets no gradient, and the backward is the PE-backward
-    kernel on the card. With `table_grad=True` and a table that requires
-    grad, the CPU differentiates the plain version, and the card raises:
-    the table's gradient (a scatter-add) waits for the canonical-stage
-    training slice."""
-    if table_grad and table.requires_grad and torch.is_grad_enabled():
-        if use_kernel(table):
-            raise RuntimeError(
-                "group_pe_max: the table's gradient (table_grad=True with a table "
-                "that requires grad) has no CUDA kernel yet; it comes with the "
-                "canonical-stage training slice. Pass table_grad=False for a "
-                "frozen table, or differentiate inside ops.plain_ops()")
-        return _chain_reference(table, idx, centers, (k0, k1), (b0, b1), _PE_RELUS)
-    return _PeMaxFrozenTable.apply(table.detach(), idx, centers, k0, b0, k1, b1)
+    normals): it gets no gradient, and the backward skips the dtable half.
+    With `table_grad=True` a table that requires grad gets its gradient
+    from that half: each slot's row gradient, scatter-added in a fixed
+    order.
+
+    `n_valid` (B,) int, with `table_grad=False` only: the count of real
+    leading rows of a sentinel-padded table per frame (JAX's
+    `group_pe_max_pallas_nv`). The result is the same as without it; an
+    index at or past max(n_valid[b], 1), where the TPU variant stops being
+    exact, raises (one host read of a device flag per call)."""
+    if n_valid is not None and table_grad:
+        raise ValueError("group_pe_max: n_valid requires table_grad=False")
+    if not table_grad:
+        table = table.detach()
+    return _PeMax.apply(table, idx, centers, k0, b0, k1, b1, n_valid)
 
 
 def group_pe_max_split_frozen(xyz: torch.Tensor, features: torch.Tensor,

@@ -8,9 +8,10 @@ Inside `with plain_ops():` every op runs its plain version on any device:
 the oracle that the kernels are held against on the card, entered on
 purpose, never as a fallback. A kernel wrapper is forward-only: one whose
 input requires grad while autograd records raises, instead of cutting the
-gradient off. Gradients go through autograd Functions (here `knn_points`),
-whose forward runs with grad off and whose backward takes the forward's
-choice of kernel or plain version (`dispatch_as`).
+gradient off. Gradients go through autograd Functions (here the row
+gather, whose backward is the deterministic scatter-add kernel, and
+`knn_points`), whose forward runs with grad off and whose backward takes
+the forward's choice of kernel or plain version (`dispatch_as`).
 
 Semantics follow the JAX reference bit for bit where it promises that:
 distances are diff-form fp32 `dx*dx + dy*dy + dz*dz` summed left to right
@@ -155,15 +156,87 @@ def _gather_rows_kernel(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     return out
 
 
+# output rows of a scatter-add block tile: their sums fill at most 32 KB of
+# shared memory; one thread per channel
+_SCATTER_TILE_FLOATS = 8192
+_SCATTER_MAX_C = 1024
+
+
+def _scatter_add_rows_plain(grads: torch.Tensor, idx: torch.Tensor,
+                            n: int) -> torch.Tensor:
+    """`index_add_` on the flattened rows; indices outside [0, n) go to a
+    spare row that is dropped. On the CPU it adds in index order, from 0.0,
+    the order the kernel keeps; on the card it uses atomics."""
+    B, R, C = grads.shape
+    flat = idx.long() + n * torch.arange(B, device=idx.device)[:, None]
+    valid = (idx >= 0) & (idx < n)
+    flat = torch.where(valid, flat, torch.full_like(flat, B * n))
+    out = torch.zeros((B * n + 1, C), dtype=grads.dtype, device=grads.device)
+    out.index_add_(0, flat.reshape(-1), grads.reshape(B * R, C))
+    return out[:B * n].reshape(B, n, C)
+
+
+def _scatter_add_rows_kernel(grads: torch.Tensor, idx: torch.Tensor,
+                             n: int) -> torch.Tensor:
+    _build.refuse_grad("scatter_add", grads)
+    dev = grads.device
+    _build.require(grads, "grads", torch.float32, 3, dev)
+    _build.require(idx, "idx", torch.int32, 2, dev)
+    B, R, C = grads.shape
+    if tuple(idx.shape) != (B, R) or n < 0 or C > _SCATTER_MAX_C:
+        raise ValueError(f"scatter_add: grads {tuple(grads.shape)}, idx "
+                         f"{tuple(idx.shape)}, n {n} (C <= {_SCATTER_MAX_C})")
+    tile = max(1, min(n, _SCATTER_TILE_FLOATS // max(C, 1)))
+    out = torch.empty((B, n, C), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    _build.launch_counts["scatter_add"] += 1
+    _build.check(lib.g4d_scatter_add(grads.data_ptr(), idx.data_ptr(), B, R, C, n,
+                                     tile, out.data_ptr(), _build.stream_of(grads)),
+                 "scatter_add")
+    return out
+
+
+def scatter_add_rows(grads: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """grads (B, R, C), idx (B, R) int -> (B, n, C): out[b, i] = the sum of
+    grads[b, r] over the r with idx[b, r] == i, in ascending r from 0.0;
+    indices outside [0, n) are dropped (the backward of a row gather, as
+    JAX's `_gather_rows` VJP). The kernel is bitwise the CPU's sum and
+    repeats bitwise; the plain version on the card (atomics) does not."""
+    if use_kernel(grads):
+        return _scatter_add_rows_kernel(grads.contiguous(),
+                                        idx.to(torch.int32).contiguous(), int(n))
+    return _scatter_add_rows_plain(grads, idx, int(n))
+
+
+class _GatherRows(torch.autograd.Function):
+    """The row gather with the scatter-add as its backward (JAX's
+    `_gather_rows` custom VJP): the gather kernel and the scatter-add
+    kernel on the card, their plain versions elsewhere."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.kernel = use_kernel(points)
+        ctx.n = points.shape[1]
+        ctx.save_for_backward(idx)
+        if ctx.kernel:
+            return _gather_rows_kernel(points.contiguous(),
+                                       idx.to(torch.int32).contiguous())
+        return _gather_rows_plain(points, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        idx, = ctx.saved_tensors
+        with dispatch_as(ctx.kernel):
+            return scatter_add_rows(g, idx, ctx.n), None
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, M) int -> (B, M, C): out[b, m] =
-    points[b, idx[b, m]]. The kernel path is forward-only (it raises when
-    `points` requires grad under autograd); the plain path is differentiable
-    in `points`."""
-    if use_kernel(points):
-        return _gather_rows_kernel(points.contiguous(),
-                                   idx.to(torch.int32).contiguous())
-    return _gather_rows_plain(points, idx)
+    points[b, idx[b, m]]. Differentiable in `points`: the backward is
+    `scatter_add_rows`, the deterministic scatter-add kernel on the card."""
+    return _GatherRows.apply(points, idx)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,9 @@ import torch
 
 def make_optimizer(model: torch.nn.Module, lr: float,
                    freeze_canonical: bool = False) -> torch.optim.Adam:
-    """Adam over the model's trainable parameters; with `freeze_canonical`
-    the `canonical` subtree is frozen first."""
+    """Adam over the model's trainable parameters (every one of the
+    canonical model's); with `freeze_canonical` the posed model's
+    `canonical` subtree is frozen first."""
     if freeze_canonical:
         model.freeze_canonical()
     params = [p for p in model.parameters() if p.requires_grad]

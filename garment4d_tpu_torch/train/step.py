@@ -1,12 +1,16 @@
-"""Train and eval steps of the posed stage.
+"""Train and eval steps of both stages.
 
-Counterpart of `garment4d_tpu/train/step.py`: `make_posed_steps` returns a
-train step (forward in train mode with the canonical stage frozen in eval
-mode, the posed-stage losses, backward, one Adam step) and an eval step
-(forward under inference mode, the losses with the optional eval-tail
-mask). The loss Laplacian is banded through its cyclic diagonals, or
-through the reverse Cuthill-McKee relabeling that makes it banded, as the
-model's GCN stack is.
+Counterpart of `garment4d_tpu/train/step.py`. `make_canonical_steps`
+returns a train step (the canonical model in train mode: BatchNorm on batch
+statistics, the head's dropout from the caller's `torch.Generator`; the
+canonical-stage losses, backward, one Adam step over every parameter, the
+running statistics updated) and an eval step (forward under inference
+mode, the fused eval-mode SA path on the card, the losses with the
+optional eval-tail mask). `make_posed_steps` returns the posed stage's:
+forward in train mode with the canonical stage frozen in eval mode, the
+posed-stage losses, backward, one Adam step; its loss Laplacian is banded
+through its cyclic diagonals, or through the reverse Cuthill-McKee
+relabeling that makes it banded, as the model's GCN stack is.
 """
 
 from __future__ import annotations
@@ -32,6 +36,40 @@ def body_inputs_from_batch(batch: Dict[str, torch.Tensor]) -> BodyInputs:
         J_regressor=batch["J_regressor"],
         lbs_weights=batch["lbs_weights"],
     )
+
+
+def make_canonical_steps(model, assets, body_faces: np.ndarray,
+                         weights: Optional[L.LossWeights] = None,
+                         only_seg: bool = False) -> Tuple[Callable, Callable]:
+    """-> (train_step(state, batch, generator), eval_step(state, batch)),
+    each returning the loss dict (detached). `generator` is the
+    `torch.Generator` on the batch's device that the dropout draws from
+    (JAX's `dropout_rng`). The loss-side constants live on the device of
+    the model's buffers when this is called."""
+    weights = weights or L.LossWeights()
+    device = model.pca_mean.device
+    faces_tri = torch.as_tensor(np.asarray(assets.faces_tri), dtype=torch.long, device=device)
+    faces = torch.as_tensor(np.asarray(body_faces), dtype=torch.long, device=device)
+
+    def loss_dict(out, batch, valid=None):
+        return L.canonical_stage_loss(out, batch, faces_tri, faces, weights,
+                                      only_seg=only_seg, valid=valid)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator):
+        state.model.train()
+        losses = loss_dict(state.model(batch["pcd"], generator), batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        losses["total_loss"].backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in losses.items()}
+
+    @torch.inference_mode()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.eval()
+        return loss_dict(state.model(batch["pcd"]), batch, valid=batch.get("valid_mask"))
+
+    return train_step, eval_step
 
 
 def make_posed_steps(model, assets, body_faces: np.ndarray,
@@ -77,7 +115,8 @@ def make_posed_steps(model, assets, body_faces: np.ndarray,
 
 def make_state_for(model, lr: float, freeze_canonical: bool = False) -> TrainState:
     """A TrainState over the model's parameters (the model already holds its
-    weights and constants): Adam at `lr`, the canonical stage frozen with
-    `freeze_canonical`."""
+    weights and constants): Adam at `lr` over every parameter that requires
+    grad, the posed model's canonical stage frozen with `freeze_canonical`.
+    BatchNorm running statistics are buffers, updated by the forward."""
     return TrainState(model=model, lr=lr,
                       optimizer=make_optimizer(model, lr, freeze_canonical))

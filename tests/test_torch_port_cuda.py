@@ -12,13 +12,20 @@ counts, distance ties at the k-th neighbour and zero distances, GCN frames
 that are not a multiple of the vertex tile with offsets near V, 1-NN ties and
 tables around the 2048-point tile, banded products with 1 to 64 diagonals at
 C = 3, 5 and 128 and their transposes, PE backwards with padded S (4, 12)
-and tables up to 387 wide. Indices, masks, the 1-NN and the banded product
-must be bitwise equal; the fused chain, the GCN stack and the PE backward's
-dcenters agree within rtol 1e-4 / atol 1e-5, its weight gradients within
-1e-4 of their largest magnitude, the K-NN weights within rtol 1e-4 /
-atol 1e-6 (fp32 summation order); two PE-backward launches are bitwise
-equal. A small posed train step on the card matches the CPU's.
+and tables up to 387 wide, with and without their dtable half, scatter-adds
+with every row into one index, ragged R, C from 3 to 384, one output row
+and out-of-range indices, and the valid-count PE call's flag. Indices,
+masks, the 1-NN, the banded product and the scatter-add (against the
+CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
+stack and the PE backward's dcenters agree within rtol 1e-4 / atol 1e-5,
+its weight gradients and dtable within 1e-4 of their largest magnitude,
+the K-NN weights within rtol 1e-4 / atol 1e-6 (fp32 summation order); two
+PE-backward or scatter-add launches are bitwise equal. A small posed train
+step on the card matches the CPU's; an SA stage trains through the
+gathers' scatter-add and the chain kernel's backward.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -169,21 +176,32 @@ def test_sa_module_fused_matches_plain(dev):
 
 
 def test_forward_only_kernels_refuse_autograd(dev):
-    """The kernels have no backward: training on the card raises at the
-    first kernel whose input requires grad, instead of cutting the gradient
-    off; the plain versions inside `plain_ops()` still differentiate."""
+    """The kernel wrappers themselves stay forward-only (one whose input
+    requires grad under autograd raises), and training on the card goes
+    through autograd Functions instead: an SA stage in train mode (the
+    gathers' backward is the scatter-add kernel) and in eval mode (the
+    chain kernel's backward recomputes the unfused chain) gives the
+    features and the weights the gradients of the plain versions, within
+    rtol 1e-4 / atol 1e-5 (the atomics of the plain scatter add in another
+    order)."""
     torch.manual_seed(0)
     sa = SAModuleMSG(64, (0.2, 0.4), (8, 16), ((16, 32), (32, 32)), 6).to(dev)
     xyz = cloud(8, 2, 300)
     feats = torch.randn(2, 300, 6, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="gather_rows: the CUDA kernel is forward-only"):
-        sa.train()(xyz, feats)[1].sum().backward()
-    with pytest.raises(RuntimeError, match="fused_chain: the CUDA kernel is forward-only"):
-        sa.eval()(xyz, feats.detach())[1].sum().backward()
-    with ops.plain_ops():
-        sa.train()(xyz, feats)[1].sum().backward()
-    assert feats.grad is not None and torch.isfinite(feats.grad).all()
-    assert sa.mlp0.layer0.conv.weight.grad is not None
+        pc._gather_rows_kernel(feats, torch.zeros(2, 4, dtype=torch.int32, device=dev))
+    for train, kernel in ((True, "scatter_add"), (False, "fused_chain")):
+        grads = []
+        for plain in (False, True):
+            feats.grad = None
+            sa.zero_grad()
+            ops.reset_counts()
+            with ops.plain_ops() if plain else contextlib.nullcontext():
+                sa.train(train)(xyz, feats)[1].square().sum().backward()
+            assert (ops.launch_counts[kernel] > 0) != plain, dict(ops.launch_counts)
+            grads.append([feats.grad.clone()] + [p.grad.clone() for p in sa.parameters()])
+        for g, w in zip(*grads):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
     with torch.no_grad():  # eval under no_grad: the fused kernels run
         sa.eval()(xyz, feats)
 
@@ -308,18 +326,29 @@ def test_gcn_stack(dev, V, offsets, attn):
 
 
 def test_posed_wrappers_refuse_autograd(dev):
-    """The K-NN transfer stays forward-only, and a PE table that requires
-    grad (table_grad=True) raises on the card (its scatter-add gradient is
-    not ported); the GCN stack and a frozen-table PE block differentiate."""
-    x = torch.zeros(1, 16, 3, device=dev, requires_grad=True)
-    w = torch.zeros(3, 8, device=dev, requires_grad=True)
+    """The K-NN transfer stays forward-only; a PE table that requires grad
+    (table_grad=True) now differentiates on the card through the dtable
+    half of the PE backward, to the plain version's gradient (rtol 1e-4 /
+    atol 1e-5); a frozen-table PE block and the GCN stack differentiate."""
+    x = torch.randn(1, 16, 3, device=dev, requires_grad=True)
+    w = torch.randn(3, 8, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="knn_transfer: the CUDA kernel is forward-only"):
         skinning.knn_transfer(x, x.detach(), torch.zeros(1, 16, 4, device=dev), 2, 2)
-    pe_args = (torch.zeros(1, 2, 8, dtype=torch.int32, device=dev), x[:, :2].detach(), w,
-               torch.zeros(8, device=dev), torch.zeros(8, 8, device=dev),
-               torch.zeros(8, device=dev))
-    with pytest.raises(RuntimeError, match="canonical-stage training slice"):
-        ops.group_pe_max(x, *pe_args)
+    pe_args = (torch.randint(0, 16, (1, 2, 8), dtype=torch.int32, device=dev),
+               x[:, :2].detach(), w, torch.zeros(8, device=dev),
+               torch.randn(8, 8, device=dev), torch.zeros(8, device=dev))
+    grads = []
+    for plain in (False, True):
+        x.grad = w.grad = None
+        ops.reset_counts()
+        with ops.plain_ops() if plain else contextlib.nullcontext():
+            ops.group_pe_max(x, *pe_args).sum().backward()
+        assert ((ops.launch_counts["pe_bwd"] == 1 and ops.launch_counts["scatter_add"] == 1)
+                != plain), dict(ops.launch_counts)
+        grads.append((x.grad.clone(), w.grad.clone()))
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-5)
+    x.grad = w.grad = None
     ops.group_pe_max(x, *pe_args, table_grad=False).sum().backward()
     assert x.grad is None and w.grad is not None
     out, _ = ops.gcn_stack([x], [w], [torch.zeros(8, device=dev)],
@@ -546,3 +575,83 @@ def test_posed_cuda_matches_cpu(dev, shuffle):
     np.testing.assert_array_equal(got.lbs.nn_idx.cpu().numpy(), want.lbs.nn_idx.numpy())
     for a, b in zip(got.iter_garment_v, want.iter_garment_v):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("B,R,C,n,case", [
+    (3, 4000, 3, 50, "one index"), (2, 1001, 67, 1722, "ragged"), (2, 5000, 99, 1024, ""),
+    (2, 3000, 128, 1024, ""), (1, 2048, 195, 256, ""), (2, 768, 384, 64, ""),
+    (2, 700, 16, 1, "n=1"), (2, 900, 33, 40, "out of range")])
+def test_scatter_add(dev, B, R, C, n, case):
+    """Every row to one index, R not a multiple of the 32-row scan or of the
+    tile, C from 3 to 384, a single output row, and indices outside [0, n)
+    (dropped): bitwise the ascending-order sum on the CPU, two launches
+    bitwise equal, and `index_add_` on the card (atomics, in another order)
+    within 1e-6 of the magnitude each element sums (a row here collects up
+    to 4000 terms)."""
+    g = torch.Generator().manual_seed(R + C)
+    grads = torch.randn(B, R, C, generator=g)
+    idx = torch.randint(0, n, (B, R), generator=g, dtype=torch.int32)
+    if case == "one index":
+        idx[:] = n // 2
+    if case == "out of range":
+        idx[:, ::3] = torch.randint(-50, 0, (B, (R + 2) // 3), generator=g, dtype=torch.int32)
+        idx[:, 1::7] += n
+    want = pc._scatter_add_rows_plain(grads, idx, n)
+    got = pc._scatter_add_rows_kernel(grads.to(dev), idx.to(dev), n)
+    again = pc._scatter_add_rows_kernel(grads.to(dev), idx.to(dev), n)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    on_card = pc._scatter_add_rows_plain(grads.to(dev), idx.to(dev), n)
+    magnitude = pc._scatter_add_rows_plain(grads.abs(), idx, n)
+    assert ((got.cpu() - on_card.cpu()).abs() <= 1e-6 * magnitude).all()
+
+
+@pytest.mark.parametrize("C,S,M", [(67, 32, 300), (6, 12, 50), (99, 16, 2000)])
+def test_pe_bwd_dtable(dev, C, S, M):
+    """The dtable half (table_grad=True; S=12 padded with slot 0): all six
+    gradients against the plain version with the near-tie cotangent mask,
+    dtable and the weight gradients within 1e-4 of their largest magnitude,
+    dcenters within rtol 1e-4 / atol 1e-5; two launches bitwise equal; the
+    first five outputs bitwise those of the launch without the dtable
+    half."""
+    from chip_smoke import pe_near_ties
+
+    args = _pe_inputs(25, 2, 700, M, S, C)
+    args[-1] = args[-1] * ~pe_near_ties(*args[:6])
+    got = pemax._pe_bwd_kernel(*args, table_grad=True)
+    again = pemax._pe_bwd_kernel(*args, table_grad=True)
+    want = pemax._pe_bwd_plain(*args, table_grad=True)
+    assert len(got) == 6 and got[0].shape == args[0].shape
+    torch.testing.assert_close(got[1], want[1], **PE_TOL)
+    for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    for g, a in zip(got, again):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+    for g, a in zip(got[1:], pemax._pe_bwd_kernel(*args)):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+
+
+def test_group_pe_max_nv_flag(dev):
+    """The valid-count PE call: bitwise the chain kernel without the count
+    while every index stays below max(n_valid[b], 1) (a frame with a count
+    of 0 gathers row 0); an index at or past it raises; counted under
+    `group_pe_max_nv`."""
+    table, idx, centers, k0, b0, k1, _ = _pe_inputs(26, 2, 500, 300, 16, 6)
+    b1 = torch.zeros(32, device=dev)
+    n_valid = torch.tensor([300, 0], dtype=torch.int32, device=dev)
+    idx[0] %= 300
+    idx[1] = 0
+    ops.reset_counts()
+    with torch.no_grad():
+        got = ops.group_pe_max(table, idx, centers, k0, b0, k1, b1, table_grad=False,
+                               n_valid=n_valid)
+        want = ops.group_pe_max(table, idx, centers, k0, b0, k1, b1, table_grad=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert dict(ops.launch_counts) == {"group_pe_max_nv": 1, "group_pe_max": 1}
+    idx[0, 7, 3] = 300
+    with pytest.raises(ValueError, match="past max"):
+        ops.group_pe_max(table, idx, centers, k0, b0, k1, b1, table_grad=False, n_valid=n_valid)
+    idx[0, 7, 3] = 0
+    idx[1, 0, 0] = 1
+    with pytest.raises(ValueError, match="past max"):
+        ops.group_pe_max(table, idx, centers, k0, b0, k1, b1, table_grad=False, n_valid=n_valid)

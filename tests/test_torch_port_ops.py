@@ -556,6 +556,204 @@ class TestGradients:
         np.testing.assert_allclose(_np(gd), np.asarray(want.dists), rtol=1e-6)
 
 
+class TestTableGradients:
+    """The deterministic scatter-add and the gradients that go through it
+    (the row gathers, the PE block's dtable half, the chain), the
+    valid-count PE call, and the cotangent Laplacian, against the JAX
+    package."""
+
+    @pytest.mark.parametrize("case", ["duplicates", "out_of_range"])
+    def test_scatter_add_rows_matches_gather_vjp(self, rng, case):
+        """Against JAX's `_gather_rows` VJP (XLA's scatter-add on the CPU)
+        and `np.add.at`: bitwise, both add each row's contributions in
+        ascending order from 0.0. Heavy duplicates (every index in 0..4),
+        and indices at or past n, which both drop."""
+        from garment4d_tpu.ops.pointcloud import _gather_rows
+
+        B, R, n, C = 2, 1500, 40, 7
+        idx = rng.randint(0, 5, (B, R)).astype(np.int32)
+        if case == "out_of_range":
+            idx = rng.randint(0, n + 30, (B, R)).astype(np.int32)
+        g = rng.randn(B, R, C).astype(np.float32)
+        _, vjp = jax.vjp(lambda t: _gather_rows(t, jnp.asarray(idx)),
+                         jnp.zeros((B, n, C), jnp.float32))
+        want = np.asarray(vjp(jnp.asarray(g))[0])
+        got = _np(tops.scatter_add_rows(_t(g), _t(idx), n))
+        np.testing.assert_array_equal(got, want)
+        ref = np.zeros((B, n + 30, C), np.float32)
+        for b in range(B):
+            np.add.at(ref[b], idx[b], g[b])
+        np.testing.assert_array_equal(got, ref[:, :n])
+
+    def test_scatter_add_rows_matches_pallas(self, rng):
+        """Against the TPU kernel (interpret mode), which drops negative
+        indices and indices past n too: within 1e-6 of the magnitude each
+        output element sums (the kernel's bf16x3 split is exact, but it
+        adds in another order, and a row here collects ~400 terms)."""
+        from jax.experimental.pallas import tpu as pltpu
+        from garment4d_tpu.ops.pallas.scatter import scatter_add_rows_pallas
+
+        B, R, n, C = 2, 1300, 130, 6
+        idx = rng.randint(-20, n + 20, (B, R)).astype(np.int32)
+        idx[:, :400] = 3  # collisions
+        g = rng.randn(B, R, C).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(scatter_add_rows_pallas(jnp.asarray(g), jnp.asarray(idx), n))
+        got = _np(tops.scatter_add_rows(_t(g), _t(idx), n))
+        magnitude = np.zeros((B, n + 20, C), np.float32)
+        for b in range(B):
+            ok = idx[b] >= 0
+            np.add.at(magnitude[b], idx[b][ok], np.abs(g[b][ok]))
+        assert (np.abs(got - want) <= 1e-6 * magnitude[:, :n]).all()
+
+    @pytest.mark.parametrize("op", ["gather_points", "group_points", "three_interpolate"])
+    def test_gather_vjps(self, rng, op):
+        """The table's gradient through each gather, against jax.vjp of the
+        JAX op (the same scatter-add and products): rtol 1e-6 / atol 1e-6."""
+        B, N, M, C = 2, 50, 30, 5
+        table = rng.randn(B, N, C).astype(np.float32)
+        if op == "gather_points":
+            args = (rng.randint(0, N, (B, M)).astype(np.int32),)
+        elif op == "group_points":
+            args = (rng.randint(0, 8, (B, M, 6)).astype(np.int32),)
+        else:
+            w = rng.rand(B, M, 3).astype(np.float32)
+            args = (rng.randint(0, N, (B, M, 3)).astype(np.int32), w / w.sum(-1, keepdims=True))
+        jout, vjp = jax.vjp(lambda t: getattr(jops, op)(t, *[jnp.asarray(a) for a in args]),
+                            jnp.asarray(table))
+        cot = rng.randn(*jout.shape).astype(np.float32)
+        (want,) = vjp(jnp.asarray(cot))
+        tt = _t(table).requires_grad_(True)
+        out = getattr(tops, op)(tt, *[_t(a) for a in args])
+        np.testing.assert_allclose(_np(out), np.asarray(jout), rtol=1e-6, atol=1e-6)
+        (got,) = torch.autograd.grad((out * _t(cot)).sum(), tt)
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("S", [4, 8])
+    def test_group_pe_max_table_grad(self, rng, S):
+        """`group_pe_max(table_grad=True)` with a table that requires grad:
+        the output and all six gradients (dtable through the scatter-add
+        of the row gradients) against JAX's VJP, exact ties among the
+        replicated slots included: the output, dtable and dcenters within
+        rtol 1e-5 / atol 1e-6; each weight gradient, a sum of B*M*S
+        products in another order, within 1e-5 of its largest magnitude."""
+        from garment4d_tpu import ops as jo
+
+        table, idx, centers, k0, b0, k1, b1, cot = _pe_case(rng, B=2, N=60, M=40, S=S)
+        args = (table, centers, k0, b0, k1, b1)
+        jout, vjp = jax.vjp(lambda t, c, a0, a1, a2, a3: jo.group_pe_max(
+            t, jnp.asarray(idx), c, a0, a1, a2, a3), *[jnp.asarray(a) for a in args])
+        want = vjp(jnp.asarray(cot))
+        got = _grads(lambda t, c, a0, a1, a2, a3: tops.group_pe_max(
+            t, _t(idx), c, a0, a1, a2, a3), *args, cot)
+        out = tops.group_pe_max(*[_t(a) for a in (table, idx, centers, k0, b0, k1, b1)])
+        np.testing.assert_allclose(_np(out), np.asarray(jout), rtol=1e-5, atol=1e-6)
+        assert np.abs(got[0]).sum() > 0
+        for name, g, w in zip(("dtable", "dcenters"), got, want):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-6, err_msg=name)
+        for name, g, w in zip(("dk0", "db0", "dk1", "db1"), got[2:], want[2:]):
+            w = np.asarray(w)
+            assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), name
+
+    def test_pe_backward_table_grad_plain_matches_pallas(self, rng):
+        """The plain PE backward's dtable half against the TPU kernel's
+        (interpret mode, table_grad=True): tolerances as
+        `test_pe_backward_plain_matches_pallas` (dtable sums few rows:
+        atol 2e-6)."""
+        from jax.experimental.pallas import tpu as pltpu
+        from garment4d_tpu.ops.pallas.fusedpe import fused_pe_bwd_pallas
+
+        table, idx, centers, k0, b0, k1, b1, cot = _pe_case(rng)
+        with pltpu.force_tpu_interpret_mode():
+            want = fused_pe_bwd_pallas(
+                *[jnp.asarray(a) for a in (table, idx, centers, k0, b0, k1, b1)],
+                idx.shape[2], jnp.asarray(cot))
+        got = tops.pemax._pe_bwd_plain(*[_t(a) for a in (table, idx, centers, k0, b0,
+                                                           k1, cot)], table_grad=True)
+        assert len(got) == 6
+        for name, g, w, atol in zip(("dtable", "dcenters", "dk0", "db0", "dk1", "db1"),
+                                    got, want, (2e-6, 2e-6, 1e-4, 1e-4, 1e-4, 1e-4)):
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-5, atol=atol,
+                                       err_msg=name)
+
+    def test_group_pe_max_n_valid(self, rng):
+        """The valid-count call over a sentinel-padded table against JAX's
+        `group_pe_max(table_grad=False, n_valid=)` (fp32 roundoff, rtol
+        1e-5 / atol 1e-5), bitwise the call without the count; an index at
+        or past max(n_valid[b], 1) raises (a frame with a count of 0 may
+        still gather row 0)."""
+        from garment4d_tpu import ops as jo
+
+        table, idx, centers, k0, b0, k1, b1, _ = _pe_case(rng, B=2, N=80, M=30, S=8)
+        n_valid = np.array([50, 0], np.int32)
+        idx[0] = idx[0] % 50
+        idx[1] = 0
+        table[0, 50:, :3] = 1e9  # sentinel rows past the count
+        args = (table, idx, centers, k0, b0, k1, b1)
+        want = jo.group_pe_max(*[jnp.asarray(a) for a in args], table_grad=False,
+                               n_valid=jnp.asarray(n_valid))
+        got = tops.group_pe_max(*[_t(a) for a in args], table_grad=False, n_valid=_t(n_valid))
+        np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+        plain = tops.group_pe_max(*[_t(a) for a in args], table_grad=False)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        idx[0, 3, 2] = 50
+        with pytest.raises(ValueError, match="past max"):
+            tops.group_pe_max(*[_t(a) for a in args], table_grad=False, n_valid=_t(n_valid))
+        with pytest.raises(ValueError, match="table_grad=False"):
+            tops.group_pe_max(*[_t(a) for a in args], n_valid=_t(n_valid))
+
+    def test_group_chain_max_gradients(self, rng):
+        """`group_chain_max` through its autograd Function (the backward
+        recomputes the unfused chain) against JAX's custom VJP: a 3-layer
+        chain with a linear last layer; the table's, centers' and every
+        weight's gradient within rtol 1e-5 / atol 1e-5."""
+        from garment4d_tpu import ops as jo
+
+        table, idx, centers, _, _, _, _, _ = _pe_case(rng, B=2, N=60, M=20, S=8, C=7)
+        widths = (7, 16, 12, 8)
+        ws = [(rng.randn(a, b) * 0.3).astype(np.float32) for a, b in zip(widths, widths[1:])]
+        bs = [(rng.randn(b) * 0.1).astype(np.float32) for b in widths[1:]]
+        relus = (True, True, False)
+        cot = rng.randn(2, 20, 8).astype(np.float32)
+        jargs = [jnp.asarray(a) for a in (table, centers)]
+        _, vjp = jax.vjp(lambda t, c, w, b: jo.group_chain_max(t, jnp.asarray(idx), c, w, b,
+                                                               relus),
+                         *jargs, [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+        jt, jc, jw, jb = vjp(jnp.asarray(cot))
+        got = _grads(lambda t, c, *wb: tops.group_chain_max(t, _t(idx), c, wb[:3], wb[3:],
+                                                            relus),
+                     table, centers, *ws, *bs, cot)
+        for g, w in zip(got, [jt, jc, *jw, *jb]):
+            np.testing.assert_allclose(g, np.asarray(w), **F32)
+
+    def test_cot_laplacian_apply(self, rng):
+        """`cot_laplacian_apply` against JAX's on a ring mesh with a
+        degenerate face (two coincident vertices: its weights are NaN/Inf,
+        zeroed), and its gradient w.r.t. x (the weights are constants):
+        rtol 1e-5 / atol 1e-5."""
+        from garment4d_tpu.models import GarmentAssets as JAssets
+
+        assets = JAssets.synthetic(num_rings=4, ring_size=6)
+        faces = np.asarray(assets.faces_tri)
+        verts = (assets.template_v[None] + 0.01 * rng.randn(2, assets.num_verts, 3)
+                 ).astype(np.float32)
+        verts[:, faces[0, 1]] = verts[:, faces[0, 0]]
+        x = rng.randn(2, assets.num_verts, 3).astype(np.float32)
+        cot = rng.randn(2, assets.num_verts, 3).astype(np.float32)
+        w = np.asarray(jops.meshmath.cotangent_weights(jnp.asarray(verts), faces))
+        assert (w[:, 0] == 0).all()
+        np.testing.assert_allclose(_np(tops.cotangent_weights(_t(verts), faces)), w, **F32)
+        jout, vjp = jax.vjp(lambda v, xx: jops.cot_laplacian_apply(v, xx, faces),
+                            jnp.asarray(verts), jnp.asarray(x))
+        jv, jx = vjp(jnp.asarray(cot))
+        tv, tx = _t(verts).requires_grad_(True), _t(x).requires_grad_(True)
+        out = tops.cot_laplacian_apply(tv, tx, faces)
+        np.testing.assert_allclose(_np(out), np.asarray(jout), **F32)
+        gv, gx = torch.autograd.grad((out * _t(cot)).sum(), (tv, tx), allow_unused=True)
+        assert gv is None and not np.asarray(jv).any()
+        np.testing.assert_allclose(_np(gx), np.asarray(jx), **F32)
+
+
 class TestModules:
     @pytest.mark.parametrize("with_feats", [False, True])
     def test_sa_module(self, rng, with_feats):
