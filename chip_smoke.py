@@ -78,9 +78,10 @@ then:
    PE backward's dtable half (table_grad=True: the slots' row gradients
    summed by the scatter-add) at garment pe0 unsplit, 67-32-32 at S=32, all
    six gradients against the plain version and the float64 witness with the
-   near-tie mask, two launches bitwise equal; and (in phase 2) the
-   valid-count chain call at the body PE shape, bitwise the chain kernel
-   without the count;
+   near-tie mask, two launches bitwise equal, and its scatter-add of the
+   won slots' row gradients checked and timed as phase 6's scatter-adds;
+   and (in phase 2) the valid-count chain call at the body PE shape,
+   bitwise the chain kernel without the count;
 6. canonical train step at the recipe's shape (B=20, T=10, N=6890, the
    seed-1 batch, the canonical subtree of `posed_synth.npz`, Adam at lr 1e-3
    over every parameter, dropout 0.5 from a seeded generator): zeroes the
@@ -109,11 +110,18 @@ then:
 Any failure raises, so the script exits non-zero without the last line; so
 it does when no CUDA device is visible or when the repo is not beside it.
 
-    python3 chip_smoke.py --time-posed [ROOT]
+    python3 chip_smoke.py --time-kernels [ROOT]
+    python3 chip_smoke.py --ab PARENT
 
-times only the posed forward (phase 4's shape and weights) of the package
-in the checkout at ROOT (default: this one), so that two checkouts can be
-compared in one run on one card.
+`--time-kernels` times, for the package in the checkout at ROOT (default:
+this one), the posed forward (phase 4's shape and weights), the posed and
+canonical train steps (frames/s, device ms, the PE backward's and the
+scatter-add's device ms per step), the PE backward at each of its six
+shapes and its dtable half, and the scatter-add at each of its 11 shapes
+beside one `index_add_`, on inputs recorded from the steps; one JSON line.
+`--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
+this one in turns, parent, change, change, parent, so that two checkouts
+are compared in one run on one card, and prints the means.
 """
 
 from __future__ import annotations
@@ -822,7 +830,8 @@ def check_pe_dtable(args, res: Results):
     table, idx, centers, k0, b0, k1, cot = args
     near = pe_near_ties(*args[:6])
     masked = (*args[:6], cot * ~near)
-    got = pemax._pe_bwd_kernel(*masked, table_grad=True)
+    with recording(pemax, "_scatter_add_rows_kernel") as scatters:
+        got = pemax._pe_bwd_kernel(*masked, table_grad=True)
     again = pemax._pe_bwd_kernel(*masked, table_grad=True)
     want = pemax._pe_bwd_plain(*masked, table_grad=True)
     routing = pe_routing(*args[:6])
@@ -859,6 +868,10 @@ def check_pe_dtable(args, res: Results):
                nbytes(*args, *got),
                pe_bwd_ops(idx, k0, k1, routing[0]) + won * 2.0 * C * F + Bt * M * S * C,
                err_vs_plain=vs_plain, err_vs_float64=vs_f64)
+    # its scatter-add: the won slots' row gradients (the others indexed -1)
+    (dqg, idx_w, n), _, out = scatters[0]
+    scatter_case(f"dtable ({dqg.shape[0]}, {dqg.shape[1]}, {dqg.shape[2]}) into {n} rows, "
+                 f"{int((idx_w >= 0).sum())} won", dqg, idx_w, n, out, res)
     return failed
 
 
@@ -1029,36 +1042,43 @@ def train_phase(assets, body, weights, res: Results):
 
 
 @torch.no_grad()
-def check_scatter_add(calls, res: Results):
-    """The scatter-add at each of its shapes in the canonical train step, on
-    the inputs recorded from the step: against its plain version on the card
-    (`index_add_`, atomics: rtol 1e-5 / atol 1e-6), bitwise against the
-    ascending-order sum on the CPU (the plain version there), two launches
-    bitwise equal; timed beside its bound (bytes), its plain version and
-    one `index_add_` call on the flattened rows."""
+def scatter_case(case, grads, idx, n, out, res: Results):
+    """One scatter-add call and its result `out`: against its plain version
+    on the card (`index_add_`, atomics: rtol 1e-5 / atol 1e-6), bitwise
+    against the ascending-order sum on the CPU (the plain version there),
+    two launches bitwise equal; timed beside its bound (bytes), its plain
+    version and one `index_add_` call on the flattened rows."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
+    Bs, R, C = grads.shape
+    plain = pc._scatter_add_rows_plain(grads, idx, n)
+    err = float((out - plain).abs().max())
+    require(torch.allclose(out, plain, rtol=1e-5, atol=1e-6),
+            f"scatter_add {case}: max abs err {err} against index_add_")
+    require(torch.equal(out, pc._scatter_add_rows_kernel(grads, idx, n)),
+            f"scatter_add {case}: two launches differ")
+    cpu = pc._scatter_add_rows_plain(grads.cpu(), idx.cpu(), n)
+    require(torch.equal(out.cpu(), cpu),
+            f"scatter_add {case}: not bitwise the CPU's ascending-order sum")
+    del plain, cpu
+    # the rows the function reads: those of indices in [0, n)
+    valid = (idx >= 0) & (idx < n)
+    flat = torch.where(valid, idx.long() + n * torch.arange(Bs, device=idx.device)[:, None],
+                       Bs * n).reshape(-1)
+    rows, lib_out = grads.reshape(-1, C), torch.zeros(Bs * n + 1, C, device=grads.device)
+    res.record("scatter_add", case, err, lambda: pc._scatter_add_rows_kernel(grads, idx, n),
+               lambda: pc._scatter_add_rows_plain(grads, idx, n),
+               int(valid.sum()) * C * 4 + nbytes(idx, out), float(valid.sum()) * C, reps_k=10,
+               library=lambda: lib_out.index_add_(0, flat, rows),
+               bitwise_cpu=True, bitwise_repeat=True)
+
+
+def check_scatter_add(calls, res: Results):
+    """The scatter-add at each of its shapes in the canonical train step, on
+    the inputs recorded from the step (`scatter_case`)."""
     for (grads, idx, n), _, out in calls:
-        Bs, R, C = grads.shape
-        case = f"({Bs}, {R}, {C}) into {n} rows"
-        plain = pc._scatter_add_rows_plain(grads, idx, n)
-        err = float((out - plain).abs().max())
-        require(torch.allclose(out, plain, rtol=1e-5, atol=1e-6),
-                f"scatter_add {case}: max abs err {err} against index_add_")
-        require(torch.equal(out, pc._scatter_add_rows_kernel(grads, idx, n)),
-                f"scatter_add {case}: two launches differ")
-        cpu = pc._scatter_add_rows_plain(grads.cpu(), idx.cpu(), n)
-        require(torch.equal(out.cpu(), cpu),
-                f"scatter_add {case}: not bitwise the CPU's ascending-order sum")
-        del plain, cpu
-        flat = (idx.long() + n * torch.arange(Bs, device=idx.device)[:, None]).reshape(-1)
-        rows, lib_out = grads.reshape(-1, C), torch.zeros(Bs * n, C, device=grads.device)
-        res.record("scatter_add", case, err, lambda: pc._scatter_add_rows_kernel(grads, idx, n),
-                   lambda: pc._scatter_add_rows_plain(grads, idx, n),
-                   nbytes(grads, idx, out), float(grads.numel()), reps_k=10,
-                   library=lambda: lib_out.index_add_(0, flat, rows),
-                   bitwise_cpu=True, bitwise_repeat=True)
-        del lib_out
+        scatter_case(f"({grads.shape[0]}, {grads.shape[1]}, {grads.shape[2]}) into {n} rows",
+                     grads, idx, n, out, res)
 
 
 @contextlib.contextmanager
@@ -1243,33 +1263,158 @@ def counted(label, fn, names):
     return out, launches
 
 
-def time_posed(root: Path) -> int:
-    """The posed forward of the package in the checkout at `root`, at
-    phase 4's shape and weights: median wall time of 10 forwards after 2
-    warm-ups, device time per forward (torch.profiler), one JSON line."""
+# device kernel names (torch.profiler) of the PE backward and the
+# scatter-add in either checkout of an A/B run: the PE backward's per-block
+# pass and ordered sum, the scatter-add's single tiled kernel (the earlier
+# design) or its sort and segmented sum
+AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
+                   "scatter_add": ("scatter_add_kernel", "scatter_sort_kernel",
+                                   "segment_sum_kernel")}
+
+
+def device_ms_of(rows, names) -> float:
+    """Device ms per call of the profiler rows whose kernel name holds one
+    of `names`."""
+    return sum(ms for ms, _, name in rows if any(n in name for n in names))
+
+
+def time_kernels(root: Path) -> int:
+    """The two redesigned kernels and the paths that run them, for the
+    package in the checkout at `root`: the posed forward (median of 10 after
+    2 warm-ups); the posed train step (B=4) and the canonical train step
+    (B=20) at phases 5 and 6's shapes, each median of 5 steps after 2
+    warm-ups and profiled once (device ms, and the kernel's share); the PE
+    backward at each of its shapes in the posed step and its dtable half
+    with that half's scatter-add, and the scatter-add at each of its shapes
+    in the canonical step beside one `index_add_`, on inputs recorded from
+    the steps (CUDA events). One JSON line."""
     root = root.resolve()
     sys.path.insert(0, str(root))
     import garment4d_tpu_torch
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
-    from garment4d_tpu_torch.models import GarmentAssets
+    from garment4d_tpu_torch.models import CanonicalGarmentModel, GarmentAssets
+    from garment4d_tpu_torch.ops import pemax, pointcloud as pc
     from garment4d_tpu_torch.smpl import synthetic_smpl
+    from garment4d_tpu_torch.train import (load_npz_subtree, make_canonical_steps,
+                                           make_posed_steps, make_state_for)
     from garment4d_tpu_torch.train.step import body_inputs_from_batch
 
     require(Path(garment4d_tpu_torch.__file__).resolve().is_relative_to(root),
             f"the package was not imported from {root}")
     dev = torch.device("cuda")
+    weights = str(root / "ckpt_synth" / "posed_synth.npz")
     assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
     body = synthetic_smpl(num_verts=N, device=dev)
+    out = {"root": str(root)}
+
     batch = make_batch(assets, body, batch_size=B, T=T, npoints=N, device=dev)
     pcd, body_in = batch["pcd"], body_inputs_from_batch(batch)
-    recon = GarmentReconstructor.from_npz(
-        assets, body, str(root / "ckpt_synth" / "posed_synth.npz"), device=dev)
+    recon = GarmentReconstructor.from_npz(assets, body, weights, device=dev)
     step_s = wall_s(lambda: recon.posed(pcd, body_in), runs=10, warmup=2)
     _, dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
-    print(json.dumps({"root": str(root), "posed_frames_per_sec": F / step_s,
-                      "wall_ms": step_s * 1e3, "device_ms": dev_ms,
-                      "idle_share": 1 - dev_ms / (step_s * 1e3)}), flush=True)
+    out.update(posed_frames_per_sec=F / step_s, posed_device_ms=dev_ms)
+    del recon, batch, pcd, body_in
+
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    model = GarmentReconstructor.from_npz(assets, body, weights, device=dev).model
+    state = make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
+    train_step, _ = make_posed_steps(model, assets, body.faces)
+    with recording(pemax, "_pe_bwd_kernel") as calls:
+        train_step(state, batch)
+    step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
+    rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
+    out.update(posed_train_frames_per_sec=TRAIN_F / step_s, posed_train_device_ms=dev_ms,
+               pe_bwd_device_ms_per_step=device_ms_of(rows, AB_KERNEL_NAMES["pe_bwd"]))
+    shapes = {}
+    for a, _, _ in calls:
+        shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
+    del calls[:], state, model, batch
+    with torch.no_grad():
+        out["pe_bwd"] = [dict(case=f"C={C} S={S}",
+                              ms=cuda_ms(lambda: pemax._pe_bwd_kernel(*args), 20))
+                         for (C, S), args in sorted(shapes.items())]
+        args = shapes[(67, 32)]
+        out["pe_bwd_dtable_ms"] = cuda_ms(
+            lambda: pemax._pe_bwd_kernel(*args, table_grad=True), 10)
+        with recording(pemax, "_scatter_add_rows_kernel") as calls:
+            pemax._pe_bwd_kernel(*args, table_grad=True)
+        (dqg, idx, n), _, _ = calls[0]
+        out["dtable_scatter_ms"] = cuda_ms(lambda: pc._scatter_add_rows_kernel(dqg, idx, n), 10)
+    del shapes, args, calls, dqg, idx
+    torch.cuda.empty_cache()
+
+    batch = make_batch(assets, body, batch_size=CANON_B, T=T, npoints=N, seed=1, device=dev)
+    model = CanonicalGarmentModel(assets).to(dev)
+    model.load_state_dict(load_npz_subtree(weights, "canonical"), strict=True)
+    state = make_state_for(model, lr=TRAIN_LR)
+    train_step, _ = make_canonical_steps(model, assets, body.faces)
+
+    def step():
+        return train_step(state, batch, torch.Generator(device=dev).manual_seed(1))
+
+    with recording(pc, "_scatter_add_rows_kernel") as calls:
+        step()
+    step_s = wall_s(step, runs=5, warmup=2)
+    rows, dev_ms = profile_device(step, runs=1)
+    out.update(canonical_train_frames_per_sec=CANON_F / step_s,
+               canonical_train_device_ms=dev_ms,
+               scatter_add_device_ms_per_step=device_ms_of(
+                   rows, AB_KERNEL_NAMES["scatter_add"]))
+    out["scatter_add"] = []
+    torch.set_grad_enabled(False)
+    for (grads, idx, n), _, _ in calls:
+        Bs, R, C = grads.shape
+        flat = (idx.long() + n * torch.arange(Bs, device=dev)[:, None]).reshape(-1)
+        lib_out = torch.zeros(Bs * n, C, device=dev)
+        out["scatter_add"].append(dict(
+            case=f"({Bs}, {R}, {C}) into {n} rows",
+            ms=cuda_ms(lambda: pc._scatter_add_rows_kernel(grads, idx, n), 10),
+            library_ms=cuda_ms(lambda: lib_out.index_add_(0, flat, grads.reshape(-1, C)), 10)))
+        del lib_out, flat
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ab(parent: Path) -> int:
+    """The parent checkout at `parent` against this one on one card, in
+    turns (parent, change, change, parent), each a `--time-kernels` process;
+    every reading of both, then the means per case and path, one JSON line,
+    then the card line."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    runs = []
+    for label, root in (("parent", parent), ("change", REPO), ("change", REPO),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--time-kernels", str(root)],
+                              capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0, f"--time-kernels {root} failed:\n"
+                + proc.stdout[-3000:] + proc.stderr[-3000:])
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+        print(f"{label}: {json.dumps(runs[-1][1])}", flush=True)
+
+    def mean(label, get):
+        vals = [get(r) for lab, r in runs if lab == label]
+        return sum(vals) / len(vals)
+
+    summary = {}
+    for key in ("posed_frames_per_sec", "posed_device_ms", "posed_train_frames_per_sec",
+                "posed_train_device_ms", "pe_bwd_device_ms_per_step",
+                "canonical_train_frames_per_sec", "canonical_train_device_ms",
+                "scatter_add_device_ms_per_step", "pe_bwd_dtable_ms", "dtable_scatter_ms"):
+        summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
+    for kernel in ("pe_bwd", "scatter_add"):
+        for i, case in enumerate(runs[0][1][kernel]):
+            row = {lab: mean(lab, lambda r: r[kernel][i]["ms"]) for lab in ("parent", "change")}
+            if "library_ms" in case:
+                row["index_add_"] = mean("change", lambda r: r[kernel][i]["library_ms"])
+            summary[f"{kernel} {case['case']}"] = row
+    for key, row in summary.items():
+        print(f"A/B {key}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+    print(json.dumps({"ab": summary, "card": card}))
+    print(card)
     return 0
 
 
@@ -1277,8 +1422,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--time-posed"]:
-        return time_posed(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
+    if sys.argv[1:2] == ["--time-kernels"]:
+        return time_kernels(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) > 2:
+        return ab(Path(sys.argv[2]).resolve())
     from garment4d_tpu_torch import ops
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch

@@ -17,7 +17,8 @@ failed build or a failed launch raises.
 `models/skinning.py` adds one where it launches its kernel and nowhere
 else, so a run can show which kernels its main path went through (the
 PE-backward wrapper counts its two launches, the per-block pass and the
-ordered sum of the partials, as one; its dtable half's scatter-add counts
+ordered sum of the partials, as one, and the scatter-add its sort and its
+segmented sum as one; the PE backward's dtable half's scatter-add counts
 under `scatter_add`).
 """
 
@@ -61,10 +62,10 @@ _SIGNATURES = {
     "g4d_gcn_layer": (_PP, _IP, _I, _I, _I, _I, _P, _IP, _I, _P, _P, _I, _I,
                       _I, _I, _I, _P, _P),
     "g4d_pe_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _P, _P, _P, _P, _P, _P),
+                   _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "g4d_banded": (_P, _IP, _I, _P, _I, _I, _I, _P, _P),
     "g4d_nn1": (_P, _P, _I, _I, _I, _P, _P, _P),
-    "g4d_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "g4d_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 # shared memory, in bytes, that one block may use on the H100, and that

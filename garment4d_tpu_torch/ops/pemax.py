@@ -20,8 +20,8 @@ fused PE-backward kernel `ops/csrc/pe_bwd.cu` (counter `pe_bwd`), which
 recomputes the block, routes the cotangent through the max (split evenly
 among exact ties, as JAX's `jnp.max` does) and returns the gradients of
 the centers and the four weights; for a table that requires grad
-(`table_grad=True`) it also writes each slot's row gradient, which the
-scatter-add kernel sums into the table's gradient (JAX's
+(`table_grad=True`) it also writes the row gradient of each slot that won
+a channel, which the scatter-add kernel sums into the table's gradient (JAX's
 `fused_pe_bwd_pallas` with `table_grad=True`). `_pe_bwd_plain` is its
 plain version.
 
@@ -278,6 +278,45 @@ def _pe_bwd_plain(table, idx, centers, k0, b0, k1, cot, table_grad=False):
 # blocks of the PE-backward kernel: a fixed count, so that each weight
 # gradient sums its per-block partials in the same order on every run
 _PE_BWD_BLOCKS = 264
+_PE_BWD_RED = 16 * 256  # floats of the kernel's partition-combine buffer
+# dynamic shared memory of each of two PE-backward blocks on one H100 SM:
+# the SM's 228 KB less 1 KB reserved per block, halved
+_PE_BWD_TWO_BLOCKS = (233472 - 2 * 1024) // 2
+
+
+def _pe_bwd_smem(gc: int, S: int, C: int, F: int, G: int) -> int:
+    """Bytes of shared memory of a PE-backward block with tiles of gc
+    centers (pe_bwd.cu's layout): k0 (unless the table is so wide that a
+    thread owns several 4x4 blocks of dk0), k1 and k1^T, then per row the
+    gathered row, hpre and h2/dh1 (rows padded by 4 floats), the mask of
+    the channels it won, its table index, first copy and count of copies,
+    and its list entry, per center the column sums of dh1 and the masks of
+    live and won slots, per (center, channel) the share, the first slot at
+    the max and the mask of the tied ones."""
+    Pc, R, nw = _build.pitch(C), gc * S, (S + 31) // 32
+    k0_shared = (Pc // 4) * (F // 4) <= 256
+    tile = (R * (Pc + F + 4 + max(F, G) + 4 + (G + 31) // 32 + 3)
+            + gc * (F + 3 * G + 2 * nw))
+    return (Pc * F * k0_shared + 2 * F * G + max(tile, _PE_BWD_RED)) * 4
+
+
+def _pe_bwd_plan(C: int, S: int, F: int, G: int) -> tuple:
+    """(gc, smem bytes) of the PE-backward kernel for C-wide tables, S slots
+    (padded to 8) and widths F, G: centers per tile, the most (a power of
+    two) with at most 256 rows while two blocks fit an SM, else one center
+    if one block fits. Raises ValueError for shapes the kernel refuses."""
+    if (C < 3 or S < 1 or F % 4 or G % 4 or F < 4 or G < 4 or F > 256
+            or _build.pitch(C) * F > 16 * 4 * 256 or F * G > 16 * 256):
+        raise ValueError(f"pe_bwd: C={C}, F={F}, G={G} (C >= 3, F and G multiples of 4, "
+                         f"F <= 256, C * F <= {16 * 4 * 256}, F * G <= {16 * 256})")
+    gc = 1
+    while 2 * gc * S <= 256 and _pe_bwd_smem(2 * gc, S, C, F, G) <= _PE_BWD_TWO_BLOCKS:
+        gc *= 2
+    smem = _pe_bwd_smem(gc, S, C, F, G)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"pe_bwd: {smem} B of shared memory needed (C={C}, S={S}, "
+                         f"F={F}, G={G}) exceeds {_build.SMEM_LIMIT}")
+    return gc, smem
 
 
 def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot, table_grad=False):
@@ -299,40 +338,26 @@ def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot, table_grad=False):
         raise ValueError(f"pe_bwd: table {tuple(table.shape)}, idx {tuple(idx.shape)}, "
                          f"centers {tuple(centers.shape)}, k0 {tuple(k0.shape)}, "
                          f"k1 {tuple(k1.shape)}, cot {tuple(cot.shape)}")
-    if (F % 4 or G % 4 or F > 256 or _build.pitch(C) * F > 16 * 4 * 256
-            or F * G > 16 * 256):
-        raise ValueError(f"pe_bwd: C={C}, F={F}, G={G} (F and G multiples of 4, "
-                         f"F <= 256, C * F <= {16 * 4 * 256}, F * G <= 4096)")
     # a repeated slot 0 is an exact tie of slot 0: the even split hands
     # each copy its share, and the copies' contributions sum to slot 0's
     idx = _pad_slots(idx)
     S = idx.shape[2]
+    gc, smem = _pe_bwd_plan(C, S, F, G)
     n_acc = C * F + F + F * G + G
     Pc = _build.pitch(C)
     # float4 loads: k0 padded with zero rows to Pc, k0 and b0 16-byte aligned
     k0 = torch.nn.functional.pad(k0, (0, 0, 0, Pc - C))
     k0, b0 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k0, b0))
-
-    def smem_bytes(gc):
-        R = gc * S
-        return (R * (Pc + F + G + 4) + 2 * F * G + 3 * F + 4096) * 4
-
-    # centers per block tile: up to 256 rows while two blocks fit an SM
-    gc = 1
-    while 2 * gc * S <= 256 and smem_bytes(2 * gc) <= _build.SMEM_TWO_BLOCKS:
-        gc *= 2
-    smem = smem_bytes(gc)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"pe_bwd: {smem} B of shared memory needed (C={C}, "
-                         f"F={F}, G={G}) exceeds {_build.SMEM_LIMIT}")
     n_tiles = B * ((M + gc - 1) // gc)
     blocks = max(1, min(n_tiles, _PE_BWD_BLOCKS))
     dcenters = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     partials = torch.empty((blocks, n_acc), dtype=torch.float32, device=dev)
     sums = torch.empty((n_acc,), dtype=torch.float32, device=dev)
-    # the dtable half: the slots' row gradients, summed by the scatter-add
+    # the dtable half: the won slots' row gradients and their table rows
+    # (-1 for a slot that won nothing), summed by the scatter-add
     dqg = (torch.empty((B, M * S, C), dtype=torch.float32, device=dev)
            if table_grad else None)
+    idx_w = torch.empty((B, M * S), dtype=torch.int32, device=dev) if table_grad else None
     k0t = k0.t().contiguous() if table_grad else None  # (F, Pc)
     lib = _build.library()
     _build.launch_counts["pe_bwd"] += 1
@@ -340,13 +365,14 @@ def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot, table_grad=False):
         table.data_ptr(), idx.data_ptr(), centers.data_ptr(), k0.data_ptr(),
         b0.data_ptr(), k1.data_ptr(), cot.data_ptr(), B, N, C, M, S, F, G, gc,
         blocks, smem, dcenters.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-        None if k0t is None else k0t.data_ptr(), None if dqg is None else dqg.data_ptr(),
+        *(None, None, None) if not table_grad else
+        (k0t.data_ptr(), dqg.data_ptr(), idx_w.data_ptr()),
         _build.stream_of(table)), "pe_bwd")
     dk0, db0, dk1, db1 = torch.split(sums, [C * F, F, F * G, G])
     grads = (dcenters, dk0.view(C, F), db0, dk1.view(F, G), db1)
     if not table_grad:
         return grads
-    return (_scatter_add_rows_kernel(dqg, idx.reshape(B, M * S), N),) + grads
+    return (_scatter_add_rows_kernel(dqg, idx_w, N),) + grads
 
 
 def _pe_bwd(table, idx, centers, k0, b0, k1, cot, table_grad=False):

@@ -156,10 +156,33 @@ def _gather_rows_kernel(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     return out
 
 
-# output rows of a scatter-add block tile: their sums fill at most 32 KB of
-# shared memory; one thread per channel
-_SCATTER_TILE_FLOATS = 8192
 _SCATTER_MAX_C = 1024
+_SCATTER_SORT_WARPS = 16  # warps of a sort block (scatter_add.cu: kWarps)
+
+
+def _scatter_plan(C: int, aligned: bool) -> tuple:
+    """(V, J, lanes) of the scatter-add's segmented sum for C channels:
+    V floats per load (4 where C % 4 == 0 and the pointers are 16-byte
+    aligned, else 1), J loads per lane per chunk of channels, and `lanes`
+    lanes (a power of two up to a warp) owning one output row, the fewest
+    that cover C in one chunk where J allows."""
+    if not 0 <= C <= _SCATTER_MAX_C:
+        raise ValueError(f"scatter_add: C={C} outside [0, {_SCATTER_MAX_C}]")
+    V = 4 if C % 4 == 0 and C > 0 and aligned else 1
+    slots = max(1, C // V)
+    J = 1
+    while J < (2 if V == 4 else 8) and slots > 32 * J:
+        J *= 2
+    lanes = 1
+    while lanes < 32 and lanes * J < slots:
+        lanes *= 2
+    return V, J, lanes
+
+
+def _scatter_hist_in_shared(n: int) -> bool:
+    """Whether the sort's (n, 16) counts fit the shared memory of a block;
+    else the wrapper gives the kernel scratch for them."""
+    return n * _SCATTER_SORT_WARPS * 4 <= _build.SMEM_LIMIT - 1024
 
 
 def _scatter_add_rows_plain(grads: torch.Tensor, idx: torch.Tensor,
@@ -186,13 +209,20 @@ def _scatter_add_rows_kernel(grads: torch.Tensor, idx: torch.Tensor,
     if tuple(idx.shape) != (B, R) or n < 0 or C > _SCATTER_MAX_C:
         raise ValueError(f"scatter_add: grads {tuple(grads.shape)}, idx "
                          f"{tuple(idx.shape)}, n {n} (C <= {_SCATTER_MAX_C})")
-    tile = max(1, min(n, _SCATTER_TILE_FLOATS // max(C, 1)))
     out = torch.empty((B, n, C), dtype=torch.float32, device=dev)
+    V, J, lanes = _scatter_plan(C, grads.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    # the sort's scratch: each frame's slots in ascending (row, r) order,
+    # each row's first slot, and the counts where shared memory is too small
+    order = torch.empty((B, R), dtype=torch.int32, device=dev)
+    start = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
+    hist = (None if _scatter_hist_in_shared(n) else
+            torch.empty((B, n * _SCATTER_SORT_WARPS), dtype=torch.int32, device=dev))
     lib = _build.library()
     _build.launch_counts["scatter_add"] += 1
-    _build.check(lib.g4d_scatter_add(grads.data_ptr(), idx.data_ptr(), B, R, C, n,
-                                     tile, out.data_ptr(), _build.stream_of(grads)),
-                 "scatter_add")
+    _build.check(lib.g4d_scatter_add(
+        grads.data_ptr(), idx.data_ptr(), B, R, C, n, V, J, lanes, order.data_ptr(),
+        start.data_ptr(), None if hist is None else hist.data_ptr(), out.data_ptr(),
+        _build.stream_of(grads)), "scatter_add")
     return out
 
 

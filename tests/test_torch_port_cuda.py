@@ -11,12 +11,14 @@ linear last layer, points at exactly the radius, empty and full valid
 counts, distance ties at the k-th neighbour and zero distances, GCN frames
 that are not a multiple of the vertex tile with offsets near V, 1-NN ties and
 tables around the 2048-point tile, banded products with 1 to 64 diagonals at
-C = 3, 5 and 128 and their transposes, PE backwards with padded S (4, 12)
-and tables up to 387 wide, with and without their dtable half, scatter-adds
-with every row into one index, ragged R, C from 3 to 384, one output row
-and out-of-range indices, and the valid-count PE call's flag. Indices,
-masks, the 1-NN, the banded product and the scatter-add (against the
-CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
+C = 3, 5 and 128 and their transposes, PE backwards with padded S (1, 4,
+12), every slot tied, one slot winning every channel, a zero cotangent and
+tables up to 387 wide, with and without their dtable half, scatter-adds
+with every row or 90% of them into one index, ragged R, R = 0, C from 1 to
+1024, one output row, more output rows than the sort's counts in shared
+memory hold, and out-of-range indices, and the valid-count PE call's flag.
+Indices, masks, the 1-NN, the banded product and the scatter-add (against
+the CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
 stack and the PE backward's dcenters agree within rtol 1e-4 / atol 1e-5,
 its weight gradients and dtable within 1e-4 of their largest magnitude,
 the K-NN weights within rtol 1e-4 / atol 1e-6 (fp32 summation order); two
@@ -437,9 +439,10 @@ def _pe_inputs(seed, B, N, M, S, C, F=32, G=32):
 
 @pytest.mark.parametrize("C,S,M", [(6, 32, 2000), (6, 4, 37), (67, 32, 300),
                                    (387, 8, 2000), (99, 16, 1), (99, 16, 2000),
-                                   (3, 12, 50)])
+                                   (3, 12, 50), (6, 40, 300)])
 def test_pe_bwd(dev, C, S, M):
-    """S=4 and 12 (padded with slot 0), C up to 387, one center, ragged
+    """S=4 and 12 (padded with slot 0), S=40 (two words of slot masks), C up
+    to 387, one center, ragged
     tiles: dcenters within rtol 1e-4 / atol 1e-5 and the weight gradients
     within 1e-4 of their largest magnitude (sums of up to ~1e5 terms in
     another order), both of the plain version and of the plain version in
@@ -580,19 +583,26 @@ def test_posed_cuda_matches_cpu(dev, shuffle):
 @pytest.mark.parametrize("B,R,C,n,case", [
     (3, 4000, 3, 50, "one index"), (2, 1001, 67, 1722, "ragged"), (2, 5000, 99, 1024, ""),
     (2, 3000, 128, 1024, ""), (1, 2048, 195, 256, ""), (2, 768, 384, 64, ""),
-    (2, 700, 16, 1, "n=1"), (2, 900, 33, 40, "out of range")])
+    (2, 700, 16, 1, "n=1"), (2, 900, 33, 40, "out of range"),
+    (2, 5000, 67, 1722, "skew"), (2, 3000, 16, 5000, "counts in scratch"),
+    (3, 0, 67, 100, "R=0"), (2, 600, 1024, 50, ""), (2, 4000, 1, 300, ""),
+    (2, 2000, 387, 500, ""), (2, 64000, 67, 2000, "")])
 def test_scatter_add(dev, B, R, C, n, case):
-    """Every row to one index, R not a multiple of the 32-row scan or of the
-    tile, C from 3 to 384, a single output row, and indices outside [0, n)
-    (dropped): bitwise the ascending-order sum on the CPU, two launches
-    bitwise equal, and `index_add_` on the card (atomics, in another order)
-    within 1e-6 of the magnitude each element sums (a row here collects up
-    to 4000 terms)."""
+    """Every row to one index, one row taking 90% of R, R not a multiple of
+    the 32-row scan or of a sort warp's range, R = 0, C from 1 to 1024 (4-
+    and 1-float loads, one and several channel chunks), a single output
+    row, n too large for the sort's counts in shared memory, and indices
+    outside [0, n) (dropped): bitwise the ascending-order sum on the CPU,
+    two launches bitwise equal, and `index_add_` on the card (atomics, in
+    another order) within 1e-6 of the magnitude each element sums (a row
+    here collects up to 4500 terms)."""
     g = torch.Generator().manual_seed(R + C)
     grads = torch.randn(B, R, C, generator=g)
     idx = torch.randint(0, n, (B, R), generator=g, dtype=torch.int32)
     if case == "one index":
         idx[:] = n // 2
+    if case == "skew":
+        idx[:, torch.randperm(R, generator=g)[:R * 9 // 10]] = 7
     if case == "out of range":
         idx[:, ::3] = torch.randint(-50, 0, (B, (R + 2) // 3), generator=g, dtype=torch.int32)
         idx[:, 1::7] += n
@@ -629,6 +639,52 @@ def test_pe_bwd_dtable(dev, C, S, M):
         torch.testing.assert_close(g, a, rtol=0, atol=0)
     for g, a in zip(got[1:], pemax._pe_bwd_kernel(*args)):
         torch.testing.assert_close(g, a, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["all tied", "one winner", "S=1", "zero cotangent"])
+@pytest.mark.parametrize("C", [6, 67])
+def test_pe_bwd_edge_cases(dev, case, C):
+    """Every slot of a center gathering one row (each channel split S ways),
+    one slot winning every channel (non-negative rows and weights, the
+    slot's row the largest), one slot per center (padded to 8 copies), and
+    a zero cotangent (no slot routes anything; every gradient but db1
+    zero): both halves against the plain version with the near-tie mask,
+    dcenters within rtol 1e-4 / atol 1e-5, the other gradients within 1e-4
+    of their largest magnitude (0 for a zero gradient), and against the
+    float64 version given the plain routing; two launches bitwise equal."""
+    from chip_smoke import pe_bwd_float64, pe_near_ties, pe_routing
+
+    S = 1 if case == "S=1" else 16
+    args = _pe_inputs(27, 2, 600, 300, S, C)
+    table, idx, centers, k0, b0, k1, cot = args
+    if case == "all tied":
+        idx[:] = idx[:, :, :1]
+    if case == "one winner":
+        table.abs_()
+        table[:, :100] += 10.0
+        centers.zero_()
+        k0.abs_(), b0.abs_(), k1.abs_()
+        idx[:, :, 0] %= 100
+        idx[:, :, 1:] = 100 + idx[:, :, 1:] % 500
+    if case == "zero cotangent":
+        cot.zero_()
+    args[-1] = cot * ~pe_near_ties(*args[:6])
+    want = pemax._pe_bwd_plain(*args, table_grad=True)
+    exact = pe_bwd_float64(*args, pe_routing(*args[:6]), table_grad=True)
+    got = pemax._pe_bwd_kernel(*args, table_grad=True)
+    again = pemax._pe_bwd_kernel(*args, table_grad=True)
+    for ref in (want, exact):
+        ref = [r.float() for r in ref]
+        torch.testing.assert_close(got[1], ref[1], **PE_TOL)
+        for g, w in zip(got[:1] + got[2:], ref[:1] + ref[2:]):
+            assert g.shape == w.shape
+            assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+    for g, a in zip(got, again):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+    for g, a in zip(got[1:], pemax._pe_bwd_kernel(*args)):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+    if case == "zero cotangent":
+        assert all(not g.any() for g in got[:5])
 
 
 def test_group_pe_max_nv_flag(dev):

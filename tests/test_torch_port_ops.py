@@ -884,3 +884,76 @@ class TestDispatch:
         proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                               text=True, timeout=120)
         assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the scatter-adds of the canonical train step at the recipe's shape (B=20,
+# T=10: 200 frames), (R, C, n) in launch order, and the PE backward's dtable
+# scatter at garment pe0 unsplit (40 frames x 2000 centers x 32 slots)
+CANONICAL_SCATTERS = [(4096, 99, 512), (2048, 99, 512), (16384, 67, 1722),
+                      (8192, 67, 1722), (20670, 128, 1024), (3072, 256, 256),
+                      (768, 384, 64), (4096, 195, 256), (2048, 195, 256),
+                      (8192, 99, 1024), (4096, 99, 1024)]
+# the PE backward's six shapes in the posed train step (C, S), F = G = 32
+POSED_PE_BWD = [(6, 8), (6, 16), (6, 32), (67, 32), (99, 16), (387, 8)]
+
+
+class TestKernelPlans:
+    """The host-side planning of the scatter-add and PE-backward wrappers:
+    every shape of the train steps' main paths is planned, not refused, so
+    that a ValueError shows here and not first on the card."""
+
+    @pytest.mark.parametrize("B,R,C,n", [(200, *s) for s in CANONICAL_SCATTERS]
+                             + [(40, 64000, 67, 2000)])
+    @pytest.mark.parametrize("aligned", [True, False])
+    def test_scatter_plan_main_path(self, B, R, C, n, aligned):
+        """(V, J, lanes): float4 loads only for C % 4 == 0 and aligned
+        pointers, a power-of-two lane group of at most a warp, J within the
+        kernel's instantiations, and the chunks of lanes * J * V channels
+        covering C; the sort's counts in shared memory; the scratch
+        offsets within int32."""
+        V, J, lanes = tops.pointcloud._scatter_plan(C, aligned)
+        assert V == (4 if aligned and C % 4 == 0 else 1)
+        assert J in ((1, 2) if V == 4 else (1, 2, 4, 8))
+        assert lanes in (1, 2, 4, 8, 16, 32)
+        chunk = lanes * J * V
+        assert chunk >= min(C, 32 * J * V)
+        assert -(-C // chunk) <= (1 if C <= 256 else 2)
+        assert tops.pointcloud._scatter_hist_in_shared(n)
+        assert R * C < 2 ** 31 and B * (n + 1) < 2 ** 31
+
+    @pytest.mark.parametrize("C,want", [(0, (1, 1, 1)), (1, (1, 1, 1)), (3, (1, 1, 4)),
+                                        (16, (4, 1, 4)), (387, (1, 8, 32)),
+                                        (1024, (4, 2, 32))])
+    def test_scatter_plan_edges(self, C, want):
+        assert tops.pointcloud._scatter_plan(C, True) == want
+
+    def test_scatter_plan_refuses(self):
+        with pytest.raises(ValueError, match="C=1025"):
+            tops.pointcloud._scatter_plan(1025, True)
+        assert not tops.pointcloud._scatter_hist_in_shared(5000)  # counts in scratch
+
+    @pytest.mark.parametrize("C,S", POSED_PE_BWD)
+    def test_pe_bwd_plan_main_path(self, C, S):
+        """Tiles of at most 256 rows, a power of two of centers, and two
+        blocks' shared memory on one SM, as the fixed block count assumes;
+        the layout of pe_bwd.cu holds k1, k1^T and the partition-combine
+        buffer."""
+        gc, smem = tops.pemax._pe_bwd_plan(C, S, 32, 32)
+        assert gc >= 1 and gc & (gc - 1) == 0 and gc * S <= 256
+        assert smem == tops.pemax._pe_bwd_smem(gc, S, C, 32, 32)
+        assert smem <= tops.pemax._PE_BWD_TWO_BLOCKS
+        assert smem >= (2 * 32 * 32 + 16 * 256) * 4
+
+    @pytest.mark.parametrize("C,S,F,G", [(2, 8, 32, 32), (6, 8, 30, 32), (6, 8, 32, 6),
+                                         (6, 8, 260, 4), (1000, 8, 32, 32),
+                                         (6, 8, 128, 64)])
+    def test_pe_bwd_plan_refuses(self, C, S, F, G):
+        with pytest.raises(ValueError, match="pe_bwd"):
+            tops.pemax._pe_bwd_plan(C, S, F, G)
+
+    def test_pe_bwd_plan_limits(self):
+        """The widest shapes the kernel takes: C*F and F*G at their limits
+        (F = 256, and 387-wide tables) and S = 64 plan within one block."""
+        for C, S, F, G in [(64, 8, 256, 16), (387, 8, 40, 100), (6, 64, 32, 32)]:
+            gc, smem = tops.pemax._pe_bwd_plan(C, S, F, G)
+            assert gc >= 1 and smem <= _build.SMEM_LIMIT
