@@ -19,7 +19,12 @@ then:
    on the chain kernel (body S=32, garment pe2) within rtol 1e-4 /
    atol 1e-5, the K-NN transfer's 1-NN indices equal and weights within
    rtol 1e-4 / atol 1e-6, the GCN stack (195- and 323-wide iterations)
-   within rtol 1e-4 / atol 1e-5 on `out` and `hidden`. Each is timed with
+   within rtol 1e-4 / atol 1e-5 on `out` and `hidden`. Then every chain
+   and GCN-stack launch of one posed forward is recorded with its inputs
+   (28 chain launches, 3 stacks of 4 layer launches): each launch's bound
+   and the summed bounds printed, and at each distinct shape the kernel
+   within rtol 1e-4 / atol 1e-5 of its plain version and of the plain
+   version in float64, two launches bitwise equal. Each is timed with
    CUDA events beside its plain version, its bound (the larger of the bytes
    it must move over 3.35 TB/s and its operations, counted for this run's
    data where the work depends on it, over 67 TFLOP/s of fp32) and, where
@@ -114,14 +119,23 @@ it does when no CUDA device is visible or when the repo is not beside it.
     python3 chip_smoke.py --ab PARENT
 
 `--time-kernels` times, for the package in the checkout at ROOT (default:
-this one), the posed forward (phase 4's shape and weights), the posed and
-canonical train steps (frames/s, device ms, the PE backward's and the
-scatter-add's device ms per step), the PE backward at each of its six
-shapes and its dtable half, and the scatter-add at each of its 11 shapes
-beside one `index_add_`, on inputs recorded from the steps; one JSON line.
+this one), the posed forward (phase 4's shape and weights; frames/s,
+device ms, the chain and GCN kernels' device ms per forward) and the
+canonical forward's device ms; the chain at each of its 16 shapes in the
+posed forward and the GCN stack at its 195- and 323-wide shapes, on the
+inputs recorded from it (ms, the largest difference to float64, the
+summed bounds; for the chain also one 4-wide linear layer on the same
+gathers, mostly the gather's time; for the stack its plain version); the
+posed and canonical train steps (frames/s, device ms, the PE backward's
+and the scatter-add's device ms per step), the PE backward at each of its
+six shapes and its dtable half, and the scatter-add at each of its 11
+shapes beside one `index_add_`, on inputs recorded from the steps; the
+ptxas lines of the chain and GCN kernels; one JSON line.
 `--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
 this one in turns, parent, change, change, parent, so that two checkouts
-are compared in one run on one card, and prints the means.
+are compared in one run on one card, and prints the means (per shape: ms
+and the float64 difference of both, and the bounds) and both builds'
+ptxas lines.
 """
 
 from __future__ import annotations
@@ -348,6 +362,186 @@ def chain_ops(idx, table, weights) -> float:
     return 2.0 * Bc * M * S * sum(a * b for a, b in zip(widths, widths[1:]))
 
 
+def gcn_layer_ops(frames, V, K, F, D) -> float:
+    """Operations of one GCN layer: the product (2KF per vertex) and the
+    banded sum on its narrower side (2D min(K, F)), the lesser of the two
+    orders (adj @ h) @ W and adj @ (h @ W)."""
+    return 2.0 * frames * V * (K * F + D * min(K, F))
+
+
+@torch.no_grad()
+def chain_float64(table, idx, centers, weights, biases, relus):
+    """The chain's plain version in float64 from the fp32 inputs."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.ops import pemax
+
+    with ops.plain_ops():
+        return pemax._chain_reference(table.double(), idx, centers.double(),
+                                      [w.double() for w in weights],
+                                      [b.double() for b in biases], relus)
+
+
+def band_matrix(vals, offsets):
+    """The dense (V, V) matrix whose cyclic diagonal offsets[d] holds vals[d]."""
+    V = vals.shape[1]
+    adj = torch.zeros(V, V, dtype=vals.dtype, device=vals.device)
+    rows = torch.arange(V, device=vals.device)
+    for d, o in enumerate(offsets):
+        adj[rows, (rows + int(o)) % V] = vals[d]
+    return adj
+
+
+@torch.no_grad()
+def gcn_float64(xs, weights, biases, vals, offsets, relus, hidden_layer):
+    """The GCN stack's plain version, adj @ (h @ W) + b per layer, in
+    float64 from the fp32 inputs: (out, hidden)."""
+    h = torch.cat([x.double() for x in xs], -1)
+    hidden = None
+    for i, (w, b, r) in enumerate(zip(weights, biases, relus)):
+        s = torch.matmul(h, w.double())
+        h = sum(vals[d].double()[:, None] * torch.roll(s, -int(o), dims=-2)
+                for d, o in enumerate(offsets)) + b.double()
+        if r:
+            h = torch.relu(h)
+        if i == hidden_layer:
+            hidden = h
+    return h, hidden
+
+
+@torch.inference_mode()
+def record_chain_gcn(recon, pcd, body_in):
+    """The chain-kernel and GCN-stack launches of one posed forward, with
+    their arguments: (chain calls, GCN-stack calls) as `recording` keeps
+    them (a stack call launches one kernel per layer)."""
+    from garment4d_tpu_torch.ops import graph, pemax
+
+    with recording(pemax, "_chain_kernel") as ccalls, \
+            recording(graph, "_gcn_stack_kernel") as gcalls:
+        recon.posed(pcd, body_in)
+    torch.cuda.synchronize()
+    return ccalls, gcalls
+
+
+def chain_launches(ccalls):
+    """One row per recorded chain launch: its case, arguments and bound;
+    the launches of one shape share a case."""
+    rows = []
+    for args, kwargs, out in ccalls:
+        table, idx, centers, ws, bs, relus, name = args[:7]
+        widths = [table.shape[-1]] + [w.shape[1] for w in ws]
+        case = f"{name} {tuple(idx.shape)} widths {widths}"
+        b_ms, b_by = bound(nbytes(table, idx, centers, out, *ws, *bs),
+                           chain_ops(idx, table, ws))
+        rows.append(dict(case=case, name=name, args=args, kwargs=kwargs,
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def gcn_launches(gcalls):
+    """One row per recorded GCN stack: its case, arguments and the bound
+    of each of its layer launches (inputs read, output written once)."""
+    rows = []
+    for args, _, _ in gcalls:
+        xs, ws, bs, vals, offsets, relus, hidden_layer = args
+        frames, V = xs[0].shape[:2]
+        D = len(offsets)
+        widths = [sum(x.shape[-1] for x in xs)] + [w.shape[1] for w in ws]
+        layer_bounds = [bound(4.0 * (frames * V * (K + Fo) + K * Fo + Fo + D * V),
+                              gcn_layer_ops(frames, V, K, Fo, D))[0]
+                        for K, Fo in (w.shape for w in ws)]
+        rows.append(dict(case=f"({frames}, {V}) widths {widths}, {D} diagonals",
+                         args=args, layer_bounds=layer_bounds, bound_ms=sum(layer_bounds)))
+    return rows
+
+
+def by_case(rows):
+    """{case: (first row of the case, number of rows)} in first-seen order."""
+    cases = {}
+    for row in rows:
+        first, n = cases.get(row["case"], (row, 0))
+        cases[row["case"]] = (first, n + 1)
+    return cases
+
+
+def print_launch_bounds(label, rows, launches_per_row=1):
+    """Print each case's count and bound and the summed bound of the
+    launches of one posed forward; returns the sum (ms)."""
+    total = sum(r["bound_ms"] for r in rows)
+    for case, (row, count) in by_case(rows).items():
+        print(f"{label} {case}: x{count}, bound {row['bound_ms']:.4f} ms each", flush=True)
+    print(f"{label}: {len(rows) * launches_per_row} launches per posed forward, "
+          f"summed bound {total:.4f} ms", flush=True)
+    return total
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+@torch.inference_mode()
+def check_chain_gcn(recon, pcd, body_in, res: Results):
+    """Every chain and GCN-stack launch of one posed forward, recorded with
+    its inputs: the summed bounds printed, and at each distinct shape the
+    kernel within CHAIN_TOL of its plain version and of its float64
+    version, two launches bitwise equal, timed beside its bound and its
+    plain version. Returns the two summed bounds (ms)."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.ops import graph, pemax
+
+    ccalls, gcalls = record_chain_gcn(recon, pcd, body_in)
+    chains, stacks = chain_launches(ccalls), gcn_launches(gcalls)
+    del ccalls, gcalls
+    sums = dict(chain=print_launch_bounds("chain", chains),
+                gcn=print_launch_bounds("gcn_stack", stacks, 4))
+    for case, (row, count) in by_case(chains).items():
+        args, kwargs = row["args"], row["kwargs"]
+        table, idx, centers, ws, bs, relus, name = args[:7]
+        out_k = pemax._chain_kernel(*args, **kwargs)
+        require(torch.equal(out_k, pemax._chain_kernel(*args, **kwargs)),
+                f"chain {case}: two launches differ")
+        out_p = chain_plain(table, idx, centers, ws, bs, relus)
+        ref = chain_float64(table, idx, centers, ws, bs, relus)
+        err, err64 = max_abs(out_k, out_p), max_abs(out_k, ref)
+        require(torch.allclose(out_k, out_p, **CHAIN_TOL),
+                f"chain {case}: max abs err {err} beyond {CHAIN_TOL}")
+        require(torch.allclose(out_k.double(), ref, **CHAIN_TOL),
+                f"chain {case}: max abs err {err64} to float64 beyond {CHAIN_TOL}")
+        del ref
+        res.record(name, f"posed forward {case} x{count}", err,
+                   lambda: pemax._chain_kernel(*args, **kwargs),
+                   lambda: chain_plain(table, idx, centers, ws, bs, relus),
+                   nbytes(table, idx, centers, out_k, *ws, *bs), chain_ops(idx, table, ws),
+                   err_float64=err64, launches_per_forward=count)
+    for case, (row, count) in by_case(stacks).items():
+        xs, ws, bs, vals, offsets, relus, hidden_layer = args = row["args"]
+        adj = band_matrix(vals, offsets)
+        ko, kh = graph._gcn_stack_kernel(*args)
+        require(all(torch.equal(a, b) for a, b in zip((ko, kh), graph._gcn_stack_kernel(*args))),
+                f"gcn stack {case}: two launches differ")
+
+        def plain():
+            with ops.plain_ops():
+                return graph._gcn_stack_ref(xs, ws, bs, adj, offsets, relus, hidden_layer)
+
+        po, ph = plain()
+        ro, rh = gcn_float64(*args)
+        err = max(max_abs(ko, po), max_abs(kh, ph))
+        err64 = max(max_abs(ko, ro), max_abs(kh, rh))
+        require(torch.allclose(ko, po, **CHAIN_TOL) and torch.allclose(kh, ph, **CHAIN_TOL),
+                f"gcn stack {case}: max abs err {err} beyond {CHAIN_TOL}")
+        require(torch.allclose(ko.double(), ro, **CHAIN_TOL)
+                and torch.allclose(kh.double(), rh, **CHAIN_TOL),
+                f"gcn stack {case}: max abs err {err64} to float64 beyond {CHAIN_TOL}")
+        del po, ph, ro, rh
+        frames, V = xs[0].shape[:2]
+        res.record("gcn_stack", f"posed forward {case} x{count}", err,
+                   lambda: graph._gcn_stack_kernel(*args), plain,
+                   nbytes(*xs, *ws, *bs, vals, ko, kh),
+                   sum(gcn_layer_ops(frames, V, *w.shape, len(offsets)) for w in ws),
+                   err_float64=err64, launches_per_forward=4 * count)
+    return sums
+
+
 class Results:
     def __init__(self):
         self.cases = {k: [] for k in KERNELS}
@@ -461,10 +655,9 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
     captured from one posed forward."""
     from garment4d_tpu_torch import ops
     from garment4d_tpu_torch.models import skinning
-    from garment4d_tpu_torch.ops import graph, pemax, pointcloud as pc
+    from garment4d_tpu_torch.ops import pemax, pointcloud as pc
 
     with recording(ops, "query_group_pe_multi") as qcalls, \
-            recording(ops, "gcn_stack") as gcalls, \
             recording(skinning, "knn_transfer") as kcalls:
         got, handles = capture_inputs(recon.model, ["garment_pe2"])
         recon.posed(pcd, body_in)
@@ -562,29 +755,6 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
                lambda: skinning._knn_transfer_plain(garment, body, w0, k, k64),
                nbytes(garment, body, w0, kk, k6, ki),
                10.0 * Bk * Vg * body.shape[1] + 2.0 * Bk * Vg * (k + k64) * J)
-
-    # GCN stack: iteration 0 (195 wide) and iteration 1 (323 wide)
-    for args, _, _ in gcalls[:2]:
-        xs, ws, bs, adj, offsets, relus, hidden_layer = args
-        xs = [x.contiguous() for x in xs]
-        ws = [w.contiguous() for w in ws]
-        vals = graph.diagonal_values(adj, offsets).contiguous()
-        ko, kh = graph._gcn_stack_kernel(xs, ws, bs, vals, offsets, relus, hidden_layer)
-        po, ph = graph._gcn_stack_ref(xs, ws, bs, adj, offsets, relus, hidden_layer)
-        err = max((ko - po).abs().max().item(), (kh - ph).abs().max().item())
-        require(torch.allclose(ko, po, **CHAIN_TOL) and torch.allclose(kh, ph, **CHAIN_TOL),
-                f"gcn stack: max abs err {err} beyond {CHAIN_TOL}")
-        K0 = sum(x.shape[-1] for x in xs)
-        V = xs[0].shape[1]
-        ops_ = sum(2.0 * F * V * (w.shape[0] * w.shape[1] + len(offsets) * w.shape[0])
-                   for w in ws)
-        res.record("gcn_stack", f"({F}, {V}) widths {[K0] + [w.shape[1] for w in ws]}, "
-                   f"{len(offsets)} diagonals", err,
-                   lambda: graph._gcn_stack_kernel(xs, ws, bs, vals, offsets, relus,
-                                                   hidden_layer),
-                   lambda: graph._gcn_stack_ref(xs, ws, bs, adj, offsets, relus,
-                                                hidden_layer),
-                   nbytes(*xs, *ws, *bs, vals, ko, kh), ops_)
 
 
 def rel_l2(a, b) -> float:
@@ -1263,13 +1433,15 @@ def counted(label, fn, names):
     return out, launches
 
 
-# device kernel names (torch.profiler) of the PE backward and the
-# scatter-add in either checkout of an A/B run: the PE backward's per-block
-# pass and ordered sum, the scatter-add's single tiled kernel (the earlier
-# design) or its sort and segmented sum
+# device kernel names (torch.profiler) of the redesigned kernels in either
+# checkout of an A/B run: the PE backward's per-block pass and ordered sum,
+# the scatter-add's single tiled kernel (the earlier design) or its sort and
+# segmented sum, the chain kernel, the GCN layer kernels
 AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                    "scatter_add": ("scatter_add_kernel", "scatter_sort_kernel",
-                                   "segment_sum_kernel")}
+                                   "segment_sum_kernel"),
+                   "fused_chain": ("fused_chain",),
+                   "gcn_stack": ("gcn_",)}
 
 
 def device_ms_of(rows, names) -> float:
@@ -1278,10 +1450,73 @@ def device_ms_of(rows, names) -> float:
     return sum(ms for ms, _, name in rows if any(n in name for n in names))
 
 
+def ptxas_lines(names) -> list:
+    """The build log's ptxas lines (entry, registers, spills) of the kernels
+    whose mangled names hold one of `names`."""
+    from garment4d_tpu_torch.ops import _build
+
+    lines, keep = [], False
+    for line in _build.build_log().splitlines():
+        if "Compiling entry" in line:
+            keep = any(n in line for n in names)
+        if keep and ("Compiling entry" in line or "registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
+@torch.inference_mode()
+def time_chain_gcn(recon, pcd, body_in) -> dict:
+    """The chain and GCN-stack launches of one posed forward at each
+    distinct shape, on their recorded inputs: ms (CUDA events, mean of 20)
+    and the largest difference to the float64 version; for the chain also
+    one 4-wide linear layer on the same gathers (mostly the gather's time),
+    for the stack its plain version (mean of 5); the summed bounds and the
+    kernels' ms summed over the forward's launches."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.ops import graph, pemax
+
+    ccalls, gcalls = record_chain_gcn(recon, pcd, body_in)
+    chains, stacks = chain_launches(ccalls), gcn_launches(gcalls)
+    del ccalls, gcalls
+    out = dict(chain=[], gcn=[], chain_bound_ms_sum=sum(r["bound_ms"] for r in chains),
+               gcn_bound_ms_sum=sum(r["bound_ms"] for r in stacks))
+    for case, (row, count) in by_case(chains).items():
+        args, kwargs = row["args"], row["kwargs"]
+        table, idx, centers, ws, bs, relus, name = args[:7]
+        w4 = torch.zeros(table.shape[-1], 4, device=table.device)
+        b4 = torch.zeros(4, device=table.device)
+        err64 = max_abs(pemax._chain_kernel(*args, **kwargs),
+                        chain_float64(table, idx, centers, ws, bs, relus))
+        out["chain"].append(dict(
+            case=case, launches=count, bound_ms=row["bound_ms"], err_float64=err64,
+            ms=cuda_ms(lambda: pemax._chain_kernel(*args, **kwargs), 20),
+            gather_ms=cuda_ms(lambda: pemax._chain_kernel(table, idx, centers, [w4], [b4],
+                                                           (False,), name), 20)))
+    for case, (row, count) in by_case(stacks).items():
+        xs, ws, bs, vals, offsets, relus, hidden_layer = args = row["args"]
+        adj = band_matrix(vals, offsets)
+
+        def plain():
+            with ops.plain_ops():
+                return graph._gcn_stack_ref(xs, ws, bs, adj, offsets, relus, hidden_layer)
+
+        err64 = max(max_abs(a, b) for a, b in zip(graph._gcn_stack_kernel(*args),
+                                                  gcn_float64(*args)))
+        out["gcn"].append(dict(
+            case=case, stacks=count, launches=4 * count, bound_ms=row["bound_ms"],
+            err_float64=err64, ms=cuda_ms(lambda: graph._gcn_stack_kernel(*args), 20),
+            plain_ms=cuda_ms(plain, 5)))
+    out["chain_ms_sum"] = sum(c["ms"] * c["launches"] for c in out["chain"])
+    out["gcn_ms_sum"] = sum(c["ms"] * c["stacks"] for c in out["gcn"])
+    return out
+
+
 def time_kernels(root: Path) -> int:
-    """The two redesigned kernels and the paths that run them, for the
-    package in the checkout at `root`: the posed forward (median of 10 after
-    2 warm-ups); the posed train step (B=4) and the canonical train step
+    """The redesigned kernels and the paths that run them, for the package
+    in the checkout at `root`: the posed forward (median of 10 after 2
+    warm-ups, profiled: device ms, the chain's and the GCN's share), the
+    canonical forward's device ms, the chain and GCN launches of the posed
+    forward (`time_chain_gcn`); the posed train step (B=4) and the canonical train step
     (B=20) at phases 5 and 6's shapes, each median of 5 steps after 2
     warm-ups and profiled once (device ms, and the kernel's share); the PE
     backward at each of its shapes in the posed step and its dtable half
@@ -1312,9 +1547,18 @@ def time_kernels(root: Path) -> int:
     pcd, body_in = batch["pcd"], body_inputs_from_batch(batch)
     recon = GarmentReconstructor.from_npz(assets, body, weights, device=dev)
     step_s = wall_s(lambda: recon.posed(pcd, body_in), runs=10, warmup=2)
-    _, dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
-    out.update(posed_frames_per_sec=F / step_s, posed_device_ms=dev_ms)
+    rows, dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
+    names = AB_KERNEL_NAMES["fused_chain"] + AB_KERNEL_NAMES["gcn_stack"]
+    out.update(posed_frames_per_sec=F / step_s, posed_device_ms=dev_ms,
+               chain_device_ms_per_forward=device_ms_of(rows, AB_KERNEL_NAMES["fused_chain"]),
+               gcn_device_ms_per_forward=device_ms_of(rows, AB_KERNEL_NAMES["gcn_stack"]),
+               posed_kernel_rows=[(ms, n, name[:90]) for ms, n, name in rows
+                                  if any(k in name for k in names)])
+    _, out["canonical_device_ms"] = profile_device(lambda: recon.canonical(pcd), runs=2)
+    out.update(time_chain_gcn(recon, pcd, body_in))
+    out["ptxas"] = ptxas_lines(("fused_chain", "gcn_"))
     del recon, batch, pcd, body_in
+    torch.cuda.empty_cache()
 
     batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
     model = GarmentReconstructor.from_npz(assets, body, weights, device=dev).model
@@ -1400,19 +1644,29 @@ def ab(parent: Path) -> int:
         return sum(vals) / len(vals)
 
     summary = {}
-    for key in ("posed_frames_per_sec", "posed_device_ms", "posed_train_frames_per_sec",
+    for key in ("posed_frames_per_sec", "posed_device_ms", "chain_device_ms_per_forward",
+                "gcn_device_ms_per_forward", "chain_ms_sum", "gcn_ms_sum",
+                "canonical_device_ms", "posed_train_frames_per_sec",
                 "posed_train_device_ms", "pe_bwd_device_ms_per_step",
                 "canonical_train_frames_per_sec", "canonical_train_device_ms",
                 "scatter_add_device_ms_per_step", "pe_bwd_dtable_ms", "dtable_scatter_ms"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
-    for kernel in ("pe_bwd", "scatter_add"):
+    for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum"):
+        summary[key] = {"bound": runs[1][1][key]}
+    for kernel in ("chain", "gcn", "pe_bwd", "scatter_add"):
         for i, case in enumerate(runs[0][1][kernel]):
-            row = {lab: mean(lab, lambda r: r[kernel][i]["ms"]) for lab in ("parent", "change")}
-            if "library_ms" in case:
-                row["index_add_"] = mean("change", lambda r: r[kernel][i]["library_ms"])
+            row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
+                   for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
+                   if field in case for lab in ("parent", "change")}
+            if "bound_ms" in case:
+                row["bound_ms"] = case["bound_ms"]
             summary[f"{kernel} {case['case']}"] = row
+    for label in ("parent", "change"):
+        for line in next(r for lab, r in runs if lab == label)["ptxas"]:
+            print(f"{label} ptxas: {line}", flush=True)
     for key, row in summary.items():
-        print(f"A/B {key}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+        print(f"A/B {key}: " + ", ".join(f"{k} {v:.3e}" if "err" in k else f"{k} {v:.4f}"
+                                          for k, v in row.items()), flush=True)
     print(json.dumps({"ab": summary, "card": card}))
     print(card)
     return 0
@@ -1465,6 +1719,7 @@ def main() -> int:
     res = Results()
     check_kernels(recon, pcd, res)
     check_posed_kernels(recon, pcd, body_in, res)
+    bound_sums = check_chain_gcn(recon, pcd, body_in, res)
 
     # ---- 3. canonical path -------------------------------------------------
     canonical_names = [k for k, v in KERNELS.items() if v[2] == "canonical"]
@@ -1500,6 +1755,12 @@ def main() -> int:
           f"({posed_s * 1e3:.2f} ms per {F} frames)", flush=True)
     rows, posed_dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
     posed_idle = print_profile("posed", rows, posed_dev_ms, posed_s * 1e3, top=20)
+    posed_kernel_ms = {k: device_ms_of(rows, AB_KERNEL_NAMES[k])
+                       for k in ("fused_chain", "gcn_stack")}
+    print(f"posed forward device ms per forward: chain kernel {posed_kernel_ms['fused_chain']:.4f} "
+          f"(summed bound {bound_sums['chain']:.4f}), GCN layer kernels "
+          f"{posed_kernel_ms['gcn_stack']:.4f} (summed bound {bound_sums['gcn']:.4f})",
+          flush=True)
 
     # one sequence against the plain path on the CPU; the plain path on the
     # card beside it shows how far fp32 rounding alone moves the result
@@ -1610,6 +1871,10 @@ def main() -> int:
         "posed_frames_per_sec": F / posed_s,
         "posed_plain_frames_per_sec": F / posed_plain_s,
         "posed_device_ms_per_forward": posed_dev_ms, "posed_idle_share": posed_idle,
+        "posed_chain_device_ms": posed_kernel_ms["fused_chain"],
+        "posed_chain_summed_bound_ms": bound_sums["chain"],
+        "posed_gcn_device_ms": posed_kernel_ms["gcn_stack"],
+        "posed_gcn_summed_bound_ms": bound_sums["gcn"],
         "canonical_frames_per_sec": F / canon_s,
         "canonical_plain_frames_per_sec": F / canon_plain_s,
         "canonical_device_ms_per_forward": canon_dev_ms, "canonical_idle_share": canon_idle,

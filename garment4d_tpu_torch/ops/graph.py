@@ -13,6 +13,7 @@ a banded adjacency runs on the kernel `csrc/gcn_stack.cu`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -219,7 +220,59 @@ def _gcn_stack_ref(xs, weights, biases, adj, offsets, relus, hidden_layer):
     return h, hidden
 
 
-_GCN_TILE = 64  # vertices per block; a multiple of the kernel's 8-row tile
+_GCN_TILE_V = 128   # vertices per block of gcn_stack.cu
+_GCN_TILE_F = 128   # output columns per block, at most
+_GCN_KC = 32        # K rows per chunk
+_GCN_MAX_SPAN = 64  # widest signed band whose window of rows is staged
+_GCN_MAX_CHUNKS = 64
+
+
+@functools.lru_cache(maxsize=64)
+def _gcn_plan(V: int, offsets: Sequence[int], K: int, F: int) -> dict:
+    """The launch plan of one layer of gcn_stack.cu: the band's offsets
+    signed (o, or o - V past V / 2) and their least `lo`; the window of
+    128 + span rows staged per chunk where the signed span is at most
+    _GCN_MAX_SPAN (nw = 0: the rows come from L2); the narrow kernel for
+    F <= 4 (Fp = 4), else Fp the columns padded to a multiple of 8 (of 128
+    past 128) in blocks of FT; the shared memory in bytes. Raises
+    ValueError where it does not fit. Cached (offsets a tuple): read, do
+    not change."""
+    D = len(offsets)
+    if not 1 <= D <= _MAX_DIAGS or any(not 0 <= o < V for o in offsets) or K < 1 or F < 1:
+        raise ValueError(f"gcn_stack: offsets {tuple(offsets)} for V={V}, K={K}, F={F} "
+                         f"(1..{_MAX_DIAGS} offsets in [0, V))")
+    soff = [o if o <= V // 2 else o - V for o in offsets]
+    lo, span = min(soff), max(soff) - min(soff)
+    nw = _GCN_TILE_V + span if span <= _GCN_MAX_SPAN else 0
+    if F <= 4:
+        Fp = FT = 4
+        floats = K * 4 + D * _GCN_TILE_V + nw * 4
+    else:
+        Fp = (F + 7) // 8 * 8 if F <= _GCN_TILE_F else -(-F // _GCN_TILE_F) * _GCN_TILE_F
+        FT = min(Fp, _GCN_TILE_F)
+        floats = (_GCN_KC * (_GCN_TILE_V + 4) + 2 * _GCN_KC * FT + D * _GCN_TILE_V
+                  + 2 * nw * (_GCN_KC + 4))
+    if floats * 4 > _build.SMEM_LIMIT:
+        raise ValueError(f"gcn_stack: {floats * 4} B of shared memory needed (K={K}, F={F}, "
+                         f"{D} diagonals) exceeds {_build.SMEM_LIMIT}")
+    return dict(soff=soff, lo=lo, nw=nw, Fp=Fp, FT=FT, narrow=F <= 4, smem=floats * 4)
+
+
+def _gcn_chunks(widths: Sequence[int], aligned: Sequence[bool]) -> list:
+    """K in chunks of at most _GCN_KC channels, each within one piece:
+    (piece, offset in it, first channel, channels, 16-byte rows) per chunk,
+    the last where the piece is 16-byte aligned and a whole number of
+    float4s wide (gcn_stack.cu then stages its rows as 16-byte copies)."""
+    chunks, kb = [], 0
+    for p, (w, a) in enumerate(zip(widths, aligned)):
+        for off in range(0, w, _GCN_KC):
+            kn = min(_GCN_KC, w - off)
+            chunks.append((p, off, kb, kn, int(a and w % 4 == 0)))
+            kb += kn
+    if len(chunks) > _GCN_MAX_CHUNKS:
+        raise ValueError(f"gcn_stack: {len(chunks)} chunks of widths {list(widths)} "
+                         f"(at most {_GCN_MAX_CHUNKS})")
+    return chunks
 
 
 def _gcn_stack_kernel(xs, weights, biases, vals: torch.Tensor,
@@ -235,6 +288,7 @@ def _gcn_stack_kernel(xs, weights, biases, vals: torch.Tensor,
         _build.require(x, "piece", torch.float32, 3, dev)
         if x.shape[:2] != (B, V):
             raise ValueError(f"gcn_stack: piece {tuple(x.shape)} after ({B}, {V}, .)")
+    offsets = tuple(int(o) for o in offsets)
     D = len(offsets)
     if not 1 <= D <= _MAX_DIAGS or any(not 0 <= o < V for o in offsets):
         raise ValueError(f"gcn_stack: offsets {tuple(offsets)} for V={V} "
@@ -256,22 +310,27 @@ def _gcn_stack_kernel(xs, weights, biases, vals: torch.Tensor,
             raise ValueError(f"gcn_stack: layer {layer} weight {tuple(w.shape)}, "
                              f"bias {tuple(b.shape)} after width "
                              f"{sum(p.shape[2] for p in pieces)}")
-        F4 = _build.pitch(F)
-        if F4 != F:  # float4 weight loads: pad the columns with zeros
-            w = torch.nn.functional.pad(w, (0, F4 - F))
-            b = torch.nn.functional.pad(b, (0, F4 - F))
-        P = _build.pitch(K)
-        smem = _GCN_TILE * P * 4
-        if smem > _build.SMEM_LIMIT:
-            raise ValueError(f"gcn_stack: width {K} needs {smem} B of shared memory")
+        plan = _gcn_plan(V, offsets, K, F)
+        Fp = plan["Fp"]
+        if Fp != F:  # zero columns up to Fp
+            w = torch.nn.functional.pad(w, (0, Fp - F))
+            b = torch.nn.functional.pad(b, (0, Fp - F))
+        # 16-byte aligned for the kernel's float4 loads
+        w, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (w, b))
         out = torch.empty((B, V, F), dtype=torch.float32, device=dev)
         ptrs = (ctypes.c_void_p * _MAX_PIECES)(*[p.data_ptr() for p in pieces])
         widths = (ctypes.c_int * _MAX_PIECES)(*[p.shape[2] for p in pieces])
+        chunks = _gcn_chunks([p.shape[2] for p in pieces],
+                             [p.data_ptr() % 16 == 0 for p in pieces])
+        chunk_ints = (ctypes.c_int * (5 * len(chunks)))(*[v for c in chunks for v in c])
+        soffs = (ctypes.c_int * _MAX_DIAGS)(*plan["soff"])
         _build.launch_counts["gcn_stack"] += 1
         _build.check(lib.g4d_gcn_layer(
-            ptrs, widths, len(pieces), B, V, K, vals.data_ptr(), offs, D,
-            w.data_ptr(), b.data_ptr(), F, F4, int(bool(relu)), _GCN_TILE,
-            smem, out.data_ptr(), _build.stream_of(out)), "gcn_stack")
+            ptrs, widths, len(pieces), chunk_ints, len(chunks), B, V, K, vals.data_ptr(),
+            offs, soffs, D,
+            plan["lo"], plan["nw"], w.data_ptr(), b.data_ptr(), F, Fp, plan["FT"],
+            int(bool(relu)), plan["smem"], out.data_ptr(), _build.stream_of(out)),
+            "gcn_stack")
         if layer == hidden_layer:
             hidden = out
         pieces = [out]

@@ -37,6 +37,9 @@ only the kernels swap for their plain versions.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 from typing import Sequence
 
 import torch
@@ -101,6 +104,154 @@ def _refuse_past_valid(name: str) -> None:
                      f"frame's valid rows")
 
 
+_CHAIN_THREADS = 256   # threads per block of fused_chain.cu
+_CHAIN_MAX_ROWS = 512  # sample rows per group
+_CHAIN_KCS = (32, 16)  # weight rows per streamed chunk, the first that fits
+# where fused_chain.cu's layers read their weights (its kResident, kStreamed,
+# kThroughL1), and the plan's weight on each
+RESIDENT, STREAMED, THROUGH_L1 = 0, 1, 2
+_CHAIN_WMODE_SCORE = {RESIDENT: 1.0, STREAMED: 0.9, THROUGH_L1: 0.85}
+# the plan's weight on fetching the next group's rows after the last layer,
+# and on one block per SM (against two)
+_CHAIN_LATE_SCORE = 0.9
+_CHAIN_ONE_BLOCK_SCORE = 0.8
+
+
+def _chain_tc(R: int, F: int) -> int:
+    """Columns of a thread's tile in an F-wide layer over R rows: 8 where
+    8-wide tiles still give every thread an item, else 4."""
+    return 8 if F % 8 == 0 and (R // _ROWS) * (F // 8) >= _CHAIN_THREADS else 4
+
+
+def _chain_layout(C: int, S: int, widths, G: int, wmode: int, kc: int = 0,
+                  late: bool = False) -> dict:
+    """fused_chain.cu's shared memory for groups of G centers (R = G * S
+    rows): offsets in floats of the gathered rows X (quad-major: a plane
+    of R + R / 8 float4s per 4 channels), the
+    two hidden-activation buffers (even and odd hidden layers), the
+    weights (all of them when resident, three chunks of kc rows of the
+    widest layer when streamed, none through L1), the last layer's per-tile maxima (only where the
+    max over S cannot finish in warp shuffles), then two groups' indices
+    (R ints each) and centers (G x 3 each). With `late` (three layers or
+    more) the odd hidden buffer shares X's memory and the next group's rows
+    are fetched after the last layer. Every region is a whole number of
+    float4s."""
+    L = len(widths)
+    R = G * S
+    Rp = R + 4  # float4 rows; 4 mod 32 spreads the gather's lanes over banks
+    tcs = [_chain_tc(R, f) for f in widths]
+    # warps of 4 x 8 tiles where a layer has 16 column tiles or more
+    wts = [int(f // tc >= 16 and f // tc % 8 == 0 and R // _ROWS % 4 == 0)
+           for f, tc in zip(widths, tcs)]
+    # the last layer's max over S ends in shuffles where a center's T row
+    # tiles lie in one warp, `ls` lanes apart
+    T, nct = S // _ROWS, widths[-1] // tcs[-1]
+    ls = 8 if wts[-1] else nct
+    direct = T & (T - 1) == 0 and 32 % ls == 0 and T * ls <= 32
+    x = _build.pitch(C) * (R + R // _ROWS)
+    h0 = max([widths[l] for l in range(0, L - 1, 2)], default=0) * Rp
+    h1 = max([widths[l] for l in range(1, L - 1, 2)], default=0) * Rp
+    if late:  # X's memory holds the odd hidden layers too
+        x, h1 = max(x, h1), 0
+    stream = wmode == STREAMED
+    wbuf = kc * max(widths) if stream else 0
+    w = (3 * wbuf if stream else 0 if wmode == THROUGH_L1
+         else sum(k * f for k, f in zip([C, *widths[:-1]], widths)))
+    part = 0 if direct else R // _ROWS * widths[-1]
+    w_off = x + h0 + h1
+    ib_off = w_off + w + part
+    cb_off = ib_off + 2 * R
+    return dict(G=G, R=R, Rp=Rp, tcs=tcs, wts=wts, direct=direct, late=late, x_off=0,
+                h_off=(x, 0 if late else x + h0),
+                w_off=w_off, part_off=w_off + w, ib_off=ib_off, cb_off=cb_off,
+                wmode=wmode, kc=kc if stream else 0, wbuf=wbuf,
+                smem=(cb_off + _build.pitch(6 * G)) * 4,
+                items=[R // _ROWS * f // tc for f, tc in zip(widths, tcs)])
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_plan_cached(C: int, S: int, widths: tuple, M: int, knobs: tuple) -> dict:
+    return _chain_plan_uncached(C, S, widths, M)
+
+
+def _chain_plan(C: int, S: int, widths, M: int) -> dict:
+    """`_chain_plan_uncached`, cached on its arguments and the module's
+    planning knobs (the host's share of a launch: a launch of a small chain
+    takes ~0.1 ms on the card); a copy, free to change."""
+    knobs = (tuple(sorted(_CHAIN_WMODE_SCORE.items())), _CHAIN_LATE_SCORE,
+             _CHAIN_ONE_BLOCK_SCORE, _CHAIN_KCS, _CHAIN_MAX_ROWS)
+    return dict(_chain_plan_cached(C, S, tuple(widths), M, knobs))
+
+
+def _chain_plan_uncached(C: int, S: int, widths, M: int) -> dict:
+    """The launch plan of fused_chain.cu for C-wide tables, S slots (a
+    multiple of 8) and layer widths `widths`, over M centers per frame.
+
+    Candidates: groups of G centers (a power of two, R = G * S <= 512 rows,
+    G no larger than M needs); weights resident or read through L1 (two
+    blocks per SM where the shared memory allows, else one) or streamed (one
+    block per SM, at most one item per thread). Each is scored by the share
+    of the FMAs whose layer gives every thread an item, times
+    _CHAIN_ONE_BLOCK_SCORE for one block per SM, the weight mode's
+    _CHAIN_WMODE_SCORE (streamed and L1-read weights come from L2 again for
+    every group) and _CHAIN_LATE_SCORE where X's memory is shared with a
+    hidden layer; the best wins, ties going to the larger group. The knobs
+    are set from timings on the H100 (`PERF.md` §6). Raises ValueError
+    where nothing fits."""
+    if C < 3 or S % _ROWS or not 1 <= len(widths) <= _MAX_LAYERS or any(
+            f < 4 or f % 4 for f in widths):
+        raise ValueError(f"fused_chain: C={C}, S={S}, widths {list(widths)} (C >= 3, "
+                         f"S a multiple of {_ROWS}, 1..{_MAX_LAYERS} widths, multiples of 4)")
+    work = [k * f for k, f in zip([C, *widths[:-1]], widths)]
+    g_max = 1 << max(0, int(M) - 1).bit_length()
+    best = None
+    G = 1
+    while G * S <= _CHAIN_MAX_ROWS and G <= g_max:
+        for (wmode, mode_score), late in itertools.product(
+                _CHAIN_WMODE_SCORE.items(), (False, True) if len(widths) >= 3 else (False,)):
+            for kc in _CHAIN_KCS if wmode == STREAMED else (0,):
+                lay = _chain_layout(C, S, widths, G, wmode, kc, late)
+                if lay["smem"] <= _build.SMEM_LIMIT:
+                    break
+            if wmode == STREAMED and max(lay["items"]) > _CHAIN_THREADS:
+                continue
+            if wmode != STREAMED and lay["smem"] <= _build.SMEM_TWO_BLOCKS:
+                per_sm = 2
+            elif lay["smem"] <= _build.SMEM_LIMIT:
+                per_sm = 1
+            else:
+                continue
+            use = sum(w * min(1.0, n / _CHAIN_THREADS) for w, n in zip(work, lay["items"]))
+            score = (use / sum(work) * (1.0 if per_sm == 2 else _CHAIN_ONE_BLOCK_SCORE)
+                     * mode_score
+                     * (_CHAIN_LATE_SCORE if late else 1.0))
+            if best is None or score > best[0] or score == best[0] and G > best[1]["G"]:
+                best = (score, dict(lay, per_sm=per_sm))
+        G *= 2
+    if best is None:
+        raise ValueError(f"fused_chain: no plan fits the shared memory (C={C}, S={S}, "
+                         f"widths {list(widths)}; {_build.SMEM_LIMIT} B per block)")
+    return best[1]
+
+
+def _chain_grid(B: int, M: int, plan: dict, sms: int) -> int:
+    """The persistent grid: a block per group of centers, at most the
+    plan's blocks per SM on each of `sms` SMs."""
+    return max(1, min(B * -(-M // plan["G"]), plan["per_sm"] * sms))
+
+
+def _chain_plan_ints(C: int, S: int, widths, relus, plan: dict) -> list:
+    """The plan as fused_chain.cu's `ChainPlan`, field by field."""
+    L = len(widths)
+    pad = [0] * (_MAX_LAYERS - L)
+    return [L, C, *widths, *pad, *plan["tcs"], *pad, *plan["wts"], *pad,
+            sum(1 << l for l, r in enumerate(relus) if r),
+            plan["G"], S, plan["R"], plan["Rp"], _build.pitch(C) // 4,
+            plan["R"] + plan["R"] // _ROWS, plan["x_off"], *plan["h_off"],
+            plan["w_off"], plan["part_off"], plan["ib_off"], plan["cb_off"], plan["wmode"],
+            plan["kc"], plan["wbuf"], int(plan["direct"]), int(plan["late"])]
+
+
 def _chain_kernel(table, idx, centers, weights, biases, relus,
                   name: str = "fused_chain", n_valid=None):
     _build.refuse_grad(name, table, centers, *weights, *biases)
@@ -132,35 +283,22 @@ def _chain_kernel(table, idx, centers, weights, biases, relus,
                              f"{widths[-1]}, bias {tuple(b.shape)} (widths must "
                              f"be multiples of 4)")
         widths.append(w.shape[1])
-    # activation buffers: 0 holds the inputs of even layers, 1 of odd layers,
-    # rows padded to a multiple of 4 floats for float4 loads
-    width_a = max(_build.pitch(widths[l]) for l in range(0, L, 2))
-    width_b = max([_build.pitch(widths[l]) for l in range(1, L, 2)], default=0)
-
-    def smem_bytes(G):
-        rows = G * S
-        return (rows * (width_a + width_b) + rows // _ROWS * widths[-1]) * 4
-
-    # centers per block: up to 256 rows while two blocks still fit an SM
-    G = 1
-    while 2 * G * S <= 256 and smem_bytes(2 * G) <= _build.SMEM_TWO_BLOCKS:
-        G *= 2
-    smem = smem_bytes(G)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"fused_chain: {smem} B of shared memory needed "
-                         f"(S={S}, widths {widths}) exceeds {_build.SMEM_LIMIT}")
+    plan = _chain_plan(C, S, widths[1:], M)
+    ints = _chain_plan_ints(C, S, widths[1:], relus, plan)
+    if C % 4 or table.data_ptr() % 16:  # rows of whole, aligned float4s
+        table = torch.nn.functional.pad(table, (0, _build.pitch(C) - C))
+    blocks = _chain_grid(B, M, plan, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # fresh tensors: 16-byte aligned for the kernel's float4 copies
     w_all = torch.cat([w.reshape(-1) for w in weights])
     b_all = torch.cat(list(biases))
-    fs = widths[1:] + [0] * (_MAX_LAYERS - L)
-    relu_mask = sum(1 << l for l, r in enumerate(relus) if r)
     out = torch.empty((B, M, widths[-1]), dtype=torch.float32, device=dev)
     past = None if n_valid is None else torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.launch_counts[name] += 1
     _build.check(lib.g4d_fused_chain(
-        table.data_ptr(), idx.data_ptr(), centers.data_ptr(),
-        w_all.data_ptr(), b_all.data_ptr(), B, N, C, M, S, L, *fs, relu_mask,
-        G, width_a, width_b, smem, None if n_valid is None else n_valid.data_ptr(),
+        table.data_ptr(), idx.data_ptr(), centers.data_ptr(), w_all.data_ptr(),
+        b_all.data_ptr(), B, N, M, (ctypes.c_int * len(ints))(*ints), len(ints), blocks,
+        plan["smem"], None if n_valid is None else n_valid.data_ptr(),
         None if past is None else past.data_ptr(), out.data_ptr(),
         _build.stream_of(table)), name)
     if past is not None and bool(past.item()):  # the flag's one host read

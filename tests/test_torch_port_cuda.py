@@ -7,9 +7,14 @@ there is none (the CPU test run). On a GPU machine, without JAX:
 
 The shapes are the awkward ones the forward does not reach: ragged tiles,
 one point, no-hit centers, odd radius counts, 1- to 4-layer chains with a
-linear last layer, points at exactly the radius, empty and full valid
+linear last layer (widths 4 to 256, tables 3 to 195 wide, S not a multiple
+of the 8-row tile, resident and streamed weights, more groups of centers
+than resident blocks with a partial last one, an out-of-range index giving
+its center NaN), points at exactly the radius, empty and full valid
 counts, distance ties at the k-th neighbour and zero distances, GCN frames
-that are not a multiple of the vertex tile with offsets near V, 1-NN ties and
+that are not a multiple of the 128-vertex tile or below it, with offsets
+near V (staged window) and a band wider than the window, 1 to 8 pieces, the
+narrow last layer and widths off the column tile, 1-NN ties and
 tables around the 2048-point tile, banded products with 1 to 64 diagonals at
 C = 3, 5 and 128 and their transposes, PE backwards with padded S (1, 4,
 12), every slot tied, one slot winning every channel, a zero cotangent and
@@ -22,12 +27,13 @@ the CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
 stack and the PE backward's dcenters agree within rtol 1e-4 / atol 1e-5,
 its weight gradients and dtable within 1e-4 of their largest magnitude,
 the K-NN weights within rtol 1e-4 / atol 1e-6 (fp32 summation order); two
-PE-backward or scatter-add launches are bitwise equal. A small posed train
+chain, GCN-stack, PE-backward or scatter-add launches are bitwise equal. A small posed train
 step on the card matches the CPU's; an SA stage trains through the
 gathers' scatter-add and the chain kernel's backward.
 """
 
 import contextlib
+import itertools
 
 import numpy as np
 import pytest
@@ -102,6 +108,19 @@ def test_gather_rows(dev, C, offset):
     assert torch.isnan(pc._gather_rows_kernel(table, idx)[0, 0]).all()
 
 
+def _chain_inputs(seed, B, N, M, S, C, widths, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn(B, N, C, generator=g).to(device)
+    idx = torch.randint(0, N, (B, M, S), generator=g, dtype=torch.int32).to(device)
+    centers = torch.randn(B, M, 3, generator=g).to(device)
+    ws, bs, c = [], [], C
+    for w in widths:
+        ws.append((torch.randn(c, w, generator=g) / c ** 0.5).to(device))
+        bs.append((0.1 * torch.randn(w, generator=g)).to(device))
+        c = w
+    return table, idx, centers, ws, bs
+
+
 @pytest.mark.parametrize("C,widths,relus,S,M", [
     (3, (16,), (False,), 8, 1),
     (6, (32, 32), (True, False), 12, 9),  # S padded to 16 with slot 0
@@ -110,21 +129,97 @@ def test_gather_rows(dev, C, offset):
     (67, (32, 64, 64, 128), (True, True, True, True), 32, 300),
     (195, (128, 128, 256), (True, True, True), 64, 64),
     (99, (256, 256), (True, False), 64, 7),
+    # the redesign's plans: widths 4 / 8 / 12, a center's row tiles not a
+    # power of two (S=24: maxima through shared memory), resident weights
+    # at the PE and SA shapes with 8 x 8 and 8 x 4 tiles, streamed weights
+    # (sa3 / garment_sa2 at S=64, sa3 at S=32), table widths 3 to 195
+    (6, (4,), (True,), 24, 33),
+    (3, (8, 12, 4), (True, True, False), 16, 50),
+    (6, (32, 32), (True, False), 32, 2000),
+    (35, (32, 32), (True, False), 32, 2000),
+    (35, (32, 32), (True, False), 8, 517),
+    (3, (16, 16, 32), (True, True, True), 16, 1024),
+    (99, (64, 64, 128), (True, True, True), 32, 256),
+    (195, (64, 64, 128), (True, True, True), 32, 64),
+    (67, (64, 64), (True, True), 32, 512),
+    (99, (128, 128), (True, True), 32, 64),
+    (99, (256, 256), (True, True), 64, 64),
 ])
 def test_fused_chain(dev, C, widths, relus, S, M):
-    g = torch.Generator().manual_seed(5)
-    B, N = 2, 300
-    table = torch.randn(B, N, C, generator=g).to(dev)
-    idx = torch.randint(0, N, (B, M, S), generator=g, dtype=torch.int32).to(dev)
-    centers = torch.randn(B, M, 3, generator=g).to(dev)
-    ws, bs, c = [], [], C
-    for w in widths:
-        ws.append((torch.randn(c, w, generator=g) / c ** 0.5).to(dev))
-        bs.append((0.1 * torch.randn(w, generator=g)).to(dev))
-        c = w
+    """Against the plain version, and two launches bitwise equal."""
+    table, idx, centers, ws, bs = _chain_inputs(5, 2, 300, M, S, C, widths)
     got = pemax._chain_kernel(table, idx, centers, ws, bs, relus)
     want = pemax._chain_reference(table, idx, centers, ws, bs, relus)
     torch.testing.assert_close(got, want, **CHAIN_TOL)
+    torch.testing.assert_close(pemax._chain_kernel(table, idx, centers, ws, bs, relus), got,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("C,widths,relus,S,M", [
+    (6, (32, 32), (True, False), 32, 300), (35, (32, 32), (True, False), 8, 517),
+    (195, (128, 128, 256), (True, True, True), 64, 20), (99, (256, 256), (True, True), 64, 9),
+    (67, (32, 64, 64, 128), (True, True, True, False), 32, 30)])
+def test_fused_chain_weight_modes(dev, monkeypatch, C, widths, relus, S, M):
+    """Weights resident in shared memory, streamed through it in chunks and
+    read through L1, each with and without the odd hidden layers in X's
+    memory, forced by the plan's scores: within the tolerance of the plain
+    version and bitwise equal to one another (every output sums in the
+    same order)."""
+    table, idx, centers, ws, bs = _chain_inputs(8, 2, 300, M, S, C, widths)
+    want = pemax._chain_reference(table, idx, centers, ws, bs, relus)
+    modes = (pemax.RESIDENT, pemax.STREAMED, pemax.THROUGH_L1)
+    got = {}
+    for mode, late in itertools.product(modes, (False, True)):
+        monkeypatch.setattr(pemax, "_CHAIN_WMODE_SCORE",
+                            {m: 1.0 if m == mode else 0.0 for m in modes})
+        monkeypatch.setattr(pemax, "_CHAIN_LATE_SCORE", 2.0 if late else 0.0)
+        plan = pemax._chain_plan(C, S, list(widths), M)
+        if plan["wmode"] != mode or plan["late"] != late:
+            # resident weights that do not fit (sa3 / garment_sa2 at S=64);
+            # streaming that would need more than one item per thread; no
+            # odd hidden layer to share X's memory below three layers
+            assert (mode == pemax.RESIDENT and S == 64 or mode == pemax.STREAMED
+                    or late and len(widths) < 3)
+            continue
+        got[mode, late] = pemax._chain_kernel(table, idx, centers, ws, bs, relus)
+        torch.testing.assert_close(got[mode, late], want, **CHAIN_TOL)
+    assert len(got) >= 2
+    first = next(iter(got.values()))
+    for g in got.values():
+        torch.testing.assert_close(g, first, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("C,widths,S,M", [(6, (32, 32), 32, 6001), (35, (32, 32), 16, 3001),
+                                          (195, (128, 128, 256), 64, 301)])
+def test_fused_chain_persistent_groups(dev, C, widths, S, M):
+    """More groups than resident blocks (each block walks several, the
+    next group's rows landing while the layers run) and a partial last
+    group, resident and streamed weights."""
+    table, idx, centers, ws, bs = _chain_inputs(6, 2, 400, M, S, C, widths)
+    relus = (True,) * (len(widths) - 1) + (False,)
+    plan = pemax._chain_plan(C, S, list(widths), M)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 2 * -(-M // plan["G"]) > plan["per_sm"] * sms
+    assert plan["G"] == 1 or M % plan["G"]
+    got = pemax._chain_kernel(table, idx, centers, ws, bs, relus)
+    torch.testing.assert_close(got, pemax._chain_reference(table, idx, centers, ws, bs, relus),
+                               **CHAIN_TOL)
+
+
+@pytest.mark.parametrize("C,widths,relus", [(6, (32, 32), (True, False)),
+                                            (99, (256, 256), (True, True))])
+def test_fused_chain_out_of_range_gives_nan(dev, C, widths, relus):
+    """An index past the table makes its center's outputs NaN (a NaN row,
+    carried through ReLU and max as torch carries it); the other centers
+    keep the plain version's values."""
+    table, idx, centers, ws, bs = _chain_inputs(7, 2, 300, 40, 16, C, widths)
+    want = pemax._chain_reference(table, idx, centers, ws, bs, relus)
+    idx[1, 5, 3] = 300
+    got = pemax._chain_kernel(table, idx, centers, ws, bs, relus)
+    assert torch.isnan(got[1, 5]).all()
+    keep = torch.ones(2, 40, dtype=torch.bool, device=dev)
+    keep[1, 5] = False
+    torch.testing.assert_close(got[keep], want[keep], **CHAIN_TOL)
 
 
 def test_fused_chain_refuses_unsupported_shapes(dev):
@@ -303,9 +398,22 @@ def test_knn_transfer(dev, k, k64, J):
 
 @pytest.mark.parametrize("V,offsets", [(48, (0, 1, 7, 8, 40, 41, 47)),
                                        (200, (0, 1, 199)),
-                                       (2000, (0, 1, 15, 16, 1984, 1985, 1999))])
+                                       (2000, (0, 1, 15, 16, 1984, 1985, 1999)),
+                                       # a signed span of 101 rows: no window
+                                       (2000, (0, 1, 100, 1999)),
+                                       (300, (0, 1, 150, 299))])
 @pytest.mark.parametrize("attn", [False, True])
 def test_gcn_stack(dev, V, offsets, attn):
+    """7 or 8 pieces (a 3-wide one first), the 128-wide tile layers and the
+    narrow 128 -> 3 layer, `hidden` from layer 2; V below one 128-vertex
+    tile or not a multiple of it; the staged window of rows and the rows
+    from L2 (wide offsets); two launches bitwise equal. Held to the float64
+    stack (`chip_smoke.gcn_float64`): with outputs up to ~90 an output that
+    cancels to ~0.06 sits within a few fp32 roundings of the tolerance, so
+    the fp32 plain version's own error (up to 2.3e-5 here) would decide the
+    verdict element by element; the shapes are checked against it too."""
+    from chip_smoke import gcn_float64
+
     g = torch.Generator().manual_seed(15)
     widths = [3, 32, 32, 32, 32, 32, 32] + ([128] if attn else [])
     xs = [torch.randn(3, V, w, generator=g).to(dev) for w in widths]
@@ -322,7 +430,32 @@ def test_gcn_stack(dev, V, offsets, attn):
     relus = (True, True, True, False)
     ko, kh = graph._gcn_stack_kernel(xs, ws, bs, vals, offsets, relus, 2)
     po, ph = graph._gcn_stack_ref(xs, ws, bs, adj, offsets, relus, 2)
-    assert ko.shape == (3, V, 3) and kh.shape == (3, V, 128)
+    assert ko.shape == po.shape == (3, V, 3) and kh.shape == ph.shape == (3, V, 128)
+    ro, rh = gcn_float64(xs, ws, bs, vals, offsets, relus, 2)
+    torch.testing.assert_close(ko.double(), ro, **CHAIN_TOL)
+    torch.testing.assert_close(kh.double(), rh, **CHAIN_TOL)
+    for a, b in zip((ko, kh), graph._gcn_stack_kernel(xs, ws, bs, vals, offsets, relus, 2)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("V,offsets", [(130, (0, 1, 129)), (300, (0, 1, 100, 299))])
+@pytest.mark.parametrize("dims", [(3, 4), (3, 3), (3, 12, 200, 3)])
+def test_gcn_stack_one_piece(dev, V, offsets, dims):
+    """One 3-wide piece; a stack of one narrow layer (F = 4 and 3, with
+    ReLU), and widths off the 128-column tile (12, and 200 in two column
+    blocks); with and without the window."""
+    g = torch.Generator().manual_seed(16)
+    xs = [torch.randn(2, V, 3, generator=g).to(dev)]
+    ws = [(torch.randn(a, b, generator=g) / a ** 0.5).to(dev) for a, b in zip(dims, dims[1:])]
+    bs = [(0.1 * torch.randn(b, generator=g)).to(dev) for b in dims[1:]]
+    vals = torch.rand(len(offsets), V, generator=g).to(dev)
+    adj = torch.zeros(V, V)
+    rows = torch.arange(V)
+    for d, o in enumerate(offsets):
+        adj[rows, (rows + o) % V] = vals[d].cpu()
+    relus = (True,) * len(ws)
+    ko, kh = graph._gcn_stack_kernel(xs, ws, bs, vals, offsets, relus, 0)
+    po, ph = graph._gcn_stack_ref(xs, ws, bs, adj.to(dev), offsets, relus, 0)
     torch.testing.assert_close(ko, po, **CHAIN_TOL)
     torch.testing.assert_close(kh, ph, **CHAIN_TOL)
 

@@ -897,10 +897,160 @@ CANONICAL_SCATTERS = [(4096, 99, 512), (2048, 99, 512), (16384, 67, 1722),
 POSED_PE_BWD = [(6, 8), (6, 16), (6, 32), (67, 32), (99, 16), (387, 8)]
 
 
+# the chain kernel's 16 shapes in a posed forward (C, S, widths, M): the 10
+# set-abstraction chains of the canonical stage, the body PE blocks over
+# the compacted table and the split garment PE blocks
+POSED_CHAINS = [(3, 16, (16, 16, 32), 1024), (3, 32, (32, 32, 64), 1024),
+                (99, 16, (32, 32, 64), 256), (99, 32, (64, 64, 128), 256),
+                (195, 32, (64, 64, 128), 64), (195, 64, (128, 128, 256), 64),
+                (67, 16, (32, 32), 512), (67, 32, (64, 64), 512),
+                (99, 32, (128, 128), 64), (99, 64, (256, 256), 64),
+                (6, 8, (32, 32), 2000), (6, 16, (32, 32), 2000), (6, 32, (32, 32), 2000),
+                (35, 32, (32, 32), 2000), (35, 16, (32, 32), 2000), (35, 8, (32, 32), 2000)]
+# the weights of these do not fit in shared memory beside the activations
+STREAMED_CHAINS = {(195, 32), (195, 64), (99, 64)}
+RING_BAND = (0, 1, 15, 16, 1984, 1985, 1999)  # the ring template's cyclic diagonals, V = 2000
+
+
 class TestKernelPlans:
-    """The host-side planning of the scatter-add and PE-backward wrappers:
-    every shape of the train steps' main paths is planned, not refused, so
-    that a ValueError shows here and not first on the card."""
+    """The host-side planning of the scatter-add, PE-backward, chain and
+    GCN-layer wrappers: every shape of the main paths is planned, not
+    refused, so that a ValueError shows here and not first on the card."""
+
+    @pytest.mark.parametrize("C,S,widths,M", POSED_CHAINS)
+    def test_chain_plan_main_path(self, C, S, widths, M):
+        """Groups of a power of two of centers, at most 512 rows; every
+        layer gives each of the 256 threads an item; weights resident for
+        the PE blocks (two blocks per SM), streamed (one item per thread) or
+        read through L1 where they do not fit beside the activations; the
+        max over S in warp shuffles for the PE blocks; the persistent
+        grid."""
+        plan = tops.pemax._chain_plan(C, S, widths, M)
+        G, R = plan["G"], plan["R"]
+        assert G & (G - 1) == 0 and R == G * S <= 512 and plan["Rp"] == R + 4
+        assert plan["items"] == [256] * len(widths)
+        assert plan["tcs"] == [tops.pemax._chain_tc(R, f) for f in widths]
+        if (C, S) in STREAMED_CHAINS:
+            assert plan["wmode"] != tops.pemax.RESIDENT
+        assert (plan["kc"] > 0) == (plan["wmode"] == tops.pemax.STREAMED)
+        limit = _build.SMEM_TWO_BLOCKS if plan["per_sm"] == 2 else _build.SMEM_LIMIT
+        assert plan["smem"] <= limit
+        assert plan["per_sm"] == 1 or plan["wmode"] != tops.pemax.STREAMED
+        if C in (6, 35):  # the PE blocks: resident, two blocks per SM, no per-tile maxima
+            assert plan["wmode"] == tops.pemax.RESIDENT and plan["per_sm"] == 2
+            assert plan["direct"]
+        blocks = tops.pemax._chain_grid(80, M, plan, 132)
+        assert blocks == min(80 * -(-M // G), plan["per_sm"] * 132)
+
+    @pytest.mark.parametrize("C,S,widths,M", POSED_CHAINS + [
+        (6, 24, (4,), 33), (7, 16, (8, 12), 5), (3, 8, (16,), 1), (67, 32, (32, 64, 64, 128), 300)])
+    def test_chain_layout(self, C, S, widths, M):
+        """fused_chain.cu's regions in order, none overlapping, each a whole
+        number of float4s, the chunk buffers three of kc rows of the widest
+        layer; the plan's ints are ChainPlan's 33 fields."""
+        plan = tops.pemax._chain_plan(C, S, widths, M)
+        L, Rp = len(widths), plan["Rp"]
+        h0 = max([widths[l] for l in range(0, L - 1, 2)], default=0) * Rp
+        h1 = max([widths[l] for l in range(1, L - 1, 2)], default=0) * Rp
+        x = _build.pitch(C) * (plan["R"] + plan["R"] // 8)  # quad planes of R + R / 8 float4s
+        if plan["late"]:  # odd hidden layers in X's memory
+            assert L >= 3
+            x, h1 = max(x, h1), 0
+        assert plan["x_off"] == 0 and plan["h_off"] == (x, 0 if plan["late"] else x + h0)
+        assert plan["w_off"] == x + h0 + h1
+        resident = sum(k * f for k, f in zip((C,) + widths[:-1], widths))
+        w = {0: resident, 1: 3 * plan["kc"] * max(widths), 2: 0}[plan["wmode"]]
+        part = 0 if plan["direct"] else plan["R"] // 8 * widths[-1]
+        assert plan["part_off"] == plan["w_off"] + w
+        assert plan["ib_off"] == plan["part_off"] + part
+        assert plan["cb_off"] == plan["ib_off"] + 2 * plan["R"]
+        assert plan["smem"] == 4 * (plan["cb_off"] + _build.pitch(6 * plan["G"]))
+        assert all(o % 4 == 0 for o in (*plan["h_off"], plan["w_off"], plan["part_off"],
+                                        plan["ib_off"], plan["cb_off"]))
+        ints = tops.pemax._chain_plan_ints(C, S, widths, (True,) * L, plan)
+        assert len(ints) == 33 and ints[:2] == [L, C] and ints[14] == 2 ** L - 1
+        assert ints[19:21] == [_build.pitch(C) // 4, plan["R"] * 9 // 8]
+        for f, tc, wt in zip(widths, plan["tcs"], plan["wts"]):  # 4 x 8 warp tiles
+            assert wt == (f // tc >= 16 and f // tc % 8 == 0 and plan["R"] // 8 % 4 == 0)
+        if plan["direct"]:  # a center's row tiles within a warp, ls lanes apart
+            ls = 8 if plan["wts"][-1] else widths[-1] // plan["tcs"][-1]
+            assert S // 8 * ls <= 32 and 32 % (S // 8 * ls) == 0
+
+    def test_chain_plan_small_m(self):
+        """A frame of few centers takes groups no larger than it needs."""
+        assert tops.pemax._chain_plan(6, 32, (32, 32), 1)["G"] == 1
+        assert tops.pemax._chain_plan(6, 8, (32, 32), 5)["G"] <= 8
+        assert tops.pemax._chain_grid(2, 5, tops.pemax._chain_plan(6, 8, (32, 32), 5), 132) == 2
+
+    @pytest.mark.parametrize("C,S,widths", [(2, 8, (32,)), (6, 12, (32,)), (6, 8, (30,)),
+                                            (6, 8, (32,) * 5), (6, 1024, (32,)),
+                                            (6, 8, ()), (4096, 64, (256, 256))])
+    def test_chain_plan_refuses(self, C, S, widths):
+        with pytest.raises(ValueError, match="fused_chain"):
+            tops.pemax._chain_plan(C, S, widths, 100)
+
+    @pytest.mark.parametrize("K,F", [(195, 128), (323, 128), (128, 128), (128, 3)])
+    def test_gcn_plan_main_path(self, K, F):
+        """The ring template's band (signed offsets -16..16): a window of
+        160 rows; 128-wide layers on 128-column blocks within two blocks'
+        shared memory; the 128 -> 3 layer on the narrow kernel."""
+        plan = tops.graph._gcn_plan(2000, RING_BAND, K, F)
+        assert plan["soff"] == [0, 1, 15, 16, -16, -15, -1] and plan["lo"] == -16
+        assert plan["nw"] == 128 + 32
+        assert plan["narrow"] == (F == 3)
+        if plan["narrow"]:
+            assert plan["Fp"] == plan["FT"] == 4
+        else:
+            assert plan["Fp"] == plan["FT"] == 128
+        assert plan["smem"] <= _build.SMEM_TWO_BLOCKS
+
+    @pytest.mark.parametrize("V,offsets,nw", [(200, (0, 1, 199), 130), (48, (0, 7, 40, 47), 143),
+                                              (2000, (0, 1, 100, 1999), 0),
+                                              (300, (0, 1, 150, 299), 0), (5, (0, 2, 3), 132)])
+    def test_gcn_plan_window(self, V, offsets, nw):
+        """The window holds the tile plus the signed span where it is at most
+        64 rows; wider bands read their rows from L2 (nw = 0)."""
+        plan = tops.graph._gcn_plan(V, offsets, 64, 128)
+        assert plan["nw"] == nw
+        assert all((s - o) % V == 0 and abs(s) <= V // 2 + 1
+                   for s, o in zip(plan["soff"], offsets))
+
+    @pytest.mark.parametrize("F,Fp,FT", [(8, 8, 8), (12, 16, 16), (136, 256, 128), (4, 4, 4),
+                                         (1, 4, 4)])
+    def test_gcn_plan_widths(self, F, Fp, FT):
+        plan = tops.graph._gcn_plan(200, (0, 1, 199), 32, F)
+        assert (plan["Fp"], plan["FT"]) == (Fp, FT) and plan["Fp"] % plan["FT"] == 0
+
+    @pytest.mark.parametrize("widths,aligned", [
+        ((3, 32, 32, 32, 32, 32, 32), (True,) * 7),
+        ((3, 32, 32, 32, 32, 32, 32, 128), (True,) * 8), ((128,), (True,)),
+        ((3, 5, 8), (True, True, False)), ((70,), (True,))])
+    def test_gcn_chunks(self, widths, aligned):
+        """The main path's first layers (the 3-wide piece, six 32-wide PEs,
+        the 128-wide attention mix) and the 128-wide hidden layers in chunks
+        of at most 32 channels, each within one piece and in order; 16-byte
+        staging only for aligned pieces a multiple of 4 wide."""
+        chunks = tops.graph._gcn_chunks(widths, aligned)
+        kb = 0
+        for p, off, first, kn, vec in chunks:
+            assert first == kb and 1 <= kn <= 32 and off + kn <= widths[p]
+            assert vec == int(aligned[p] and widths[p] % 4 == 0)
+            kb += kn
+        assert kb == sum(widths)
+        assert len(chunks) == sum(-(-w // 32) for w in widths)
+        if widths[:2] == (3, 32):
+            assert chunks[0] == (0, 0, 0, 3, 0) and all(c[4] for c in chunks[1:])
+
+    def test_gcn_chunks_refuses(self):
+        with pytest.raises(ValueError, match="gcn_stack"):
+            tops.graph._gcn_chunks((32,) * 65, (True,) * 65)
+
+    @pytest.mark.parametrize("V,offsets,K,F", [(10, (), 8, 8), (10, (10,), 8, 8),
+                                               (100, tuple(range(65)), 8, 8),
+                                               (10, (0,), 20000, 3)])
+    def test_gcn_plan_refuses(self, V, offsets, K, F):
+        with pytest.raises(ValueError, match="gcn_stack"):
+            tops.graph._gcn_plan(V, offsets, K, F)
 
     @pytest.mark.parametrize("B,R,C,n", [(200, *s) for s in CANONICAL_SCATTERS]
                              + [(40, 64000, 67, 2000)])
