@@ -15,10 +15,16 @@ then:
    ball-query and 3-NN indices and gathered rows equal, 3-NN squared
    distances equal, the fused SA chain within rtol 1e-4 / atol 1e-5.
    Posed-stage kernels, on inputs captured from one posed forward: the
-   coverage mask and the grouped ball query's indices equal, the PE blocks
-   on the chain kernel (body S=32, garment pe2) within rtol 1e-4 /
-   atol 1e-5, the K-NN transfer's 1-NN indices equal and weights within
-   rtol 1e-4 / atol 1e-6, the GCN stack (195- and 323-wide iterations)
+   coverage mask equal; every FPS, flat and grouped ball-query launch of the
+   forward recorded with its inputs, each launch's bound and the summed
+   bounds printed, each grouped launch (3) and each distinct FPS and flat
+   case bitwise its plain version and timed; the PE blocks on the chain
+   kernel (body S=32, garment pe2) within rtol 1e-4 / atol 1e-5; the K-NN
+   transfer's 1-NN indices equal, its own selections (read back through
+   one-hot weights, `knn_selection`) those of the plain version wherever
+   1/d^2 is finite, its weights within rtol 1e-4 / atol 1e-6 of the plain
+   version and of the float64 transfer over its selections
+   (`knn_float64`); the GCN stack (195- and 323-wide iterations)
    within rtol 1e-4 / atol 1e-5 on `out` and `hidden`. Then every chain
    and GCN-stack launch of one posed forward is recorded with its inputs
    (28 chain launches, 3 stacks of 4 layer launches): each launch's bound
@@ -40,7 +46,9 @@ then:
 4. posed path: zeroes the counters, runs `GarmentReconstructor.posed` once
    and requires all ten kernels to have launched; prints the counts and
    whether a body query took the overflow branch; times it (median of 5
-   after a warm-up) and profiles it; times the plain path on the card and
+   after a warm-up) and profiles it (the chain, GCN, K-NN, grouped and flat
+   query and FPS kernels' device ms per forward beside their summed
+   bounds); times the plain path on the card and
    compares one sequence (B=1, T=10) of both paths with the port's plain
    path on the CPU: labels agree on >= 99.9% of points, `tpose_garment`
    within 1e-3, the LBS result within 1e-4, every iteration's vertices no
@@ -86,7 +94,8 @@ then:
    near-tie mask, two launches bitwise equal, and its scatter-add of the
    won slots' row gradients checked and timed as phase 6's scatter-adds;
    and (in phase 2) the valid-count chain call at the body PE shape,
-   bitwise the chain kernel without the count;
+   bitwise the chain kernel without the count; and the step's K-NN transfer
+   (B=4) held as in phase 2;
 6. canonical train step at the recipe's shape (B=20, T=10, N=6890, the
    seed-1 batch, the canonical subtree of `posed_synth.npz`, Adam at lr 1e-3
    over every parameter, dropout 0.5 from a seeded generator): zeroes the
@@ -120,17 +129,22 @@ it does when no CUDA device is visible or when the repo is not beside it.
 
 `--time-kernels` times, for the package in the checkout at ROOT (default:
 this one), the posed forward (phase 4's shape and weights; frames/s,
-device ms, the chain and GCN kernels' device ms per forward) and the
-canonical forward's device ms; the chain at each of its 16 shapes in the
-posed forward and the GCN stack at its 195- and 323-wide shapes, on the
-inputs recorded from it (ms, the largest difference to float64, the
-summed bounds; for the chain also one 4-wide linear layer on the same
-gathers, mostly the gather's time; for the stack its plain version); the
-posed and canonical train steps (frames/s, device ms, the PE backward's
-and the scatter-add's device ms per step), the PE backward at each of its
-six shapes and its dtable half, and the scatter-add at each of its 11
-shapes beside one `index_add_`, on inputs recorded from the steps; the
-ptxas lines of the chain and GCN kernels; one JSON line.
+device ms, the device ms per forward of the chain, GCN, K-NN, grouped and
+flat ball-query and FPS kernels) and the canonical forward's device ms;
+the chain at each of its 16 shapes in the posed forward and the GCN stack
+at its 195- and 323-wide shapes, on the inputs recorded from it (ms, the
+largest difference to float64, the summed bounds; for the chain also one
+4-wide linear layer on the same gathers, mostly the gather's time; for
+the stack its plain version); the K-NN transfer at the forward's B=8 and
+the posed train step's B=4 calls (ms, the largest difference to the
+float64 transfer over its own selections), each of the forward's three
+grouped ball-query launches and each distinct flat case (ms, bounds and
+their sums); the posed and canonical train steps (frames/s, device ms,
+the same kernels' device ms per step, the PE backward's and the
+scatter-add's), the PE backward at each of its six shapes and its dtable
+half, and the scatter-add at each of its 11 shapes beside one
+`index_add_`, on inputs recorded from the steps; the ptxas lines of the
+chain, GCN, K-NN and ball-query kernels; one JSON line.
 `--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
 this one in turns, parent, change, change, parent, so that two checkouts
 are compared in one run on one card, and prints the means (per shape: ms
@@ -465,12 +479,14 @@ def by_case(rows):
 
 def print_launch_bounds(label, rows, launches_per_row=1):
     """Print each case's count and bound and the summed bound of the
-    launches of one posed forward; returns the sum (ms)."""
+    launches of one posed forward (a row's `launches`, else
+    `launches_per_row`, each); returns the sum (ms)."""
     total = sum(r["bound_ms"] for r in rows)
     for case, (row, count) in by_case(rows).items():
         print(f"{label} {case}: x{count}, bound {row['bound_ms']:.4f} ms each", flush=True)
-    print(f"{label}: {len(rows) * launches_per_row} launches per posed forward, "
-          f"summed bound {total:.4f} ms", flush=True)
+    launches = sum(r.get("launches", launches_per_row) for r in rows)
+    print(f"{label}: {launches} launches per posed forward, summed bound {total:.4f} ms",
+          flush=True)
     return total
 
 
@@ -649,6 +665,184 @@ def check_kernels(recon, pcd, res: Results):
     chain_case("garment_sa2.mlp1", model.garment_sa2, g_xyz, g_feat, 1)
 
 
+def knn_plain_selection(d2, k):
+    """The plain version's fp32 selection of each row's k nearest (every
+    entry below the k-th smallest bit pattern, then ties in index order):
+    (B, Vg, N) bool."""
+    from garment4d_tpu_torch.models import skinning
+
+    bits = d2.clamp_min(0.0).view(torch.int32)
+    t = skinning._kth_smallest_bits(bits, k)
+    below, tie = bits < t, bits == t
+    extra = k - below.sum(-1, keepdim=True)
+    return below | (tie & (torch.cumsum(tie, -1) <= extra))
+
+
+@torch.inference_mode()
+def knn_selection(garment, body, k, k64):
+    """The K-NN kernel's own selections of k and k64 neighbours, read back
+    through its output: on one-hot w0 blocks of 32 body points it returns
+    each point's normalised weight, nonzero where the point is selected
+    and its 1/d^2 finite (a row whose selected points all lie at distance
+    0 is NaN, and reads as none): (2, B, Vg, N) bool."""
+    from garment4d_tpu_torch.models import skinning
+
+    (B, Vg, _), N, dev = garment.shape, body.shape[1], garment.device
+    sel = torch.zeros(2, B, Vg, N, dtype=torch.bool, device=dev)
+    eye = torch.eye(32, device=dev)
+    for n0 in range(0, N, 32):
+        J = min(32, N - n0)
+        onehot = torch.zeros(B, N, J, device=dev)
+        onehot[:, n0:n0 + J] = eye[:J, :J]
+        for i, q in enumerate(skinning._knn_transfer_kernel(garment, body, onehot, k, k64)[:2]):
+            sel[i, :, :, n0:n0 + J] = (q != 0) & ~torch.isnan(q)
+    return sel
+
+
+@torch.inference_mode()
+def knn_float64(garment, body, w0, sel):
+    """The transfer over the selection `sel` (B, Vg, N) in float64: 1/d^2
+    from the fp32 coordinates, infs zeroed, normalised, infs zeroed again,
+    contracted with w0."""
+    from garment4d_tpu_torch.models import skinning
+    from garment4d_tpu_torch.ops.pointcloud import pairwise_sqdist
+
+    p, w64 = body.double(), w0.double()
+    outs = []
+    for v0 in range(0, garment.shape[1], 500):
+        d2 = pairwise_sqdist(garment[:, v0:v0 + 500].double(), p)
+        w = torch.where(sel[:, v0:v0 + 500], 1.0 / d2, torch.zeros_like(d2))
+        outs.append(torch.einsum("bvn,bnj->bvj", skinning._normalize_inf_zeroed(w), w64))
+    return torch.cat(outs, 1)
+
+
+@torch.inference_mode()
+def knn_float64_err(garment, body, w0, k, k64, outs):
+    """The kernel's (outk, out64) against the float64 transfer given the
+    kernel's own selections: (largest difference, whether both are within
+    KNN_TOL of it, the selections). A row whose selected points all lie at
+    distance 0 is NaN in both."""
+    sel = knn_selection(garment, body, k, k64)
+    refs = [knn_float64(garment, body, w0, s) for s in sel]
+    err = max(float((o.double() - r).abs().nan_to_num(0.0).max()) for o, r in zip(outs, refs))
+    ok = all(torch.allclose(o.double(), r, **KNN_TOL, equal_nan=True)
+             for o, r in zip(outs, refs))
+    return err, ok, sel
+
+
+@torch.inference_mode()
+def check_knn(label, args, res: Results):
+    """The K-NN transfer on one recorded call's inputs: the 1-NN bitwise
+    the plain version's; the kernel's selections those of the plain
+    version wherever 1/d^2 is finite (elsewhere a point weighs 0 either
+    way); the weights within KNN_TOL of the plain version and of the
+    float64 transfer over the kernel's selections; timed."""
+    from garment4d_tpu_torch.models import skinning
+    from garment4d_tpu_torch.ops.pointcloud import pairwise_sqdist
+
+    garment, body, w0, k, k64 = (a.contiguous() if torch.is_tensor(a) else a for a in args)
+    kk, k6, ki = skinning._knn_transfer_kernel(garment, body, w0, k, k64)
+    pk, p6, pi = skinning._knn_transfer_plain(garment, body, w0, k, k64)
+    require(torch.equal(ki, pi), f"K-NN {label}: 1-NN indices differ from the plain version")
+    err64, ok64, sel = knn_float64_err(garment, body, w0, k, k64, (kk, k6))
+    d2 = pairwise_sqdist(garment, body)
+    finite = torch.isfinite(1.0 / d2)
+    for s, kn in zip(sel, (k, k64)):
+        differ = int(((s ^ knn_plain_selection(d2, kn)) & finite).sum())
+        require(differ == 0, f"K-NN {label}: {differ} selections of k={kn} differ from the "
+                f"plain version's")
+    del sel, d2, finite
+    err = max(max_abs(kk, pk), max_abs(k6, p6))
+    print(f"K-NN {label}: selections equal the plain version's; max abs err {err:.3e} to "
+          f"plain, {err64:.3e} to float64", flush=True)
+    require(torch.allclose(kk, pk, **KNN_TOL) and torch.allclose(k6, p6, **KNN_TOL),
+            f"K-NN {label}: max abs err {err} beyond {KNN_TOL}")
+    require(ok64, f"K-NN {label}: max abs err {err64} to float64 beyond {KNN_TOL}")
+    Bk, Vg, _ = garment.shape
+    J = w0.shape[-1]
+    res.record("knn_transfer", f"{label} ({Bk}, {Vg}) vs {body.shape[1]}, K={k}, K64={k64}, "
+               f"J={J}", err,
+               lambda: skinning._knn_transfer_kernel(garment, body, w0, k, k64),
+               lambda: skinning._knn_transfer_plain(garment, body, w0, k, k64),
+               nbytes(garment, body, w0, kk, k6, ki),
+               10.0 * Bk * Vg * body.shape[1] + 2.0 * Bk * Vg * (k + k64) * J,
+               err_float64=err64)
+
+
+def query_launches(calls, grouped):
+    """One row per recorded ball-query wrapper call of a forward (flat:
+    one launch per two radii; grouped: one launch for up to three): its
+    case, arguments, launches and summed bound (the distance tests this
+    run's early exits need, 8 operations each and one per radius)."""
+    rows = []
+    step = 3 if grouped else 2
+    for args, _, outs in calls:
+        radii, nsamples, xyz, new_xyz = args[:4]
+        Bq, Nq = xyz.shape[:2]
+        n_scan = args[4] if grouped else torch.full((Bq,), Nq, device=xyz.device)
+        ops = sum((8.0 + len(outs[i:i + step])) * scan_tests(outs[i:i + step], n_scan)
+                  for i in range(0, len(outs), step))
+        nb = nbytes(xyz, new_xyz, *outs) + (nbytes(n_scan) if grouped else 0)
+        b_ms, b_by = bound(nb, ops)
+        case = (f"({Bq}, {Nq}{' compacted' if grouped else ''}) x {new_xyz.shape[1]}, r "
+                f"{'/'.join(f'{r:g}' for r in radii)}, S {'/'.join(map(str, nsamples))}")
+        rows.append(dict(case=case, args=args, nbytes=nb, ops=ops, bound_ms=b_ms, bound_by=b_by,
+                         launches=-(-len(radii) // step)))
+    return rows
+
+
+def fps_launches(calls):
+    """One row per recorded FPS launch of a forward: its case and bound."""
+    rows = []
+    for (xyz, npoint), _, out in calls:
+        Bf, Nf = xyz.shape[:2]
+        ops = 10.0 * Bf * Nf * (npoint - 1)
+        b_ms, b_by = bound(nbytes(xyz, out), ops)
+        rows.append(dict(case=f"({Bf}, {Nf}) -> {npoint}", args=(xyz, npoint), bound_ms=b_ms,
+                         bound_by=b_by, launches=1, ops=ops, nbytes=nbytes(xyz, out)))
+    return rows
+
+
+@torch.inference_mode()
+def check_forward_queries(fcalls, bcalls, gcalls, res: Results):
+    """The FPS, flat and grouped ball-query launches of one posed forward,
+    recorded with their inputs: summed bounds printed; each grouped launch,
+    and each distinct FPS and flat-query case, bitwise its plain version
+    and timed. Returns the summed bounds (ms)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    fps, flat, grouped = fps_launches(fcalls), query_launches(bcalls, False), \
+        query_launches(gcalls, True)
+    sums = dict(fps=print_launch_bounds("fps", fps),
+                ball_query=print_launch_bounds("ball_query", flat),
+                ball_query_grouped=print_launch_bounds("ball_query_grouped", grouped))
+    for case, (row, count) in by_case(fps).items():
+        xyz, npoint = row["args"]
+        k = pc._fps_kernel(xyz, npoint)
+        require(torch.equal(k, pc._fps_plain(xyz, npoint)), f"fps {case} differs from plain")
+        res.record("fps", f"posed forward {case} x{count}", 0,
+                   lambda: pc._fps_kernel(xyz, npoint), lambda: pc._fps_plain(xyz, npoint),
+                   row["nbytes"], row["ops"], reps_k=5, reps_p=1, launches_per_forward=count)
+    for name, rows, every in (("ball_query", flat, False), ("ball_query_grouped", grouped, True)):
+        groups = [(r["case"], (r, 1)) for r in rows] if every else by_case(rows).items()
+        for i, (case, (row, count)) in enumerate(groups):
+            args = row["args"]
+            radii, nsamples, xyz, new_xyz = args[:4]
+            n_valid = args[4] if every else None
+            kernel = pc._ball_query_grouped_kernel if every else pc._ball_query_kernel
+
+            def plain():
+                return [pc._ball_query_plain(r, s, xyz, new_xyz, n_valid)
+                        for r, s in zip(radii, nsamples)]
+
+            require(all(torch.equal(a, b) for a, b in zip(kernel(*args), plain())),
+                    f"{name} {case}: indices differ from the plain version")
+            label = f"posed forward launch {i}: {case}" if every else f"posed forward {case} x{count}"
+            res.record(name, label, 0, lambda: kernel(*args), plain, row["nbytes"], row["ops"],
+                       reps_p=1, launches_per_forward=count * row["launches"])
+    return sums
+
+
 @torch.inference_mode()
 def check_posed_kernels(recon, pcd, body_in, res: Results):
     """The posed stage's kernels against their plain versions, on inputs
@@ -658,12 +852,17 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
     from garment4d_tpu_torch.ops import pemax, pointcloud as pc
 
     with recording(ops, "query_group_pe_multi") as qcalls, \
-            recording(skinning, "knn_transfer") as kcalls:
+            recording(skinning, "knn_transfer") as kcalls, \
+            recording(pc, "_fps_kernel") as fcalls, \
+            recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_ball_query_grouped_kernel") as gcalls:
         got, handles = capture_inputs(recon.model, ["garment_pe2"])
         recon.posed(pcd, body_in)
         for h in handles:
             h.remove()
     torch.cuda.synchronize()
+    sums = check_forward_queries(fcalls, bcalls, gcalls, res)
+    del fcalls[:], bcalls[:], gcalls[:]
 
     # coverage: body (80, 6890) x the 2000 garment vertices, r = 0.4
     radii, nsamples, xyz, centers, feats, pe_params = qcalls[0][0]
@@ -690,16 +889,6 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
     print(f"iteration-0 body query: cap {cap}, covered points per frame "
           f"min {int(counts.min())} max {int(counts.max())}, overflow {overflow}")
     qk = pc._ball_query_grouped_kernel(radii, nsamples, table, centers, counts)
-    for a, rr, s in zip(qk, radii, nsamples):
-        require(torch.equal(a, pc._ball_query_plain(rr, s, table, centers, counts)),
-                "grouped ball query indices differ from the plain version")
-    res.record("ball_query_grouped",
-               f"body ({F}, {table.shape[1]} compacted) x {M}, r .1/.2/.4, S 8/16/32", 0,
-               lambda: pc._ball_query_grouped_kernel(radii, nsamples, table, centers, counts),
-               lambda: [pc._ball_query_plain(rr, s, table, centers, counts)
-                        for rr, s in zip(radii, nsamples)],
-               nbytes(table, centers, counts, *qk),
-               (8.0 + len(radii)) * scan_tests(qk, counts))
 
     # PE blocks on the chain kernel: body pe2 (S=32), garment pe2 (split)
     def pe_case(case, tbl, idx, ctr, k0, b0, k1, b1):
@@ -740,21 +929,9 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
     pe_case("garment pe2 (split)", g_tbl, g_idx, g_ctr.contiguous(), kfull, b0, k1, b1)
 
     # K-NN transfer: 8 x 2000 garment vertices vs 6890 T-pose body points
-    garment, body, w0, k, k64 = (a.contiguous() if torch.is_tensor(a) else a
-                                 for a in kcalls[0][0])
-    kk, k6, ki = skinning._knn_transfer_kernel(garment, body, w0, k, k64)
-    pk, p6, pi = skinning._knn_transfer_plain(garment, body, w0, k, k64)
-    require(torch.equal(ki, pi), "K-NN 1-NN indices differ from the plain version")
-    err = max((kk - pk).abs().max().item(), (k6 - p6).abs().max().item())
-    require(torch.allclose(kk, pk, **KNN_TOL) and torch.allclose(k6, p6, **KNN_TOL),
-            f"K-NN transfer weights: max abs err {err} beyond {KNN_TOL}")
-    Bk, Vg, _ = garment.shape
-    J = w0.shape[-1]
-    res.record("knn_transfer", f"({Bk}, {Vg}) vs {body.shape[1]}, K={k}, K64={k64}, J={J}", err,
-               lambda: skinning._knn_transfer_kernel(garment, body, w0, k, k64),
-               lambda: skinning._knn_transfer_plain(garment, body, w0, k, k64),
-               nbytes(garment, body, w0, kk, k6, ki),
-               10.0 * Bk * Vg * body.shape[1] + 2.0 * Bk * Vg * (k + k64) * J)
+    check_knn("posed forward", kcalls[0][0], res)
+    sums["knn_transfer"] = res.cases["knn_transfer"][-1]["bound_ms"]
+    return sums
 
 
 def rel_l2(a, b) -> float:
@@ -1130,6 +1307,7 @@ def train_phase(assets, body, weights, res: Results):
     from garment4d_tpu_torch import ops
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.models import skinning
     from garment4d_tpu_torch.ops import graph, pemax, pointcloud as pc
     from garment4d_tpu_torch.train import make_posed_steps, make_state_for
 
@@ -1153,6 +1331,7 @@ def train_phase(assets, body, weights, res: Results):
     with recording(pc, "_nn1_kernel") as nn1_calls, \
             recording(graph, "_banded_kernel") as banded_calls, \
             recording(pemax, "_pe_bwd_kernel") as pe_calls, \
+            recording(skinning, "knn_transfer") as knn_calls, \
             recording(model, "refine") as steps:
         losses, launches = counted("train", lambda: train_step(state, batch), POSED_TRAIN_KERNELS)
     for name, n in TRAIN_LAUNCHES.items():
@@ -1175,7 +1354,8 @@ def train_phase(assets, body, weights, res: Results):
 
     failed = check_train_kernels(dict(nn1=nn1_calls, banded=banded_calls, pe_bwd=pe_calls),
                                  res)
-    del nn1_calls[:], banded_calls[:], pe_calls[:]
+    check_knn("posed train step", knn_calls[0][0], res)
+    del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:]
 
     # the plain path from the same weights and batch, its backward included
     ops.reset_counts()
@@ -1436,12 +1616,24 @@ def counted(label, fn, names):
 # device kernel names (torch.profiler) of the redesigned kernels in either
 # checkout of an A/B run: the PE backward's per-block pass and ordered sum,
 # the scatter-add's single tiled kernel (the earlier design) or its sort and
-# segmented sum, the chain kernel, the GCN layer kernels
+# segmented sum, the chain kernel, the GCN layer kernels, the K-NN transfer,
+# the grouped ball query (the flat query's 3-radius instance in the earlier
+# design, its own kernel since), the flat ball query, FPS
 AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                    "scatter_add": ("scatter_add_kernel", "scatter_sort_kernel",
                                    "segment_sum_kernel"),
                    "fused_chain": ("fused_chain",),
-                   "gcn_stack": ("gcn_",)}
+                   "gcn_stack": ("gcn_",),
+                   "knn_transfer": ("knn_transfer",),
+                   "ball_query_grouped": ("ball_query_kernel<3>", "ball_query_grouped"),
+                   "ball_query": ("ball_query_kernel<1>", "ball_query_kernel<2>"),
+                   "fps": ("fps_kernel",)}
+
+
+# the kernels whose device ms per posed forward and per posed train step
+# `--time-kernels` reports
+TIMED_KERNELS = ("fused_chain", "gcn_stack", "knn_transfer", "ball_query_grouped", "ball_query",
+                 "fps")
 
 
 def device_ms_of(rows, names) -> float:
@@ -1511,6 +1703,47 @@ def time_chain_gcn(recon, pcd, body_in) -> dict:
     return out
 
 
+@torch.inference_mode()
+def time_knn(label, args) -> dict:
+    """The K-NN transfer on one recorded call's inputs: ms (CUDA events,
+    mean of 20), the largest difference to the float64 transfer over the
+    kernel's own selections, the bound."""
+    from garment4d_tpu_torch.models import skinning
+
+    garment, body, w0, k, k64 = (a.contiguous() if torch.is_tensor(a) else a for a in args)
+    outs = skinning._knn_transfer_kernel(garment, body, w0, k, k64)
+    err64 = knn_float64_err(garment, body, w0, k, k64, outs[:2])[0]
+    (Bk, Vg, _), Nb, J = garment.shape, body.shape[1], w0.shape[-1]
+    return dict(case=f"{label} ({Bk}, {Vg}) vs {Nb}, K={k}, K64={k64}, J={J}", err_float64=err64,
+                ms=cuda_ms(lambda: skinning._knn_transfer_kernel(garment, body, w0, k, k64), 20),
+                bound_ms=bound(nbytes(garment, body, w0, *outs),
+                               10.0 * Bk * Vg * Nb + 2.0 * Bk * Vg * (k + k64) * J)[0])
+
+
+@torch.inference_mode()
+def time_queries(bcalls, gcalls) -> dict:
+    """The ball-query launches of one posed forward on their recorded
+    inputs (CUDA events, mean of 20): each grouped launch, each distinct
+    flat case (a wrapper call, one launch per two radii), the sums over the
+    forward and the summed bounds."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    grouped, flat = query_launches(gcalls, True), query_launches(bcalls, False)
+    out = dict(ball_query_grouped=[], ball_query=[])
+    for i, row in enumerate(grouped):
+        out["ball_query_grouped"].append(dict(
+            case=f"launch {i}: {row['case']}", bound_ms=row["bound_ms"],
+            ms=cuda_ms(lambda: pc._ball_query_grouped_kernel(*row["args"]), 20)))
+    for case, (row, count) in by_case(flat).items():
+        out["ball_query"].append(dict(
+            case=case, calls=count, launches=count * row["launches"], bound_ms=row["bound_ms"],
+            ms=cuda_ms(lambda: pc._ball_query_kernel(*row["args"]), 20)))
+    for key, rows in (("ball_query_grouped", grouped), ("ball_query", flat)):
+        out[f"{key}_bound_ms_sum"] = sum(r["bound_ms"] for r in rows)
+        out[f"{key}_ms_sum"] = sum(c["ms"] * c.get("calls", 1) for c in out[key])
+    return out
+
+
 def time_kernels(root: Path) -> int:
     """The redesigned kernels and the paths that run them, for the package
     in the checkout at `root`: the posed forward (median of 10 after 2
@@ -1528,7 +1761,7 @@ def time_kernels(root: Path) -> int:
     import garment4d_tpu_torch
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
-    from garment4d_tpu_torch.models import CanonicalGarmentModel, GarmentAssets
+    from garment4d_tpu_torch.models import CanonicalGarmentModel, GarmentAssets, skinning
     from garment4d_tpu_torch.ops import pemax, pointcloud as pc
     from garment4d_tpu_torch.smpl import synthetic_smpl
     from garment4d_tpu_torch.train import (load_npz_subtree, make_canonical_steps,
@@ -1548,15 +1781,25 @@ def time_kernels(root: Path) -> int:
     recon = GarmentReconstructor.from_npz(assets, body, weights, device=dev)
     step_s = wall_s(lambda: recon.posed(pcd, body_in), runs=10, warmup=2)
     rows, dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
-    names = AB_KERNEL_NAMES["fused_chain"] + AB_KERNEL_NAMES["gcn_stack"]
+    names = sum((AB_KERNEL_NAMES[k] for k in TIMED_KERNELS), ())
     out.update(posed_frames_per_sec=F / step_s, posed_device_ms=dev_ms,
                chain_device_ms_per_forward=device_ms_of(rows, AB_KERNEL_NAMES["fused_chain"]),
                gcn_device_ms_per_forward=device_ms_of(rows, AB_KERNEL_NAMES["gcn_stack"]),
+               posed_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
+                                          for k in TIMED_KERNELS},
                posed_kernel_rows=[(ms, n, name[:90]) for ms, n, name in rows
                                   if any(k in name for k in names)])
     _, out["canonical_device_ms"] = profile_device(lambda: recon.canonical(pcd), runs=2)
     out.update(time_chain_gcn(recon, pcd, body_in))
-    out["ptxas"] = ptxas_lines(("fused_chain", "gcn_"))
+    with recording(skinning, "knn_transfer") as kcalls, \
+            recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_ball_query_grouped_kernel") as gcalls:
+        recon.posed(pcd, body_in)
+    torch.cuda.synchronize()
+    out.update(time_queries(bcalls, gcalls))
+    out["knn"] = [time_knn("posed forward", kcalls[0][0])]
+    del kcalls, bcalls, gcalls
+    out["ptxas"] = ptxas_lines(("fused_chain", "gcn_", "knn_transfer", "ball_query"))
     del recon, batch, pcd, body_in
     torch.cuda.empty_cache()
 
@@ -1564,12 +1807,17 @@ def time_kernels(root: Path) -> int:
     model = GarmentReconstructor.from_npz(assets, body, weights, device=dev).model
     state = make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
     train_step, _ = make_posed_steps(model, assets, body.faces)
-    with recording(pemax, "_pe_bwd_kernel") as calls:
+    with recording(pemax, "_pe_bwd_kernel") as calls, \
+            recording(skinning, "knn_transfer") as kcalls:
         train_step(state, batch)
     step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
     out.update(posed_train_frames_per_sec=TRAIN_F / step_s, posed_train_device_ms=dev_ms,
-               pe_bwd_device_ms_per_step=device_ms_of(rows, AB_KERNEL_NAMES["pe_bwd"]))
+               pe_bwd_device_ms_per_step=device_ms_of(rows, AB_KERNEL_NAMES["pe_bwd"]),
+               posed_train_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
+                                                for k in TIMED_KERNELS})
+    out["knn"].append(time_knn("posed train step", kcalls[0][0]))
+    del kcalls
     shapes = {}
     for a, _, _ in calls:
         shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
@@ -1651,9 +1899,18 @@ def ab(parent: Path) -> int:
                 "canonical_train_frames_per_sec", "canonical_train_device_ms",
                 "scatter_add_device_ms_per_step", "pe_bwd_dtable_ms", "dtable_scatter_ms"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
-    for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum"):
+    for path in ("posed", "posed_train"):
+        for k in TIMED_KERNELS:
+            summary[f"{path} {k} device_ms"] = {
+                lab: mean(lab, lambda r: r[f"{path}_device_ms_by_kernel"][k])
+                for lab in ("parent", "change")}
+    for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum"):
+        summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
+    for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum", "ball_query_grouped_bound_ms_sum",
+                "ball_query_bound_ms_sum"):
         summary[key] = {"bound": runs[1][1][key]}
-    for kernel in ("chain", "gcn", "pe_bwd", "scatter_add"):
+    for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
+                   "ball_query"):
         for i, case in enumerate(runs[0][1][kernel]):
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
                    for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
@@ -1718,8 +1975,8 @@ def main() -> int:
     # ---- 2. per kernel -----------------------------------------------------
     res = Results()
     check_kernels(recon, pcd, res)
-    check_posed_kernels(recon, pcd, body_in, res)
-    bound_sums = check_chain_gcn(recon, pcd, body_in, res)
+    bound_sums = check_posed_kernels(recon, pcd, body_in, res)
+    bound_sums.update(check_chain_gcn(recon, pcd, body_in, res))
 
     # ---- 3. canonical path -------------------------------------------------
     canonical_names = [k for k, v in KERNELS.items() if v[2] == "canonical"]
@@ -1756,11 +2013,15 @@ def main() -> int:
     rows, posed_dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
     posed_idle = print_profile("posed", rows, posed_dev_ms, posed_s * 1e3, top=20)
     posed_kernel_ms = {k: device_ms_of(rows, AB_KERNEL_NAMES[k])
-                       for k in ("fused_chain", "gcn_stack")}
+                       for k in ("fused_chain", "gcn_stack", "knn_transfer",
+                                 "ball_query_grouped", "ball_query", "fps")}
     print(f"posed forward device ms per forward: chain kernel {posed_kernel_ms['fused_chain']:.4f} "
           f"(summed bound {bound_sums['chain']:.4f}), GCN layer kernels "
           f"{posed_kernel_ms['gcn_stack']:.4f} (summed bound {bound_sums['gcn']:.4f})",
           flush=True)
+    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "fps"):
+        print(f"posed forward device ms per forward: {k} {posed_kernel_ms[k]:.4f} in "
+              f"{launches.get(k, 0)} launches (summed bound {bound_sums[k]:.4f})", flush=True)
 
     # one sequence against the plain path on the CPU; the plain path on the
     # card beside it shows how far fp32 rounding alone moves the result
@@ -1875,6 +2136,7 @@ def main() -> int:
         "posed_chain_summed_bound_ms": bound_sums["chain"],
         "posed_gcn_device_ms": posed_kernel_ms["gcn_stack"],
         "posed_gcn_summed_bound_ms": bound_sums["gcn"],
+        "posed_kernel_device_ms": posed_kernel_ms, "posed_summed_bound_ms": bound_sums,
         "canonical_frames_per_sec": F / canon_s,
         "canonical_plain_frames_per_sec": F / canon_plain_s,
         "canonical_device_ms_per_forward": canon_dev_ms, "canonical_idle_share": canon_idle,

@@ -8,7 +8,8 @@ to every frame; the 100-step weight smoothing is one precomputed dense
 operator.
 
 The K-NN weight transfer is one op: a CUDA tensor launches the kernel
-`ops/csrc/knn_transfer.cu`; a CPU tensor (or any tensor inside
+`ops/csrc/knn_transfer.cu` (a radix select per vertex, planned by
+`_knn_plan`); a CPU tensor (or any tensor inside
 `ops.plain_ops()`) runs `_knn_transfer_plain`, the JAX package's XLA
 formulation (a K-th-smallest threshold by bisection on the f32 bit
 patterns, index-ordered ties, a masked matmul).
@@ -16,6 +17,7 @@ patterns, index-ordered ties, a masked matmul).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -90,7 +92,49 @@ def _knn_transfer_plain(garment, body, w0, k: int, k64: int):
     return nn_w_k, nn_w_64, nn1_idx
 
 
-_MAX_ROWS = 8  # garment vertices (one warp each) per block
+# knn_transfer.cu's constants: bits resolved per radix pass, bins of a
+# warp histogram, smallest distances each lane keeps in the first pass
+_KNN_DIGIT_BITS = 8
+_KNN_BINS = 1 << _KNN_DIGIT_BITS
+_KNN_TOP = 8
+_KNN_HEAD = 16                  # the block's vertex counter, one float4
+_KNN_HIST = 2 * _KNN_BINS * 4   # two histograms per warp, bytes
+_KNN_WARPS = 32
+_KNN_MIN_STAGED_WARPS = 8
+# the sizes the op takes: N + 2k <= 58112, one block's shared memory in
+# floats (the kernel's 16-bit list indices need N < 65536)
+_KNN_MAX_ROW = _build.SMEM_LIMIT // 4
+
+
+@functools.lru_cache(maxsize=64)
+def _knn_plan(B: int, Vg: int, N: int, J: int, k: int, k64: int, sms: int) -> dict:
+    """The launch plan of knn_transfer.cu on `sms` SMs; raises ValueError
+    for shapes the kernel does not take. The body is staged in shared
+    memory (16 bytes a point) where that leaves room for at least
+    _KNN_MIN_STAGED_WARPS warps, each with its two histograms and a
+    candidate list of at least min(N, 2k) 16-bit indices; else it is read
+    through L1 by 32 warps. The rest of the shared memory lengthens the
+    lists (`cap` entries, a multiple of 32). One block per SM: `per_b`
+    blocks per batch element, each over `chunk` consecutive garment
+    vertices. `passes` is the most histogram passes a threshold takes."""
+    if not 1 <= k64 <= k <= N or not 1 <= J <= 32:
+        raise ValueError(f"knn_transfer: need 1 <= k64 <= k <= N and J <= 32 "
+                         f"(k={k}, k64={k64}, N={N}, J={J})")
+    if N + 2 * k > _KNN_MAX_ROW:
+        raise ValueError(f"knn_transfer: N={N}, k={k} exceed the kernel's limit "
+                         f"N + 2k <= {_KNN_MAX_ROW}")
+    want = -(-min(N, 2 * k) // 32) * 32
+    avail = _build.SMEM_LIMIT - _KNN_HEAD - 16 * N
+    warps = min(_KNN_WARPS, max(0, avail) // (_KNN_HIST + 2 * want))
+    staged = warps >= _KNN_MIN_STAGED_WARPS
+    if not staged:
+        avail, warps = _build.SMEM_LIMIT - _KNN_HEAD, _KNN_WARPS
+    cap = min((avail // warps - _KNN_HIST) // 2 // 32 * 32, -(-N // 32) * 32)
+    per_b = max(1, min(sms // max(B, 1), -(-Vg // warps)))
+    chunk = -(-Vg // per_b)
+    return dict(staged=staged, warps=warps, cap=cap, chunk=chunk, per_b=-(-Vg // chunk),
+                smem=_KNN_HEAD + (16 * N if staged else 0) + warps * (_KNN_HIST + 2 * cap),
+                bins=_KNN_BINS, passes=-(-31 // _KNN_DIGIT_BITS))
 
 
 def _knn_transfer_kernel(garment, body, w0, k: int, k64: int):
@@ -105,16 +149,8 @@ def _knn_transfer_kernel(garment, body, w0, k: int, k64: int):
             or w0.shape[:2] != (B, N)):
         raise ValueError(f"knn_transfer: garment {tuple(garment.shape)}, body "
                          f"{tuple(body.shape)}, w0 {tuple(w0.shape)}")
-    if not 1 <= k64 <= k <= N or not 1 <= J <= 32:
-        raise ValueError(f"knn_transfer: need 1 <= k64 <= k <= N and J <= 32 "
-                         f"(k={k}, k64={k64}, N={N}, J={J})")
-    # per row: N distance bit patterns + k (index, weight) selection slots
-    row_bytes = (N + 2 * k) * 4
-    rows = min(_MAX_ROWS, _build.SMEM_TWO_BLOCKS // row_bytes) or min(
-        _MAX_ROWS, _build.SMEM_LIMIT // row_bytes)
-    if rows == 0:
-        raise ValueError(f"knn_transfer: N={N}, k={k} exceed the kernel's "
-                         f"shared memory")
+    plan = _knn_plan(B, Vg, N, J, k, k64,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
     outk = torch.empty((B, Vg, J), dtype=torch.float32, device=dev)
     out64 = torch.empty((B, Vg, J), dtype=torch.float32, device=dev)
     nn1 = torch.empty((B, Vg, 1), dtype=torch.int32, device=dev)
@@ -122,8 +158,9 @@ def _knn_transfer_kernel(garment, body, w0, k: int, k64: int):
     _build.launch_counts["knn_transfer"] += 1
     _build.check(lib.g4d_knn_transfer(
         garment.data_ptr(), body.data_ptr(), w0.data_ptr(), B, Vg, N, J, k,
-        k64, rows, rows * row_bytes, outk.data_ptr(), out64.data_ptr(),
-        nn1.data_ptr(), _build.stream_of(garment)), "knn_transfer")
+        k64, int(plan["staged"]), plan["warps"], plan["cap"], plan["chunk"], plan["smem"],
+        outk.data_ptr(), out64.data_ptr(), nn1.data_ptr(), _build.stream_of(garment)),
+        "knn_transfer")
     return outk, out64, nn1
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -342,6 +343,30 @@ def _ball_query_kernel(radii, nsamples, xyz: torch.Tensor,
 
 
 _MAX_GROUPED_RADII = 3
+# ball_query.cu's grouped kernel: warps per block (one center each at a
+# time), rows a warp tests per step, rows staged in shared memory at most
+# (two blocks' share of an SM, as float4s; later rows are read through
+# L1), waves of two blocks per SM aimed at
+_GROUPED_WARPS = 16
+_GROUPED_STEP = 128
+_GROUPED_ROWS = _build.SMEM_TWO_BLOCKS // 16
+_GROUPED_WAVES = 4
+
+
+@functools.lru_cache(maxsize=64)
+def _grouped_plan(B: int, N: int, M: int, nsamples: tuple, sms: int) -> dict:
+    """The grouped query's launch plan on `sms` SMs; raises ValueError for
+    radius counts the kernel does not take. `blocks` per frame, enough for
+    _GROUPED_WAVES waves of two blocks per SM over the B frames but no more
+    than gives each warp a center, each walking the frame's centers
+    blocks apart; `rows` rows staged (N rounded up to whole steps of
+    _GROUPED_STEP rows, at most _GROUPED_ROWS; smem bytes)."""
+    if not 1 <= len(nsamples) <= _MAX_GROUPED_RADII or any(s < 1 for s in nsamples):
+        raise ValueError(f"ball_query_grouped: nsamples {nsamples} (1..{_MAX_GROUPED_RADII} "
+                         f"radii)")
+    rows = min(-(-N // _GROUPED_STEP) * _GROUPED_STEP, _GROUPED_ROWS)
+    blocks = max(1, min(-(-_GROUPED_WAVES * 2 * sms // max(B, 1)), -(-M // _GROUPED_WARPS)))
+    return dict(warps=_GROUPED_WARPS, rows=rows, smem=16 * rows, blocks=blocks)
 
 
 def _ball_query_grouped_kernel(radii, nsamples, xyz: torch.Tensor,
@@ -356,9 +381,10 @@ def _ball_query_grouped_kernel(radii, nsamples, xyz: torch.Tensor,
         raise ValueError(f"ball_query_grouped: xyz {tuple(xyz.shape)}, new_xyz "
                          f"{tuple(new_xyz.shape)}, n_valid {tuple(n_valid.shape)}")
     R = len(radii)
-    if not 1 <= R <= _MAX_GROUPED_RADII or any(s < 1 for s in nsamples):
-        raise ValueError(f"ball_query_grouped: radii {radii}, nsamples {nsamples} "
-                         f"(1..{_MAX_GROUPED_RADII} radii)")
+    if len(nsamples) != R:
+        raise ValueError(f"ball_query_grouped: radii {radii}, nsamples {nsamples}")
+    plan = _grouped_plan(B, N, M, tuple(nsamples),
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
     outs = [torch.empty((B, M, s), dtype=torch.int32, device=dev) for s in nsamples]
     args = []
     for i in range(_MAX_GROUPED_RADII):
@@ -370,7 +396,8 @@ def _ball_query_grouped_kernel(radii, nsamples, xyz: torch.Tensor,
     _build.launch_counts["ball_query_grouped"] += 1
     _build.check(lib.g4d_ball_query_grouped(
         xyz.data_ptr(), new_xyz.data_ptr(), n_valid.data_ptr(), B, N, M, R,
-        *args, _build.stream_of(xyz)), "ball_query_grouped")
+        *args, plan["blocks"], plan["warps"], plan["rows"], _build.stream_of(xyz)),
+        "ball_query_grouped")
     return tuple(outs)
 
 

@@ -21,7 +21,14 @@ C = 3, 5 and 128 and their transposes, PE backwards with padded S (1, 4,
 tables up to 387 wide, with and without their dtable half, scatter-adds
 with every row or 90% of them into one index, ragged R, R = 0, C from 1 to
 1024, one output row, more output rows than the sort's counts in shared
-memory hold, and out-of-range indices, and the valid-count PE call's flag.
+memory hold, and out-of-range indices, the valid-count PE call's flag;
+K-NN transfers with distances on both sides of every radix digit's bin
+edge, all equal, k = N, k64 = k or 1, N < 32, bodies past the staged
+size (20000 points, and N + 2k at its limit), J = 1 and 32, and the
+kernel's own selections read back against the plain version's; grouped
+queries with every row in radius, no hit, rows at r, hits and sentinels
+past n_valid, fewer valid rows than S, 1 to 2000 centers, and a table
+longer than a block stages.
 Indices, masks, the 1-NN, the banded product and the scatter-add (against
 the CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
 stack and the PE backward's dcenters agree within rtol 1e-4 / atol 1e-5,
@@ -394,6 +401,166 @@ def test_knn_transfer(dev, k, k64, J):
     torch.testing.assert_close(kk, pk, **KNN_TOL)
     torch.testing.assert_close(k6, p6, **KNN_TOL)
     assert torch.isfinite(kk).all()
+
+
+def edge_distances():
+    """Squared distances at powers of two and one and two ulps around them,
+    each six times: ties, and values on both sides of every digit boundary
+    that a radix pass over the exponent bits can draw."""
+    vals = [np.float32(2.0 ** e) * np.float32(1 + d * 2.0 ** -23)
+            for e in range(-6, 2) for d in (-2, -1, 0, 1)]
+    return np.array(vals * 6, np.float32)
+
+
+def knn_edge_case(case):
+    """(garment, body, w0, [(k, k64), ...]) on the CPU for one edge case."""
+    g = torch.Generator().manual_seed(15)
+    if case == "bin edges":
+        d2 = edge_distances()
+        body = torch.zeros(1, len(d2), 3)
+        body[0, :, 0] = torch.from_numpy(np.sqrt(d2.astype(np.float64)).astype(np.float32))
+        garment = torch.zeros(1, 3, 3)
+        garment[0, 1:, 0] = body[0, 7, 0]  # on a body point, and on its six copies
+        return garment, body, torch.rand(1, len(d2), 24, generator=g), [
+            (5, 4), (17, 4), (64, 64), (100, 33), (len(d2), 1)]
+    if case == "all equal":
+        body = torch.full((2, 300, 3), 0.5)
+        return torch.rand(2, 9, 3, generator=g), body, torch.rand(2, 300, 24, generator=g), [
+            (1, 1), (40, 7), (300, 300)]
+    if case == "N < 32":
+        body = torch.rand(2, 20, 3, generator=g)
+        return torch.rand(2, 5, 3, generator=g), body, torch.rand(2, 20, 24, generator=g), [
+            (1, 1), (7, 3), (20, 20), (20, 1)]
+    if case in ("J = 1", "J = 32"):
+        body = torch.rand(2, 700, 3, generator=g)
+        J = int(case[-2:])
+        return torch.rand(2, 45, 3, generator=g), body, torch.rand(2, 700, J, generator=g), [
+            (256, 64), (33, 33)]
+    if case == "on body points":
+        base = torch.rand(2, 400, 3, generator=g)
+        body = torch.cat([base, base[:, :50]], 1)  # 50 points twice: two zero distances
+        garment = torch.cat([body[:, :60], body[:, 300:303]], 1)
+        return garment, body, torch.rand(2, 450, 24, generator=g), [(256, 64), (1, 1), (2, 2)]
+    if case == "N >= 20000":  # the body read through L1, not staged
+        body = torch.rand(1, 20000, 3, generator=g)
+        return torch.rand(1, 40, 3, generator=g), body, torch.rand(1, 20000, 24, generator=g), [
+            (256, 64), (512, 512)]
+    if case == "N + 2k at the limit":
+        body = torch.rand(1, 57000, 3, generator=g)
+        return torch.rand(1, 9, 3, generator=g), body, torch.rand(1, 57000, 5, generator=g), [
+            (556, 100)]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["bin edges", "all equal", "N < 32", "J = 1", "J = 32",
+                                  "on body points", "N >= 20000", "N + 2k at the limit"])
+def test_knn_transfer_edges(dev, case):
+    """The radix-select kernel at the shapes and distances its passes and
+    plan must survive (k = N, k64 = k, k64 = 1 among them): the 1-NN
+    bitwise and the weights within KNN_TOL of the plain version."""
+    garment, body, w0, ks = knn_edge_case(case)
+    args = [t.contiguous().to(dev) for t in (garment, body, w0)]
+    for k, k64 in ks:
+        kk, k6, ki = skinning._knn_transfer_kernel(*args, k, k64)
+        pk, p6, pi = skinning._knn_transfer_plain(*args, k, k64)
+        torch.testing.assert_close(ki, pi, rtol=0, atol=0)
+        torch.testing.assert_close(kk, pk, **KNN_TOL, equal_nan=True)
+        torch.testing.assert_close(k6, p6, **KNN_TOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("case,k,k64", [("bin edges", 17, 4), ("bin edges", 100, 33),
+                                        ("on body points", 256, 64), ("all equal", 40, 7)])
+def test_knn_transfer_selection(dev, case, k, k64):
+    """The kernel's own selections, read back through one-hot weights
+    (`chip_smoke.knn_selection`), are exactly the plain version's wherever
+    1/d^2 is finite (a zero distance weighs 0 either way), and its weights
+    lie within KNN_TOL of the float64 transfer over them."""
+    from chip_smoke import knn_float64_err, knn_plain_selection
+
+    garment, body, w0, _ = knn_edge_case(case)
+    garment, body, w0 = (t.contiguous().to(dev) for t in (garment, body, w0))
+    outs = skinning._knn_transfer_kernel(garment, body, w0, k, k64)[:2]
+    _, ok64, sel = knn_float64_err(garment, body, w0, k, k64, outs)
+    d2 = pc.pairwise_sqdist(garment, body)
+    finite = torch.isfinite(1.0 / d2)
+    for s, kn in zip(sel, (k, k64)):
+        assert torch.equal(s & finite, knn_plain_selection(d2, kn) & finite)
+    assert ok64
+
+
+def grouped_check(dev, radii, ns, table, centers, n_valid):
+    """The grouped kernel bitwise the plain version, on the card."""
+    table, centers, n_valid = (t.contiguous().to(dev) for t in (table, centers, n_valid))
+    got = pc._ball_query_grouped_kernel(radii, ns, table, centers, n_valid)
+    for g, r, s in zip(got, radii, ns):
+        torch.testing.assert_close(g, pc._ball_query_plain(r, s, table, centers, n_valid),
+                                   rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("radii,ns", [((0.2,), (8,)), ((0.1, 0.3), (8, 16)),
+                                      ((0.1, 0.2, 0.4), (8, 16, 32))])
+@pytest.mark.parametrize("case", ["all in radius", "no hit", "at r", "past n_valid",
+                                  "S > n_valid", "ragged M"])
+def test_ball_query_grouped_edges(dev, radii, ns, case):
+    """The warp-per-center grouped query against the plain version: every
+    row within every radius (the quotas full in the first 32-row step), no
+    hit (every slot 0), rows exactly at r and an ulp or two off, real hits
+    and far sentinels past n_valid (never found), fewer valid rows than S
+    (tail slots copy the first hit), and centers that do not fill the last
+    warp or block."""
+    g = torch.Generator().manual_seed(16)
+    N, M = 1200, 97
+    table = torch.rand(3, N, 3, generator=g) * 0.8
+    centers = torch.rand(3, M, 3, generator=g) * 0.8
+    n_valid = torch.tensor([N, 900, 1], dtype=torch.int32)
+    if case == "all in radius":
+        table = 0.3 + torch.rand(3, N, 3, generator=g) * 0.01
+        centers = 0.3 + torch.rand(3, M, 3, generator=g) * 0.01
+    elif case == "no hit":
+        centers = centers + 9.0
+    elif case == "at r":
+        pts = [boundary_cloud(r)[0] for r in radii]
+        table = torch.cat([*pts, table[0, :100]], 0).expand(3, -1, -1)
+        centers = torch.cat([boundary_cloud(radii[0])[1][None], centers[0]], 0).expand(3, -1, -1)
+        n_valid = torch.tensor([table.shape[1], 7, 31], dtype=torch.int32)
+    elif case == "past n_valid":
+        n_valid = torch.tensor([300, 0, 650], dtype=torch.int32)
+        table[0, 300:] = centers[0, :1]  # hits, but past the valid rows
+        table[2, 650:] = 1e9  # far sentinels
+    elif case == "S > n_valid":
+        n_valid = torch.tensor([5, 3, 7], dtype=torch.int32)
+        table = 0.3 + torch.rand(3, N, 3, generator=g) * 0.01
+        centers[:, : M // 2] = 0.3
+    elif case == "ragged M":
+        centers = centers[:, :33]
+    out = grouped_check(dev, radii, ns, table, centers, n_valid)
+    if case == "no hit":
+        assert all((o == 0).all() for o in out)
+    if case == "all in radius":
+        for o, s in zip(out, ns):
+            assert torch.equal(o[0], torch.arange(s, dtype=torch.int32, device=dev).expand_as(o[0]))
+
+
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 2000])
+def test_ball_query_grouped_centers(dev, M):
+    """Center counts around the 16 warps of a block and the main path's
+    2000, at the main path's table (4992 rows, 3000-4000 valid)."""
+    g = torch.Generator().manual_seed(17)
+    table = torch.rand(4, 4992, 3, generator=g)
+    centers = torch.rand(4, M, 3, generator=g)
+    n_valid = torch.tensor([4992, 3464, 3809, 4000], dtype=torch.int32)
+    grouped_check(dev, (0.1, 0.2, 0.4), (8, 16, 32), table, centers, n_valid)
+
+
+def test_ball_query_grouped_large_table(dev):
+    """A table longer than the rows a block stages (7168): the rows past
+    them read from device memory, in the same index order."""
+    g = torch.Generator().manual_seed(18)
+    table = torch.rand(3, 9000, 3, generator=g)
+    centers = torch.rand(3, 50, 3, generator=g)
+    n_valid = torch.tensor([9000, 7300, 7168], dtype=torch.int32)
+    grouped_check(dev, (0.05, 0.1, 0.4), (8, 16, 32), table, centers, n_valid)
 
 
 @pytest.mark.parametrize("V,offsets", [(48, (0, 1, 7, 8, 40, 41, 47)),

@@ -1107,3 +1107,102 @@ class TestKernelPlans:
         for C, S, F, G in [(64, 8, 256, 16), (387, 8, 40, 100), (6, 64, 32, 32)]:
             gc, smem = tops.pemax._pe_bwd_plan(C, S, F, G)
             assert gc >= 1 and smem <= _build.SMEM_LIMIT
+
+    @pytest.mark.parametrize("B", [8, 4])
+    def test_knn_plan_main_path(self, B):
+        """The posed forward's (B=8) and the posed train step's (B=4) K-NN
+        transfer, 2000 garment vertices against the 6890-point body at
+        K=256, K64=64, J=24: the body staged, 32 warps, candidate lists of
+        at least 2K entries, the layout of knn_transfer.cu within one
+        block's shared memory, at most one block per SM over the B
+        elements, every vertex in one block's chunk, 8-bit digits into 256
+        bins, at most 4 passes a threshold."""
+        from garment4d_tpu_torch.models import skinning
+
+        plan = skinning._knn_plan(B, 2000, 6890, 24, 256, 64, 132)
+        assert plan["staged"] and plan["warps"] == 32
+        assert plan["cap"] >= 2 * 256 and plan["cap"] % 32 == 0
+        assert plan["smem"] == 16 + 16 * 6890 + 32 * (2 * 256 * 4 + 2 * plan["cap"])
+        assert plan["smem"] <= _build.SMEM_LIMIT
+        assert B * plan["per_b"] <= 132 and B * plan["per_b"] >= 128
+        assert (plan["per_b"] - 1) * plan["chunk"] < 2000 <= plan["per_b"] * plan["chunk"]
+        assert (plan["bins"], plan["passes"]) == (256, 4)
+
+    @pytest.mark.parametrize("N,k,staged", [(20, 20, True), (1717, 256, True),
+                                            (12000, 64, True), (20000, 300, False),
+                                            (57000, 556, False)])
+    def test_knn_plan_edges(self, N, k, staged):
+        """Bodies up to the op's limit (N + 2k <= 58112): staged
+        while at least 8 warps fit beside the body, else read through L1
+        by 32 warps; lists no longer than N rounded up to 32."""
+        from garment4d_tpu_torch.models import skinning
+
+        plan = skinning._knn_plan(1, 45, N, 24, k, 1, 132)
+        assert plan["staged"] == staged and plan["smem"] <= _build.SMEM_LIMIT
+        assert plan["warps"] >= 8 and plan["warps"] == 32 or staged
+        assert plan["cap"] <= -(-N // 32) * 32 and plan["cap"] >= min(N, 2 * k, 1024)
+        assert plan["per_b"] * plan["chunk"] >= 45
+
+    @pytest.mark.parametrize("N,J,k,k64", [(100, 33, 8, 8), (100, 0, 8, 8), (10, 24, 11, 8),
+                                           (100, 24, 8, 9), (100, 24, 8, 0),
+                                           (58000, 24, 100, 64)])
+    def test_knn_plan_refuses(self, N, J, k, k64):
+        from garment4d_tpu_torch.models import skinning
+
+        with pytest.raises(ValueError, match="knn_transfer"):
+            skinning._knn_plan(1, 10, N, J, k, k64, 132)
+
+    @pytest.mark.parametrize("B", [80, 40])
+    def test_grouped_plan_main_path(self, B):
+        """The posed forward's (80 frames) and train step's (40) body
+        queries, 2000 garment vertices over the 4992-row compacted table:
+        every row staged in two blocks' shared memory, 16 warps a block,
+        four waves of two blocks per SM, every warp a center."""
+        plan = tops.pointcloud._grouped_plan(B, 4992, 2000, (8, 16, 32), 132)
+        assert plan["rows"] == 4992 and plan["smem"] == 16 * 4992 <= _build.SMEM_TWO_BLOCKS
+        assert plan["warps"] == 16 and plan["blocks"] * 16 <= 2000
+        assert B * (plan["blocks"] - 1) < 4 * 2 * 132 <= B * plan["blocks"]
+
+    @pytest.mark.parametrize("B,N,M,rows,blocks", [(1, 9000, 5, 7168, 1), (2, 30, 1, 128, 1),
+                                                   (400, 4992, 2000, 4992, 3)])
+    def test_grouped_plan_edges(self, B, N, M, rows, blocks):
+        """Tables past two blocks' shared memory stage their first 7168
+        rows; short tables are padded to a whole 128-row step; few centers
+        take no more blocks than warps need; many frames keep a few blocks
+        each."""
+        plan = tops.pointcloud._grouped_plan(B, N, M, (8,), 132)
+        assert (plan["rows"], plan["blocks"]) == (rows, blocks)
+
+    @pytest.mark.parametrize("nsamples", [(), (8, 16, 32, 64), (8, 0)])
+    def test_grouped_plan_refuses(self, nsamples):
+        with pytest.raises(ValueError, match="ball_query_grouped"):
+            tops.pointcloud._grouped_plan(80, 4992, 2000, nsamples, 132)
+
+    def test_knn_float64_witness(self, rng):
+        """The float64 K-NN transfer that the card's checks hold the kernel
+        to (`chip_smoke.knn_float64`), over the plain version's fp32
+        selection (`chip_smoke.knn_plain_selection`): exactly k points a
+        row, as a one-hot w0 reads back from the plain version wherever
+        1/d^2 is finite; the plain version's weights to fp32 roundoff (rtol
+        1e-5 / atol 1e-7), with ties at the k-th distance and zero
+        distances."""
+        from chip_smoke import knn_float64, knn_plain_selection
+        from garment4d_tpu_torch.models import skinning
+
+        base = rng.randn(2, 60, 3).astype(np.float32)
+        body = _t(np.concatenate([base, base[:, :20]], 1))  # 20 points twice
+        garment = _t(np.concatenate([base[:, :3], rng.randn(2, 9, 3).astype(np.float32)], 1))
+        w0 = _t(rng.rand(2, 80, 24).astype(np.float32))
+        d2 = tops.pointcloud.pairwise_sqdist(garment, body)
+        finite = torch.isfinite(1.0 / d2)
+        eye = torch.eye(80).expand(2, 80, 80)
+        for k in (1, 7, 33, 80):
+            sel = knn_plain_selection(d2, k)
+            assert (sel.sum(-1) == k).all()
+            q = skinning._knn_transfer_plain(garment, body, eye, k, k)[0]
+            read = (q != 0) & ~torch.isnan(q)  # NaN: every selected point at distance 0
+            assert torch.equal(read & finite, sel & finite)
+            got = knn_float64(garment, body, w0, sel)
+            assert got.dtype == torch.float64
+            want = skinning._knn_transfer_plain(garment, body, w0, k, k)[0]
+            np.testing.assert_allclose(_np(got.float()), _np(want), rtol=1e-5, atol=1e-7)
