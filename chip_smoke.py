@@ -14,11 +14,15 @@ then:
    version on the same inputs on the card. Canonical-stage kernels: FPS,
    ball-query and 3-NN indices and gathered rows equal, 3-NN squared
    distances equal, the fused SA chain within rtol 1e-4 / atol 1e-5.
-   Posed-stage kernels, on inputs captured from one posed forward: the
-   coverage mask equal; every FPS, flat and grouped ball-query launch of the
-   forward recorded with its inputs, each launch's bound and the summed
-   bounds printed, each grouped launch (3) and each distinct FPS and flat
-   case bitwise its plain version and timed; the PE blocks on the chain
+   Posed-stage kernels, on inputs captured from one posed forward: every
+   FPS, coverage, flat and grouped ball-query launch of the forward recorded
+   with its inputs, each launch's bound and the summed bounds printed, each
+   coverage launch (3), each grouped launch (3) and each distinct FPS and
+   flat case bitwise its plain version and timed (FPS with its launches
+   queued behind a sleeping kernel, `kernel_ms`, beside the time a step;
+   coverage beside three bounds: the first-hit linear scan's tests, the
+   bytes, and the exact and box tests that the culled kernel needs on this
+   data, `coverage_work`); the PE blocks on the chain
    kernel (body S=32, garment pe2) within rtol 1e-4 / atol 1e-5; the K-NN
    transfer's 1-NN indices equal, its own selections (read back through
    one-hot weights, `knn_selection`) those of the plain version wherever
@@ -73,7 +77,9 @@ then:
    at most 5% of them): dcenters within rtol 1e-4 / atol 1e-5 and weight
    gradients within 1e-4 of their largest magnitude, both of the plain
    version and of the float64 version given the plain version's routing
-   (`pe_bwd_float64`), two launches bitwise equal; the unmasked difference
+   (`pe_bwd_float64`), two launches bitwise equal; the step's FPS cases
+   bitwise their plain versions and timed as in phase 2; the unmasked
+   difference
    and the share of the pairs that fp32 routes otherwise than float64
    printed; each timed beside its plain version, its bound (the work this
    run's routing needs) and a library yardstick (`torch.cdist(q,
@@ -106,8 +112,10 @@ then:
    recorded from the step, each of the scatter-add's shapes: within rtol
    1e-5 / atol 1e-6 of its plain version on the card (`index_add_`),
    bitwise the ascending-order sum on the CPU, two launches bitwise equal;
-   timed beside its bound (bytes), its plain version and one `index_add_`.
-   The eval step (fused SA path, the eval-tail mask) once; the same train
+   timed beside its bound (bytes), its plain version and one `index_add_`;
+   the step's FPS cases (200 frames) bitwise their plain versions and timed
+   as in phase 2. The eval step (fused SA path, the eval-tail mask) once;
+   the same train
    step on the plain path from the same weights and dropout seed, which
    must launch no kernel, run twice: every loss term within 1e-3
    relative; the two paths' gradients, and the plain path's against
@@ -130,7 +138,8 @@ it does when no CUDA device is visible or when the repo is not beside it.
 `--time-kernels` times, for the package in the checkout at ROOT (default:
 this one), the posed forward (phase 4's shape and weights; frames/s,
 device ms, the device ms per forward of the chain, GCN, K-NN, grouped and
-flat ball-query and FPS kernels) and the canonical forward's device ms;
+flat ball-query, FPS and coverage kernels) and the canonical forward's
+device ms;
 the chain at each of its 16 shapes in the posed forward and the GCN stack
 at its 195- and 323-wide shapes, on the inputs recorded from it (ms, the
 largest difference to float64, the summed bounds; for the chain also one
@@ -143,8 +152,10 @@ their sums); the posed and canonical train steps (frames/s, device ms,
 the same kernels' device ms per step, the PE backward's and the
 scatter-add's), the PE backward at each of its six shapes and its dtable
 half, and the scatter-add at each of its 11 shapes beside one
-`index_add_`, on inputs recorded from the steps; the ptxas lines of the
-chain, GCN, K-NN and ball-query kernels; one JSON line.
+`index_add_`, on inputs recorded from the steps; each coverage launch of the
+posed forward and each distinct FPS case of the posed forward and both train
+steps; the ptxas lines of the chain, GCN, K-NN, ball-query, FPS and coverage
+kernels; one JSON line.
 `--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
 this one in turns, parent, change, change, parent, so that two checkouts
 are compared in one run on one card, and prints the means (per shape: ms
@@ -276,6 +287,24 @@ def profile_device(fn, runs: int = 3):
     return rows, sum(r[0] for r in rows)
 
 
+def kernel_ms(fn, reps: int = 10) -> float:
+    """Mean device time of `fn` over `reps` calls whose launches queue up
+    behind a sleeping kernel, by CUDA events: the host's work between
+    launches does not show, as it does in `cuda_ms` for kernels shorter
+    than it (the profiler was seen to drop the events of short sessions)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms of the card, longer than enqueueing reps calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def print_profile(label, rows, device_ms, wall_ms, top=15):
     idle = 1 - device_ms / wall_ms
     print(f"{label}: device time per call (torch.profiler) {device_ms:.3f} ms "
@@ -358,6 +387,87 @@ def coverage_tests(xyz, centers, radius) -> int:
                             torch.full(hit.shape[:2], M, device=hit.device))
         total += int(first.sum())
     return total
+
+
+def coverage_work(xyz, centers, radius) -> tuple:
+    """(exact tests, box tests) that the coverage kernel needs on this data:
+    each block of the plan's points ordered along the Morton curve of its
+    bounding box (as the kernel sorts them, up to the order within a cell),
+    each warp of 32 visiting the 32-center tiles in order while it has an
+    open point; per tile a box test for each open point, and the tile's
+    centers for each point whose box bound is below r^2 (for each open
+    point where more than _COVERAGE_DENSE need the tile). A point closes at
+    its first tile with a hit."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    Bc, Nc, _ = xyz.shape
+    M = centers.shape[1]
+    if M == 0 or Nc == 0:
+        return 0, 0
+    r2 = pc._f32(radius * radius)
+    tile = pc._COVERAGE_TILE
+    sms = torch.cuda.get_device_properties(xyz.device).multi_processor_count if xyz.is_cuda \
+        else 132
+    threads = pc._coverage_plan(Bc, Nc, M, sms)["threads"]
+    nt = -(-M // tile)
+    pad = torch.full((Bc, nt * tile - M, 3), float("nan"), device=xyz.device)
+    tiles = torch.cat([centers, pad], 1).reshape(Bc, nt, tile, 3)
+    lo = torch.where(tiles.isnan(), torch.inf, tiles).amin(2)
+    hi = torch.where(tiles.isnan(), -torch.inf, tiles).amax(2)
+    sizes = torch.full((nt,), tile, device=xyz.device)
+    sizes[-1] = M - (nt - 1) * tile
+    exact = box = 0
+    cells = 1 << 3
+    for n0 in range(0, Nc, threads):
+        q = xyz[:, n0:n0 + threads]
+        # the block's curve order: Morton code of 8 cells an axis over its box
+        qlo, qhi = q.amin(1, keepdim=True), q.amax(1, keepdim=True)
+        ext = qhi - qlo
+        scale = torch.where(ext > 0, cells / ext, torch.zeros_like(ext))
+        c = ((q - qlo) * scale).trunc().clamp(0, cells - 1).to(torch.int64)
+        code = torch.zeros(q.shape[:2], dtype=torch.int64, device=q.device)
+        for bit in range(3):
+            for a in range(3):
+                code |= ((c[..., a] >> bit) & 1) << (3 * bit + a)
+        q = torch.gather(q, 1, code.argsort(dim=1, stable=True)[..., None].expand_as(q))
+        d2 = pc._sqdist(q[:, :, None, None, :], tiles[:, None])  # (B, n, tiles, tile)
+        hit = (d2 < r2).any(-1)
+        lb = pc._box_lower_bound(q[:, :, None, :], lo[:, None], hi[:, None])
+        need = ~(lb >= r2)
+        first = torch.where(hit.any(-1), hit.to(torch.int8).argmax(-1), nt)
+        w = -(-q.shape[1] // 32) * 32
+        first = torch.nn.functional.pad(first, (0, w - q.shape[1]), value=-1)
+        need = torch.nn.functional.pad(need, (0, 0, 0, w - q.shape[1]))
+        t = torch.arange(nt, device=q.device)
+        opened = first.reshape(Bc, -1, 32)[..., None] >= t  # (B, warps, 32, tiles)
+        active = opened.any(2)
+        n_open = opened.sum(2)
+        n_need = (opened & need.reshape(Bc, -1, 32, nt)).sum(2)
+        box += int((n_open * active).sum())
+        # a center a lane for the needing points, else a point a lane
+        exact += int((torch.where(n_need > pc._COVERAGE_DENSE, n_open, n_need) * sizes).sum())
+    return exact, box
+
+
+def coverage_launches(calls):
+    """One row per recorded coverage launch of a forward: its case and
+    bounds. `bound_ms`: the first-hit linear scan's tests (9 operations
+    each, `coverage_tests`), kept from the parent kernel's rows; beside it
+    the bytes (xyz and centers read, the mask written) and the work the
+    culled kernel needs (`coverage_work`: 9 operations an exact test, 18 a
+    box test)."""
+    rows = []
+    for (xyz, centers, radius), _, out in calls:
+        Bc, Nc = xyz.shape[:2]
+        nb = nbytes(xyz, centers, out)
+        exact, boxes = coverage_work(xyz, centers, radius)
+        b_ms, b_by = bound(nb, 9.0 * coverage_tests(xyz, centers, radius))
+        rows.append(dict(case=f"body ({Bc}, {Nc}) x {centers.shape[1]} centers, r {radius}",
+                         args=(xyz, centers, radius), bound_ms=b_ms, bound_by=b_by,
+                         bytes_ms=bound(nb, 0)[0],
+                         culled_ms=bound(nb, 9.0 * exact + 18.0 * boxes)[0],
+                         exact_tests=exact, box_tests=boxes, nbytes=nb, launches=1))
+    return rows
 
 
 def chain_plain(table, idx, centers, weights, biases, relus, n_valid=None):
@@ -563,9 +673,12 @@ class Results:
         self.cases = {k: [] for k in KERNELS}
 
     def record(self, kernel, case, err, fn_k, fn_p, n_bytes, n_ops,
-               reps_k=20, reps_p=3, library=None, **extra):
+               reps_k=20, reps_p=3, library=None, queued=False, **extra):
+        """`queued`: the kernel's ms by `kernel_ms` (for launches shorter
+        than their host work), else by `cuda_ms`."""
         b_ms, b_by = bound(n_bytes, n_ops)
-        row = dict(case=case, max_abs_err=float(err), ms=cuda_ms(fn_k, reps_k),
+        ms = kernel_ms(fn_k, reps_k) if queued else cuda_ms(fn_k, reps_k)
+        row = dict(case=case, max_abs_err=float(err), ms=ms,
                    plain_ms=cuda_ms(fn_p, reps_p), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None if library is None else cuda_ms(library, reps_k),
                    **extra)
@@ -804,25 +917,71 @@ def fps_launches(calls):
 
 
 @torch.inference_mode()
-def check_forward_queries(fcalls, bcalls, gcalls, res: Results):
-    """The FPS, flat and grouped ball-query launches of one posed forward,
-    recorded with their inputs: summed bounds printed; each grouped launch,
-    and each distinct FPS and flat-query case, bitwise its plain version
-    and timed. Returns the summed bounds (ms)."""
+def check_fps(label, fcalls, res: Results):
+    """Each distinct FPS case of a path's recorded launches bitwise its
+    plain version, timed beside its bound and the per-step time; returns
+    the rows (`fps_launches`)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
-    fps, flat, grouped = fps_launches(fcalls), query_launches(bcalls, False), \
-        query_launches(gcalls, True)
-    sums = dict(fps=print_launch_bounds("fps", fps),
-                ball_query=print_launch_bounds("ball_query", flat),
-                ball_query_grouped=print_launch_bounds("ball_query_grouped", grouped))
-    for case, (row, count) in by_case(fps).items():
+    rows = fps_launches(fcalls)
+    for case, (row, count) in by_case(rows).items():
         xyz, npoint = row["args"]
         k = pc._fps_kernel(xyz, npoint)
-        require(torch.equal(k, pc._fps_plain(xyz, npoint)), f"fps {case} differs from plain")
-        res.record("fps", f"posed forward {case} x{count}", 0,
+        require(torch.equal(k, pc._fps_plain(xyz, npoint)),
+                f"fps {label} {case} differs from plain")
+        res.record("fps", f"{label} {case} x{count}", 0,
                    lambda: pc._fps_kernel(xyz, npoint), lambda: pc._fps_plain(xyz, npoint),
-                   row["nbytes"], row["ops"], reps_k=5, reps_p=1, launches_per_forward=count)
+                   row["nbytes"], row["ops"], reps_k=10, reps_p=1, queued=True,
+                   launches_per_call=count)
+        ms = res.cases["fps"][-1]["ms"]
+        print(f"fps {label} {case}: {1e3 * ms / max(npoint - 1, 1):.3f} us a step "
+              f"({npoint - 1} steps), bound {row['bound_ms']:.4f} ms", flush=True)
+    return rows
+
+
+@torch.inference_mode()
+def check_coverage(ccalls, res: Results):
+    """Every coverage launch of one posed forward, recorded with its
+    inputs: bitwise its plain version, its bounds printed (the linear
+    scan's, the bytes', the culled kernel's) and their sums, timed; returns
+    the rows (`coverage_launches`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    rows = coverage_launches(ccalls)
+    for i, row in enumerate(rows):
+        xyz, centers, r = row["args"]
+        require(torch.equal(pc._covered_mask_kernel(xyz, centers, r),
+                            pc._covered_mask_plain(xyz, centers, r)),
+                f"coverage launch {i} differs from the plain version")
+        res.record("coverage", f"posed forward launch {i}: {row['case']}", 0,
+                   lambda: pc._covered_mask_kernel(xyz, centers, r),
+                   lambda: pc._covered_mask_plain(xyz, centers, r), row["nbytes"],
+                   9.0 * coverage_tests(xyz, centers, r), reps_p=1, launches_per_forward=1,
+                   bytes_ms=row["bytes_ms"], culled_ms=row["culled_ms"],
+                   exact_tests=row["exact_tests"], box_tests=row["box_tests"])
+        print(f"coverage launch {i}: scan bound {row['bound_ms']:.4f} ms, byte bound "
+              f"{row['bytes_ms']:.4f}, culled bound {row['culled_ms']:.4f} ({row['exact_tests']} "
+              f"exact and {row['box_tests']} box tests)", flush=True)
+    sums = {k: sum(r[k] for r in rows) for k in ("bound_ms", "bytes_ms", "culled_ms")}
+    print(f"coverage: {len(rows)} launches per posed forward, summed bounds: scan "
+          f"{sums['bound_ms']:.4f} ms, bytes {sums['bytes_ms']:.4f}, culled "
+          f"{sums['culled_ms']:.4f}", flush=True)
+    return rows
+
+
+@torch.inference_mode()
+def check_forward_queries(fcalls, bcalls, gcalls, ccalls, res: Results):
+    """The FPS, coverage, flat and grouped ball-query launches of one posed
+    forward, recorded with their inputs: summed bounds printed; each
+    coverage and grouped launch, and each distinct FPS and flat-query case,
+    bitwise its plain version and timed. Returns the summed bounds (ms)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    flat, grouped = query_launches(bcalls, False), query_launches(gcalls, True)
+    sums = dict(fps=print_launch_bounds("fps", check_fps("posed forward", fcalls, res)),
+                ball_query=print_launch_bounds("ball_query", flat),
+                ball_query_grouped=print_launch_bounds("ball_query_grouped", grouped),
+                coverage=sum(r["bound_ms"] for r in check_coverage(ccalls, res)))
     for name, rows, every in (("ball_query", flat, False), ("ball_query_grouped", grouped, True)):
         groups = [(r["case"], (r, 1)) for r in rows] if every else by_case(rows).items()
         for i, (case, (row, count)) in enumerate(groups):
@@ -854,6 +1013,7 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
     with recording(ops, "query_group_pe_multi") as qcalls, \
             recording(skinning, "knn_transfer") as kcalls, \
             recording(pc, "_fps_kernel") as fcalls, \
+            recording(pc, "_covered_mask_kernel") as ccalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
             recording(pc, "_ball_query_grouped_kernel") as gcalls:
         got, handles = capture_inputs(recon.model, ["garment_pe2"])
@@ -861,23 +1021,14 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
         for h in handles:
             h.remove()
     torch.cuda.synchronize()
-    sums = check_forward_queries(fcalls, bcalls, gcalls, res)
-    del fcalls[:], bcalls[:], gcalls[:]
+    sums = check_forward_queries(fcalls, bcalls, gcalls, ccalls, res)
+    del fcalls[:], bcalls[:], gcalls[:], ccalls[:]
 
-    # coverage: body (80, 6890) x the 2000 garment vertices, r = 0.4
+    # grouped ball query over the compacted table of iteration 0 (the body
+    # (80, 6890) x the 2000 garment vertices, coverage at r = 0.4)
     radii, nsamples, xyz, centers, feats, pe_params = qcalls[0][0]
     xyz, centers = xyz.contiguous(), centers.contiguous()
     r = max(radii)
-    M = centers.shape[1]
-    ck = pc._covered_mask_kernel(xyz, centers, r)
-    require(torch.equal(ck, pc._covered_mask_plain(xyz, centers, r)),
-            "coverage mask differs from the plain version")
-    res.record("coverage", f"body ({F}, {N}) x {M} centers, r {r}", 0,
-               lambda: pc._covered_mask_kernel(xyz, centers, r),
-               lambda: pc._covered_mask_plain(xyz, centers, r),
-               nbytes(xyz, centers, ck), 9.0 * coverage_tests(xyz, centers, r))
-
-    # grouped ball query over the compacted table of iteration 0
     cap = pemax.candidate_cap(xyz.shape[1])
     counts, overflow, cidx = pemax._compact_candidates(xyz, centers, r, cap)
     packed = torch.cat([xyz, feats], -1)
@@ -1332,6 +1483,7 @@ def train_phase(assets, body, weights, res: Results):
             recording(graph, "_banded_kernel") as banded_calls, \
             recording(pemax, "_pe_bwd_kernel") as pe_calls, \
             recording(skinning, "knn_transfer") as knn_calls, \
+            recording(pc, "_fps_kernel") as fps_calls, \
             recording(model, "refine") as steps:
         losses, launches = counted("train", lambda: train_step(state, batch), POSED_TRAIN_KERNELS)
     for name, n in TRAIN_LAUNCHES.items():
@@ -1355,7 +1507,8 @@ def train_phase(assets, body, weights, res: Results):
     failed = check_train_kernels(dict(nn1=nn1_calls, banded=banded_calls, pe_bwd=pe_calls),
                                  res)
     check_knn("posed train step", knn_calls[0][0], res)
-    del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:]
+    check_fps("posed train step", fps_calls, res)
+    del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:], fps_calls[:]
 
     # the plain path from the same weights and batch, its backward included
     ops.reset_counts()
@@ -1516,7 +1669,8 @@ def canonical_train_phase(assets, body, weights, res: Results):
     model = state.model
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
-    with recording(pc, "_scatter_add_rows_kernel") as scatter_calls:
+    with recording(pc, "_scatter_add_rows_kernel") as scatter_calls, \
+            recording(pc, "_fps_kernel") as fps_calls:
         losses, launches = counted("canonical train", lambda: train_step(state, batch, generator()),
                                    CANON_TRAIN_KERNELS)
     peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1538,7 +1692,8 @@ def canonical_train_phase(assets, body, weights, res: Results):
     print(f"{len(grads)} parameters, all with finite gradients and moved; {len(stats)} "
           f"running statistics changed", flush=True)
     check_scatter_add(scatter_calls, res)
-    del scatter_calls[:], before
+    check_fps("canonical train step", fps_calls, res)
+    del scatter_calls[:], fps_calls[:], before
 
     # the eval step: inference mode, the fused eval-mode SA path, the mask
     valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
@@ -1618,7 +1773,9 @@ def counted(label, fn, names):
 # the scatter-add's single tiled kernel (the earlier design) or its sort and
 # segmented sum, the chain kernel, the GCN layer kernels, the K-NN transfer,
 # the grouped ball query (the flat query's 3-radius instance in the earlier
-# design, its own kernel since), the flat ball query, FPS
+# design, its own kernel since), the flat ball query, FPS (one kernel in
+# the earlier design; the register kernel and the kernel that skips far
+# warps since), the coverage mask
 AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                    "scatter_add": ("scatter_add_kernel", "scatter_sort_kernel",
                                    "segment_sum_kernel"),
@@ -1627,13 +1784,14 @@ AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                    "knn_transfer": ("knn_transfer",),
                    "ball_query_grouped": ("ball_query_kernel<3>", "ball_query_grouped"),
                    "ball_query": ("ball_query_kernel<1>", "ball_query_kernel<2>"),
-                   "fps": ("fps_kernel",)}
+                   "fps": ("fps_kernel", "fps_far_kernel"),
+                   "coverage": ("coverage_kernel",)}
 
 
 # the kernels whose device ms per posed forward and per posed train step
 # `--time-kernels` reports
 TIMED_KERNELS = ("fused_chain", "gcn_stack", "knn_transfer", "ball_query_grouped", "ball_query",
-                 "fps")
+                 "fps", "coverage")
 
 
 def device_ms_of(rows, names) -> float:
@@ -1744,6 +1902,33 @@ def time_queries(bcalls, gcalls) -> dict:
     return out
 
 
+@torch.inference_mode()
+def time_fps(label, fcalls) -> list:
+    """Each distinct FPS case of a path's recorded launches: ms (mean of 10
+    calls queued behind a sleeping kernel, `kernel_ms`), the launches of the
+    case, the bound."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    return [dict(case=f"{label} {case}", launches=count, bound_ms=row["bound_ms"],
+                 ms=kernel_ms(lambda: pc._fps_kernel(*row["args"]), 10))
+            for case, (row, count) in by_case(fps_launches(fcalls)).items()]
+
+
+@torch.inference_mode()
+def time_coverage(ccalls) -> list:
+    """Each coverage launch of one posed forward on its recorded inputs: ms
+    (CUDA events, mean of 20) beside the linear scan's bound."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    rows = []
+    for i, ((xyz, centers, r), _, mask) in enumerate(ccalls):
+        b_ms = bound(nbytes(xyz, centers, mask), 9.0 * coverage_tests(xyz, centers, r))[0]
+        rows.append(dict(case=f"launch {i}: ({xyz.shape[0]}, {xyz.shape[1]}) x "
+                         f"{centers.shape[1]}, r {r}", bound_ms=b_ms,
+                         ms=cuda_ms(lambda: pc._covered_mask_kernel(xyz, centers, r), 20)))
+    return rows
+
+
 def time_kernels(root: Path) -> int:
     """The redesigned kernels and the paths that run them, for the package
     in the checkout at `root`: the posed forward (median of 10 after 2
@@ -1755,7 +1940,10 @@ def time_kernels(root: Path) -> int:
     backward at each of its shapes in the posed step and its dtable half
     with that half's scatter-add, and the scatter-add at each of its shapes
     in the canonical step beside one `index_add_`, on inputs recorded from
-    the steps (CUDA events). One JSON line."""
+    the steps (CUDA events); each coverage launch of the posed forward
+    (CUDA events) and each distinct FPS case of the posed forward and both
+    train steps (`time_fps`), and the canonical train step's FPS device ms.
+    One JSON line."""
     root = root.resolve()
     sys.path.insert(0, str(root))
     import garment4d_tpu_torch
@@ -1793,13 +1981,20 @@ def time_kernels(root: Path) -> int:
     out.update(time_chain_gcn(recon, pcd, body_in))
     with recording(skinning, "knn_transfer") as kcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
-            recording(pc, "_ball_query_grouped_kernel") as gcalls:
+            recording(pc, "_ball_query_grouped_kernel") as gcalls, \
+            recording(pc, "_fps_kernel") as fcalls, \
+            recording(pc, "_covered_mask_kernel") as ccalls:
         recon.posed(pcd, body_in)
     torch.cuda.synchronize()
     out.update(time_queries(bcalls, gcalls))
     out["knn"] = [time_knn("posed forward", kcalls[0][0])]
-    del kcalls, bcalls, gcalls
-    out["ptxas"] = ptxas_lines(("fused_chain", "gcn_", "knn_transfer", "ball_query"))
+    out["fps"] = time_fps("posed forward", fcalls)
+    out["coverage"] = time_coverage(ccalls)
+    out["coverage_ms_sum"] = sum(c["ms"] for c in out["coverage"])
+    out["coverage_bound_ms_sum"] = sum(c["bound_ms"] for c in out["coverage"])
+    del kcalls, bcalls, gcalls, fcalls, ccalls
+    out["ptxas"] = ptxas_lines(("fused_chain", "gcn_", "knn_transfer", "ball_query", "fps_",
+                                "coverage_kernel"))
     del recon, batch, pcd, body_in
     torch.cuda.empty_cache()
 
@@ -1808,7 +2003,8 @@ def time_kernels(root: Path) -> int:
     state = make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
     train_step, _ = make_posed_steps(model, assets, body.faces)
     with recording(pemax, "_pe_bwd_kernel") as calls, \
-            recording(skinning, "knn_transfer") as kcalls:
+            recording(skinning, "knn_transfer") as kcalls, \
+            recording(pc, "_fps_kernel") as fcalls:
         train_step(state, batch)
     step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
@@ -1817,7 +2013,8 @@ def time_kernels(root: Path) -> int:
                posed_train_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
                                                 for k in TIMED_KERNELS})
     out["knn"].append(time_knn("posed train step", kcalls[0][0]))
-    del kcalls
+    out["fps"] += time_fps("posed train step", fcalls)
+    del kcalls, fcalls
     shapes = {}
     for a, _, _ in calls:
         shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
@@ -1845,14 +2042,18 @@ def time_kernels(root: Path) -> int:
     def step():
         return train_step(state, batch, torch.Generator(device=dev).manual_seed(1))
 
-    with recording(pc, "_scatter_add_rows_kernel") as calls:
+    with recording(pc, "_scatter_add_rows_kernel") as calls, \
+            recording(pc, "_fps_kernel") as fcalls:
         step()
     step_s = wall_s(step, runs=5, warmup=2)
     rows, dev_ms = profile_device(step, runs=1)
     out.update(canonical_train_frames_per_sec=CANON_F / step_s,
                canonical_train_device_ms=dev_ms,
                scatter_add_device_ms_per_step=device_ms_of(
-                   rows, AB_KERNEL_NAMES["scatter_add"]))
+                   rows, AB_KERNEL_NAMES["scatter_add"]),
+               canonical_train_fps_device_ms=device_ms_of(rows, AB_KERNEL_NAMES["fps"]))
+    out["fps"] += time_fps("canonical train step", fcalls)
+    del fcalls
     out["scatter_add"] = []
     torch.set_grad_enabled(False)
     for (grads, idx, n), _, _ in calls:
@@ -1904,13 +2105,14 @@ def ab(parent: Path) -> int:
             summary[f"{path} {k} device_ms"] = {
                 lab: mean(lab, lambda r: r[f"{path}_device_ms_by_kernel"][k])
                 for lab in ("parent", "change")}
-    for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum"):
+    for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum", "coverage_ms_sum",
+                "canonical_train_fps_device_ms"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
     for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum", "ball_query_grouped_bound_ms_sum",
-                "ball_query_bound_ms_sum"):
+                "ball_query_bound_ms_sum", "coverage_bound_ms_sum"):
         summary[key] = {"bound": runs[1][1][key]}
     for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
-                   "ball_query"):
+                   "ball_query", "fps", "coverage"):
         for i, case in enumerate(runs[0][1][kernel]):
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
                    for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
@@ -2012,14 +2214,12 @@ def main() -> int:
           f"({posed_s * 1e3:.2f} ms per {F} frames)", flush=True)
     rows, posed_dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
     posed_idle = print_profile("posed", rows, posed_dev_ms, posed_s * 1e3, top=20)
-    posed_kernel_ms = {k: device_ms_of(rows, AB_KERNEL_NAMES[k])
-                       for k in ("fused_chain", "gcn_stack", "knn_transfer",
-                                 "ball_query_grouped", "ball_query", "fps")}
+    posed_kernel_ms = {k: device_ms_of(rows, AB_KERNEL_NAMES[k]) for k in TIMED_KERNELS}
     print(f"posed forward device ms per forward: chain kernel {posed_kernel_ms['fused_chain']:.4f} "
           f"(summed bound {bound_sums['chain']:.4f}), GCN layer kernels "
           f"{posed_kernel_ms['gcn_stack']:.4f} (summed bound {bound_sums['gcn']:.4f})",
           flush=True)
-    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "fps"):
+    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "fps", "coverage"):
         print(f"posed forward device ms per forward: {k} {posed_kernel_ms[k]:.4f} in "
               f"{launches.get(k, 0)} launches (summed bound {bound_sums[k]:.4f})", flush=True)
 

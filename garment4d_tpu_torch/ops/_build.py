@@ -48,14 +48,14 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _IP = ctypes.POINTER(ctypes.c_int)     # host array of ints
 # C signatures of the entry points (all return int = cudaError_t)
 _SIGNATURES = {
-    "g4d_fps": (_P, _I, _I, _I, _P, _P),
+    "g4d_fps": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "g4d_gather_rows": (_P, _P, _I, _I, _I, _I, _P, _P),
     "g4d_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _F, _I, _P, _P),
     "g4d_ball_query_grouped": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _F,
                                _I, _P, _F, _I, _P, _I, _I, _I, _P),
     "g4d_three_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
     "g4d_fused_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _IP, _I, _I, _I, _P, _P, _P, _P),
-    "g4d_coverage": (_P, _P, _I, _I, _I, _F, _P, _P),
+    "g4d_coverage": (_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P),
     "g4d_knn_transfer": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P),
     "g4d_gcn_layer": (_PP, _IP, _I, _IP, _I, _I, _I, _I, _P, _IP, _IP, _I, _I, _I, _P, _P,

@@ -61,6 +61,98 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
+// the same for min (torch.minimum)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// ---- spatial order of a block's points (coverage.cu, fps.cu) -----------------
+//
+// A block orders its points along a Morton curve of 8 x 8 x 8 cells over
+// their bounding box, by a counting sort in shared memory, so that a warp's
+// points lie close together and one box bounds them tightly.
+constexpr int kCellBits = 3;
+constexpr int kCodes = 1 << (3 * kCellBits);
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The bounding box (lo, hi per axis; NaN values left out) of what every
+// thread of the block passes, into bb[6] for all threads. part: 32 x 6
+// floats of shared scratch. Two barriers; every thread must call it.
+__device__ __forceinline__ void block_bbox(float (&lo)[3], float (&hi)[3], float (*part)[6],
+                                           float* bb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = warp_min(lo[a]);
+    hi[a] = warp_max(hi[a]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      part[warp][a] = lo[a];
+      part[warp][3 + a] = hi[a];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      const float v = lane < n_warps ? part[lane][a] : (a < 3 ? INFINITY : -INFINITY);
+      const float r = a < 3 ? warp_min(v) : warp_max(v);
+      if (lane == 0) bb[a] = r;
+    }
+  }
+  __syncthreads();
+}
+
+// the Morton cell of a point in the box bb (NaN and out-of-box values clamp)
+__device__ __forceinline__ unsigned morton_code(float x, float y, float z, const float* bb) {
+  const float v[3] = {x, y, z};
+  unsigned code = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float ext = bb[3 + a] - bb[a];
+    const float scale = ext > 0.0f ? (float)(1 << kCellBits) / ext : 0.0f;
+    const int c = min(max(__float2int_rz((v[a] - bb[a]) * scale), 0), (1 << kCellBits) - 1);
+#pragma unroll
+    for (int b = 0; b < kCellBits; ++b) code |= (((unsigned)c >> b) & 1u) << (3 * b + a);
+  }
+  return code;
+}
+
+// Exclusive scan of hist[kCodes] in place, by warp 0 (the caller's barriers
+// order it against the counts and their readers).
+__device__ __forceinline__ void scan_codes(int* hist) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int carry = 0;
+#pragma unroll
+  for (int c0 = 0; c0 < kCodes; c0 += 32) {
+    const int v = hist[c0 + lane];
+    int s = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += t;
+    }
+    hist[c0 + lane] = carry + s - v;
+    carry += __shfl_sync(0xffffffffu, s, 31);
+  }
+}
+
 // ---- the register tile of the CUDA-core products ----------------------------
 //
 // fused_chain.cu and gcn_stack.cu multiply an activation tile by a weight

@@ -4,70 +4,185 @@
 // (pallas_call at :61). Semantics: covered[b, n] = 1 iff some center m has
 // d^2 < r^2 in diff form; the TPU kernel's min(d^2) < r^2 is the same test.
 //
-// What bounds it on the H100: the distance tests (FP32 instructions), up to
-// N x M per frame (80 x 6890 x 2000 at the posed forward's body queries). The TPU
-// kernel formed the whole (points, centers) distance block and reduced it.
-// Here one thread owns one point and scans the centers in shared-memory
-// tiles that its block stages once; it stops at its first center within r,
-// and the block stops loading tiles when all of its points are covered. On
-// garment-on-body geometry most covered points stop within the first few
-// hundred centers; uncovered points scan them all.
+// What bounds it on the H100: the exact distance tests (FP32 instructions,
+// ~9 a test). The TPU kernel formed the whole (points, centers) distance
+// block; a thread per point scanning every center would run ~N x M tests per
+// frame, since a warp runs as long as its slowest lane and uncovered points
+// scan everything. The answer is a yes/no per point that does not depend on
+// the order in which centers are visited, and this design uses that freedom:
+// - a block takes `T` points of a frame, one a thread, and orders them along
+//   a Morton curve over their bounding box (a counting sort of 512 cells
+//   in shared memory), so that a warp's 32 points lie close
+//   together even where the cloud's index order is random;
+// - the block stages the frame's centers in shared memory as float4s (one
+//   broadcast LDS.128 per test), chunk by chunk, and in a prologue computes
+//   an axis-aligned box for each tile of kTile consecutive centers (index
+//   order is spatially coherent on mesh templates);
+// - a warp visits the tiles: it skips a tile when none of its open points
+//   can reach the tile's box, otherwise it tests the tile's centers exactly
+//   with g4d_sqdist; it leaves the loop when all of its points are covered,
+//   and the block stops staging chunks when all of its points are;
+// - most tested tiles are needed by a few of the warp's points (one in a
+//   quarter of them, at most four in two thirds, on the posed forward's
+//   data). Those are tested a center a lane, the needing points broadcast
+//   in turn (32 tests in ~16 instructions a point); a tile more than kDense
+//   points need is tested a point a lane (32 x ~10 instructions).
+//
+// Exactness of the cull. A tile is skipped only when lb >= r2, where for
+// each axis the gap to the box [lo, hi] is g = max(max(fl(lo - p), fl(p -
+// hi)), 0) and lb = g4d_sqdist(gx, gy, gz). For a center c of the tile,
+// lo <= c <= hi. If p < lo, then c - p >= lo - p > 0, and rounding is
+// monotone, so fl(c - p) >= fl(lo - p) = g; if p > hi, then |fl(c - p)| =
+// fl(p - c) >= fl(p - hi) = g (round to nearest is symmetric); otherwise g
+// = 0 <= |fl(c - p)|. Squaring and adding rounded non-negative values are
+// monotone too, and lb sums in g4d_sqdist's order, so lb <= the fp32 d^2 of
+// every center of the tile: lb >= r2 means no center of the tile has d^2 <
+// r2. NaN centers are left out of the boxes and never hit; a NaN point gets
+// gaps of 0 and its tiles are tested; a NaN bound never skips.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;
+constexpr int kTile = 32;  // centers per box
+// a tile that more of a warp's points need is tested a point a lane, else a
+// center a lane (see below; both measured alike from 8 to 16)
+constexpr int kDense = 16;
 
-__global__ void __launch_bounds__(kThreads)
-coverage_kernel(const float* __restrict__ xyz,
-                const float* __restrict__ centers, int N, int M, float r2,
-                int* __restrict__ out) {
-  __shared__ float cx[kTile], cy[kTile], cz[kTile];
+// the gap of p to [lo, hi] along one axis, rounded as g4d_sqdist's difference
+__device__ __forceinline__ float gap(float p, float lo, float hi) {
+  return fmaxf(fmaxf(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
+}
+
+// Shared memory (dynamic, float4 units): the chunk's centers, two box
+// corners per tile, the block's points in curve order (x, y, z, index
+// bits), then the cells' counts (int).
+__global__ void __launch_bounds__(1024)
+coverage_kernel(const float* __restrict__ xyz, const float* __restrict__ centers, int N,
+                int M, float r2, int chunk, int* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float4* sc = smem4;
+  float4* sbox = sc + chunk;
+  float4* spts = sbox + 2 * (chunk / kTile);
+  int* hist = reinterpret_cast<int*>(spts + blockDim.x);
+  __shared__ float part[32][6];
+  __shared__ float bb[6];
+
   const int b = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = n < N;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (live) {
-    const float* p = xyz + ((size_t)b * N + n) * 3;
-    px = p[0];
-    py = p[1];
-    pz = p[2];
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = T >> 5;
+  const float* pb = xyz + (size_t)b * N * 3;
+
+  // the block's points and their bounding box (NaN points left out)
+  int pi = blockIdx.x * T + tid;  // index in the frame, -1: none
+  if (pi >= N) pi = -1;
+  const int s = pi < 0 ? 0 : pi;
+  float px = pb[3 * s], py = pb[3 * s + 1], pz = pb[3 * s + 2];
+  {
+    float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    if (pi >= 0) {
+      lo[0] = hi[0] = px;
+      lo[1] = hi[1] = py;
+      lo[2] = hi[2] = pz;
+    }
+    for (int i = tid; i < g4d::kCodes; i += T) hist[i] = 0;
+    g4d::block_bbox(lo, hi, part, bb);
   }
-  const float* c = centers + (size_t)b * M * 3;
-  int hit = 0;
-  bool done = !live;
-  for (int base = 0; base < M; base += kTile) {
-    // barrier: every thread is done with the previous tile before reload
-    if (__syncthreads_and(done)) break;
-    const int t = min(kTile, M - base);
-    for (int i = threadIdx.x; i < t; i += blockDim.x) {
-      cx[i] = c[3 * (base + i)];
-      cy[i] = c[3 * (base + i) + 1];
-      cz[i] = c[3 * (base + i) + 2];
+  // counting sort along the curve; ranks within a cell by shared atomics
+  // (their order is free: the answer per point does not depend on it)
+  const unsigned code = pi < 0 ? g4d::kCodes - 1 : g4d::morton_code(px, py, pz, bb);
+  const int rank = atomicAdd(&hist[code], 1);
+  __syncthreads();
+  g4d::scan_codes(hist);
+  __syncthreads();
+  spts[hist[code] + rank] = make_float4(px, py, pz, __int_as_float(pi));
+  __syncthreads();
+  {
+    const float4 q = spts[tid];
+    px = q.x;
+    py = q.y;
+    pz = q.z;
+    pi = __float_as_int(q.w);
+  }
+
+  bool open = pi >= 0;  // a real point not covered yet
+  const float* cb = centers + (size_t)b * M * 3;
+  for (int c0 = 0; c0 < M; c0 += chunk) {
+    // every thread is done with the previous chunk; stop when the block is
+    if (!__syncthreads_or(open)) break;
+    const int cnt = min(chunk, M - c0);
+    const int tiles = (cnt + kTile - 1) / kTile;
+    for (int i = tid; i < tiles * kTile; i += T) {
+      float4 c = make_float4(NAN, NAN, NAN, 0.0f);  // padding never hits
+      if (i < cnt) {
+        const float* q = cb + 3 * (size_t)(c0 + i);
+        c = make_float4(q[0], q[1], q[2], 0.0f);
+      }
+      sc[i] = c;
     }
     __syncthreads();
-    if (!done) {
-      for (int i = 0; i < t; ++i) {
-        if (g4d_sqdist(cx[i] - px, cy[i] - py, cz[i] - pz) < r2) {
-          hit = 1;
-          break;
-        }
+    for (int t = warp; t < tiles; t += n_warps) {
+      const float4 c = sc[t * kTile + lane];
+      const float lx = g4d::warp_min(c.x), ly = g4d::warp_min(c.y), lz = g4d::warp_min(c.z);
+      const float hx = g4d::warp_max(c.x), hy = g4d::warp_max(c.y), hz = g4d::warp_max(c.z);
+      if (lane == 0) {
+        sbox[2 * t] = make_float4(lx, ly, lz, 0.0f);
+        sbox[2 * t + 1] = make_float4(hx, hy, hz, 0.0f);
       }
-      done = hit != 0;
+    }
+    __syncthreads();
+    for (int t = 0; t < tiles; ++t) {
+      if (!__any_sync(0xffffffffu, open)) break;
+      const float4 lo = sbox[2 * t], hi = sbox[2 * t + 1];
+      const float lb = g4d_sqdist(gap(px, lo.x, hi.x), gap(py, lo.y, hi.y), gap(pz, lo.z, hi.z));
+      const unsigned need = __ballot_sync(0xffffffffu, open && !(lb >= r2));
+      if (need == 0u) continue;
+      const float4* ct = sc + t * kTile;
+      if (__popc(need) > kDense) {
+        // many points: each lane tests its point against the tile's centers
+        bool hit = false;
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+          const float4 c = ct[i];
+          hit |= g4d_sqdist(c.x - px, c.y - py, c.z - pz) < r2;
+        }
+        open = open && !hit;
+      } else {
+        // few points: each lane holds a center, the needing points in turn
+        const float4 c = ct[lane];
+        unsigned hits = 0u;
+        for (unsigned m = need; m != 0u; m &= m - 1u) {
+          const int src = __ffs(m) - 1;
+          const float qx = __shfl_sync(0xffffffffu, px, src);
+          const float qy = __shfl_sync(0xffffffffu, py, src);
+          const float qz = __shfl_sync(0xffffffffu, pz, src);
+          if (__any_sync(0xffffffffu, g4d_sqdist(c.x - qx, c.y - qy, c.z - qz) < r2))
+            hits |= 1u << src;
+        }
+        open = open && !((hits >> lane) & 1u);
+      }
     }
   }
-  if (live) out[(size_t)b * N + n] = hit;
+  if (pi >= 0) out[(size_t)b * N + pi] = open ? 0 : 1;
 }
 
 }  // namespace
 
 // xyz (B, N, 3), centers (B, M, 3) f32 -> out (B, N) i32 in {0, 1}; r2 is
-// the f32 r^2.
-extern "C" int g4d_coverage(const float* xyz, const float* centers, int B,
-                            int N, int M, float r2, int* out,
+// the f32 r^2. The launch plan (pointcloud._coverage_plan): `blocks` per
+// frame of `threads` threads, a point each, `chunk` centers staged at a time
+// (a multiple of 32), `smem` dynamic shared bytes.
+extern "C" int g4d_coverage(const float* xyz, const float* centers, int B, int N, int M,
+                            float r2, int threads, int chunk, int blocks, int smem, int* out,
                             cudaStream_t stream) {
-  dim3 grid(g4d_blocks(N, kThreads), B);
-  coverage_kernel<<<grid, kThreads, 0, stream>>>(xyz, centers, N, M, r2, out);
+  if (threads < 32 || threads > 1024 || threads % 32 || chunk < kTile || chunk % kTile)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      coverage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  coverage_kernel<<<dim3(blocks, B), threads, smem, stream>>>(xyz, centers, N, M, r2, chunk,
+                                                               out);
   return (int)cudaGetLastError();
 }

@@ -102,18 +102,58 @@ def _fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+# fps.cu: points per thread held in registers (template instances), the
+# instance that reads them from the staged frame (sets past 32 warps x 8
+# points), and the sets that one warp samples alone (no barrier).
+# `_FPS_PPT`: the points per thread where a set takes several warps (more
+# warps shorten a step's distance pass, fewer its reduction: 4 measured
+# best at 512-1722 points, PERF.md).
+_FPS_PPTS = (1, 2, 4, 8)
+_FPS_STAGED_PPT = 16
+_FPS_ONE_WARP = 32 * _FPS_PPTS[-1]
+_FPS_PPT = 4
+
+
+@functools.lru_cache(maxsize=64)
+def _fps_plan(B: int, N: int, npoint: int) -> dict:
+    """The FPS kernel's launch plan: one block of `threads` per frame, each
+    thread owning `ppt` points (t, t + threads, ...), held in registers
+    unless `staged` (read from the frame's planes each step); `far`: the
+    kernel that orders the frame and skips warps far from a step's new
+    point (sets of 8 points a thread); `smem` dynamic bytes. Raises
+    ValueError where the parent kernel's limits did (1 <= npoint <= N,
+    16 * N <= SMEM_LIMIT)."""
+    if not 1 <= npoint <= N or 16 * N > _build.SMEM_LIMIT or B < 0:
+        raise ValueError(f"fps: B={B}, N={N}, npoint={npoint} (1 <= npoint <= N, "
+                         f"16 * N <= {_build.SMEM_LIMIT})")
+    staged = N > 32 * 32 * _FPS_PPTS[-1]
+    if staged:
+        ppt = _FPS_STAGED_PPT
+    elif N <= _FPS_ONE_WARP:
+        ppt = next(p for p in _FPS_PPTS if 32 * p >= N)
+    else:
+        ppt = max(_FPS_PPT, next(p for p in _FPS_PPTS if 32 * 32 * p >= N))
+    # sets of 8 points a thread take the kernel that skips far warps; its
+    # sorted frame (float4) also holds the sort's counts (2 KB) at first
+    far = not staged and ppt == _FPS_PPTS[-1] and N > 32 * 32 * _FPS_PPT
+    smem = max(16 * N, 4 * _COVERAGE_CODES) if far else 12 * N
+    return dict(threads=32 * -(-N // (32 * ppt)), ppt=ppt, staged=staged, far=far, smem=smem)
+
+
 def _fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     dev = xyz.device
     _build.require(xyz, "xyz", torch.float32, 3, dev)
     B, N, C = xyz.shape
-    if C != 3 or not 1 <= npoint <= N:
+    if C != 3:
         raise ValueError(f"fps: xyz {tuple(xyz.shape)}, npoint {npoint}")
-    if 16 * N > 232448:
-        raise ValueError(f"fps: N={N} exceeds the kernel's shared memory")
+    plan = _fps_plan(B, N, npoint)
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
     lib = _build.library()
     _build.launch_counts["fps"] += 1
-    _build.check(lib.g4d_fps(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+    _build.check(lib.g4d_fps(xyz.data_ptr(), B, N, npoint, plan["threads"], plan["ppt"],
+                             int(plan["far"]), plan["smem"], out.data_ptr(),
                              _build.stream_of(xyz)), "fps")
     return out
 
@@ -477,6 +517,49 @@ def _covered_mask_plain(xyz: torch.Tensor, centers: torch.Tensor,
     return torch.cat(outs, dim=1).to(torch.int32)
 
 
+# coverage.cu: centers per box (kTile), Morton cells of the point sort
+# (kCodes), the most centers staged at a time (64 KB), threads per block
+# (a point each), and the fewest a block shrinks to while the grid would
+# not give every SM a block.
+_COVERAGE_TILE = 32
+_COVERAGE_CODES = 512
+_COVERAGE_MAX_CHUNK = 4096
+_COVERAGE_THREADS = 512
+_COVERAGE_MIN_THREADS = 128
+_COVERAGE_DENSE = 16  # coverage.cu: kDense
+
+
+@functools.lru_cache(maxsize=64)
+def _coverage_plan(B: int, N: int, M: int, sms: int) -> dict:
+    """The coverage kernel's launch plan on `sms` SMs: `blocks` per frame of
+    `threads` threads (a point each; fewer, down to _COVERAGE_MIN_THREADS,
+    while B x blocks < sms), `chunk` centers staged at a time
+    (whole tiles of _COVERAGE_TILE), `smem` dynamic bytes (the chunk, its
+    boxes, the block's points and the sort's counts). Raises ValueError for
+    what the kernel does not take (negative sizes, B past the grid's y)."""
+    if min(B, N, M) < 0 or B > 65535:
+        raise ValueError(f"covered_mask: B={B}, N={N}, M={M} (B <= 65535)")
+    threads = _COVERAGE_THREADS
+    while threads > _COVERAGE_MIN_THREADS and B * -(-N // threads) < sms:
+        threads //= 2
+    tile = _COVERAGE_TILE
+    chunk = min(max(-(-M // tile) * tile, tile), _COVERAGE_MAX_CHUNK)
+    smem = 16 * chunk + 32 * (chunk // tile) + 16 * threads + 4 * _COVERAGE_CODES
+    return dict(threads=threads, chunk=chunk, smem=smem, blocks=-(-N // threads))
+
+
+def _box_lower_bound(p: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The coverage kernel's lower bound on the squared distance from points
+    p (..., 3) to every center in the box [lo, hi] (..., 3), float32 as the
+    kernel computes it: per axis the gap max(max(lo - p, p - hi), 0), then
+    the gaps' squares summed as `_sqdist` sums (the kernel skips a tile of
+    centers where it is >= r^2). For tests of the cull's exactness: finite
+    inputs (torch.maximum propagates NaN, the kernel's fmaxf drops it)."""
+    g = torch.maximum(torch.maximum(lo - p, p - hi), torch.zeros((), dtype=p.dtype))
+    gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
+    return gx * gx + gy * gy + gz * gz
+
+
 def _covered_mask_kernel(xyz: torch.Tensor, centers: torch.Tensor,
                          radius: float) -> torch.Tensor:
     dev = xyz.device
@@ -487,12 +570,16 @@ def _covered_mask_kernel(xyz: torch.Tensor, centers: torch.Tensor,
     if C != 3 or centers.shape[0] != B or centers.shape[2] != 3:
         raise ValueError(f"covered_mask: xyz {tuple(xyz.shape)}, "
                          f"centers {tuple(centers.shape)}")
+    plan = _coverage_plan(B, N, M, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((B, N), dtype=torch.int32, device=dev)
+    if B == 0 or N == 0:
+        return out
     lib = _build.library()
     _build.launch_counts["coverage"] += 1
-    _build.check(lib.g4d_coverage(xyz.data_ptr(), centers.data_ptr(), B, N, M,
-                                  _f32(radius * radius), out.data_ptr(),
-                                  _build.stream_of(xyz)), "coverage")
+    _build.check(lib.g4d_coverage(
+        xyz.data_ptr(), centers.data_ptr(), B, N, M, _f32(radius * radius), plan["threads"],
+        plan["chunk"], plan["blocks"], plan["smem"], out.data_ptr(), _build.stream_of(xyz)),
+        "coverage")
     return out
 
 

@@ -78,6 +78,65 @@ def test_fps(dev, N, npoint):
     torch.testing.assert_close(got, pc._fps_plain(xyz, npoint), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,N,npoint,ppt,staged,far", [
+    (2, 20, 20, 1, False, False), (2, 50, 7, 2, False, False), (2, 100, 33, 4, False, False),
+    (2, 256, 64, 8, False, False), (2, 1024, 256, 4, False, False),
+    (2, 1722, 512, 4, False, False), (2, 4096, 300, 4, False, False),
+    (2, 4097, 300, 8, False, True), (2, 8192, 100, 8, False, True),
+    (2, 9000, 64, 16, True, False), (2, 14528, 16, 16, True, False),
+    (200, 6890, 64, 8, False, True)])
+def test_fps_plans(dev, B, N, npoint, ppt, staged, far):
+    """Every instance the plan picks (one warp, several, 32 warps, the kernel
+    that skips far warps from 4097 to 8192 points, the staged kernel up to
+    the largest set the kernel takes, more frames than SMs), bitwise the
+    plain version on clouds with duplicates."""
+    plan = pc._fps_plan(B, N, npoint)
+    assert (plan["ppt"], plan["staged"], plan["far"]) == (ppt, staged, far)
+    xyz = cloud(22, B, N, dup=N // 3)
+    torch.testing.assert_close(pc._fps_kernel(xyz, npoint), pc._fps_plain(xyz, npoint),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["padded", "far_padded", "all_equal", "far_equal", "one",
+                                  "grid", "far_grid", "nan", "far_nan"])
+def test_fps_ties(dev, case):
+    """Ties everywhere, to the lowest index: garment frames zero-padded by a
+    quarter (as `select_garment_points` pads them), every point the same,
+    one point, a lattice of equal distances, and a NaN point (a NaN running
+    distance wins, as torch.argmax has it), at sizes of both register
+    kernels (`far`: past 4096 points); against the plain version on the
+    CPU."""
+    if case in ("padded", "far_padded"):
+        n = 1722 if case == "padded" else 6890
+        xyz = cloud(23, 4, n)
+        xyz[:, -n // 4:] = 0
+        npoint = 512
+    elif case == "far_equal":
+        xyz, npoint = torch.full((2, 5000, 3), 0.5, device=dev), 300
+    elif case == "far_grid":
+        ax = torch.arange(17, dtype=torch.float32, device=dev)
+        xyz = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(1, 4913, 3)
+        npoint = 700
+    elif case == "far_nan":
+        xyz = cloud(26, 2, 6000)
+        xyz[1, 4321, 2] = float("nan")
+        npoint = 60
+    elif case == "all_equal":
+        xyz, npoint = torch.full((3, 300, 3), 0.5, device=dev), 300
+    elif case == "one":
+        xyz, npoint = cloud(24, 5, 1), 1
+    elif case == "grid":
+        ax = torch.arange(10, dtype=torch.float32, device=dev)
+        xyz = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(1, 1000, 3)
+        npoint = 1000
+    else:
+        xyz = cloud(25, 2, 600)
+        xyz[0, 300, 1] = float("nan")
+        npoint = 40
+    torch.testing.assert_close(pc._fps_kernel(xyz.contiguous(), npoint).cpu(),
+                               pc._fps_plain(xyz.cpu(), npoint), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("radii,ns", [
     ((0.1,), (1,)), ((0.1, 0.2), (16, 32)), ((0.05, 0.1, 0.3), (8, 16, 24))])
 @pytest.mark.parametrize("N,M", [(7, 3), (1500, 333)])
@@ -360,6 +419,68 @@ def test_coverage(dev, radius, N, M):
     got = pc._covered_mask_kernel(xyz, centers, radius)
     torch.testing.assert_close(got, pc._covered_mask_plain(xyz, centers, radius),
                                rtol=0, atol=0)
+
+
+def coverage_check(xyz, centers, radius):
+    xyz, centers = xyz.contiguous(), centers.contiguous()
+    got = pc._covered_mask_kernel(xyz, centers, radius)
+    torch.testing.assert_close(got, pc._covered_mask_plain(xyz, centers, radius),
+                               rtol=0, atol=0)
+    return got
+
+
+def coverage_case(dev, case):
+    """(xyz, centers, radius) of one coverage edge case."""
+    g = torch.Generator().manual_seed(17)
+    xyz = torch.rand(3, 700, 3, generator=g)
+    if case == "far":  # every tile culled: nothing within r
+        return xyz, torch.rand(3, 300, 3, generator=g) + 5.0, 0.3
+    if case == "one_point":  # every box of zero size, at and beside the points
+        return xyz, xyz[:, 5:6].expand(3, 100, 3), 0.2
+    if case == "ragged":  # M not a multiple of the 32-center tile
+        return xyz, torch.rand(3, 37, 3, generator=g), 0.1
+    if case == "chunks":  # more centers than one staged chunk, hits in the last
+        centers = torch.rand(3, 9000, 3, generator=g) + 3.0
+        centers[:, -5:] = xyz[:, :5]
+        return xyz, centers, 0.05
+    if case == "no_centers":
+        return xyz, torch.zeros(3, 0, 3), 0.3
+    if case == "face":  # boundary points around a center on its tile's box faces
+        radius = 0.25
+        c = torch.tensor([0.3, 0.2, 0.1])
+        pts, _ = boundary_cloud(radius, tuple(c.tolist()))
+        tile = c + torch.rand(32, 3, generator=g)  # c is the tile's lower corner
+        tile[7] = c
+        centers = torch.cat([tile, torch.rand(40, 3, generator=g) + 4.0], 0)
+        mirror = torch.cat([2 * c - tile, torch.rand(40, 3, generator=g) + 4.0], 0)
+        xyz = torch.cat([pts, torch.rand(100, 3, generator=g)], 0)
+        return (torch.stack([xyz, xyz]), torch.stack([centers, mirror]), radius)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["far", "one_point", "ragged", "chunks", "no_centers", "face"])
+def test_coverage_edges(dev, case):
+    """The cull at its edges, bitwise the plain version: every tile culled,
+    zero-size boxes, a ragged last tile, two staged chunks, no center, and
+    points at r and r -+ 1, 2 ulp from a center on the lower (and, mirrored,
+    upper) faces of its tile's box."""
+    xyz, centers, radius = coverage_case(dev, case)
+    got = coverage_check(xyz.to(dev), centers.to(dev), radius)
+    if case in ("far", "no_centers"):
+        assert not got.any()
+
+
+@pytest.mark.parametrize("B,threads", [(2, 128), (8, 256), (80, 512)])
+def test_coverage_plans(dev, B, threads):
+    """The block sizes the plan picks (a point a thread, the block's points
+    sorted along the curve): 6890 points with boundary points against 2000
+    centers at r 0.4, over 2, 8 and 80 frames."""
+    assert pc._coverage_plan(B, 6890, 2000, 132)["threads"] == threads
+    pts, c = boundary_cloud(0.4)
+    xyz = torch.cat([cloud(18, B, 6890 - pts.shape[0], device="cpu") * 2 - 0.5,
+                     pts.expand(B, -1, -1)], 1)
+    centers = torch.cat([c.expand(B, 1, 3), cloud(19, B, 1999, device="cpu") * 2 - 0.5], 1)
+    coverage_check(xyz.to(dev), centers.to(dev), 0.4)
 
 
 @pytest.mark.parametrize("radii,ns", [((0.2,), (8,)), ((0.1, 0.3), (8, 16)),

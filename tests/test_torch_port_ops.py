@@ -16,6 +16,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -1178,6 +1180,83 @@ class TestKernelPlans:
         with pytest.raises(ValueError, match="ball_query_grouped"):
             tops.pointcloud._grouped_plan(80, 4992, 2000, nsamples, 132)
 
+    @pytest.mark.parametrize("B", [80, 40])
+    def test_coverage_plan_main_path(self, B):
+        """The posed forward's (80 frames) and train step's (40) body
+        coverage, 6890 points vs 2000 garment vertices: 512-thread blocks,
+        a point a thread (14 blocks a frame), every center staged at once in
+        whole 32-center tiles; four blocks' shared memory fit an SM."""
+        plan = tops.pointcloud._coverage_plan(B, 6890, 2000, 132)
+        assert plan == dict(threads=512, chunk=2016, blocks=14,
+                            smem=16 * 2016 + 32 * 63 + 16 * 512 + 4 * 512)
+        assert 4 * plan["smem"] <= _build.SMEM_LIMIT
+
+    @pytest.mark.parametrize("B,N,M,threads,chunk,blocks", [
+        (1, 1, 1, 128, 32, 1), (3, 77, 45, 128, 64, 1), (8, 6890, 0, 256, 32, 27),
+        (2, 10, 100000, 128, 4096, 1), (1, 0, 5, 128, 32, 0), (65535, 3, 3, 512, 32, 1),
+        (80, 6890, 4097, 512, 4096, 14)])
+    def test_coverage_plan_edges(self, B, N, M, threads, chunk, blocks):
+        """Blocks shrink (to 128 threads) while the grid would leave SMs
+        without a block; no center still stages one tile; more centers
+        than 4096 stage 4096 at a time; no point, no block."""
+        plan = tops.pointcloud._coverage_plan(B, N, M, 132)
+        assert (plan["threads"], plan["chunk"], plan["blocks"]) == (threads, chunk, blocks)
+        assert plan["smem"] <= _build.SMEM_LIMIT
+
+    @pytest.mark.parametrize("B,N,M", [(-1, 5, 5), (1, -5, 5), (1, 5, -1), (65536, 5, 5)])
+    def test_coverage_plan_refuses(self, B, N, M):
+        with pytest.raises(ValueError, match="covered_mask"):
+            tops.pointcloud._coverage_plan(B, N, M, 132)
+
+    @pytest.mark.parametrize("N,npoint,threads,ppt", [
+        (6890, 1024, 864, 8), (1024, 256, 256, 4), (256, 64, 32, 8), (1722, 512, 448, 4),
+        (512, 64, 128, 4)])
+    def test_fps_plan_main_path(self, N, npoint, threads, ppt):
+        """The five FPS launches of every path (sa1-sa3, garment_sa1-2):
+        sa1 on 27 warps of 8 points a thread in the kernel that skips far
+        warps (its sorted frame 16 N bytes), sa3 on one warp (no barrier),
+        the others on 4 points a thread; all in registers."""
+        far = N == 6890
+        for B in (80, 40, 200):
+            plan = tops.pointcloud._fps_plan(B, N, npoint)
+            assert plan == dict(threads=threads, ppt=ppt, staged=False, far=far,
+                                smem=(16 if far else 12) * N)
+
+    @pytest.mark.parametrize("N,ppt,threads,staged,far", [
+        (1, 1, 32, False, False), (33, 2, 32, False, False), (100, 4, 32, False, False),
+        (256, 8, 32, False, False), (257, 4, 96, False, False), (4096, 4, 1024, False, False),
+        (4097, 8, 544, False, True), (8192, 8, 1024, False, True),
+        (8193, 16, 544, True, False), (14528, 16, 928, True, False)])
+    def test_fps_plan_edges(self, N, ppt, threads, staged, far):
+        """One warp up to 256 points, 4 points a thread up to 32 warps, then 8
+        in the kernel that skips far warps, then the staged instance of 16
+        up to the largest set (16 N bytes in shared memory, the parent
+        kernel's limit)."""
+        plan = tops.pointcloud._fps_plan(3, N, N)
+        assert (plan["ppt"], plan["threads"], plan["staged"], plan["far"]) == (
+            ppt, threads, staged, far)
+
+    def test_fps_plan_takes_every_n_the_parent_took(self):
+        """Every N with 16 N <= SMEM_LIMIT, at npoint 1 and N: a block of at
+        most 1024 threads, a multiple of 32, covering the set with a kernel
+        instance, and its dynamic shared memory beside the static (the
+        slots, and for the far kernel the boxes and the sort's partials) in
+        a block's shared memory."""
+        for N in range(1, _build.SMEM_LIMIT // 16 + 1):
+            for npoint in (1, N):
+                plan = tops.pointcloud._fps_plan(2, N, npoint)
+                assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
+                assert plan["threads"] * plan["ppt"] >= N
+                assert plan["ppt"] in (tops.pointcloud._FPS_PPTS
+                                       + (tops.pointcloud._FPS_STAGED_PPT,))
+                assert plan["smem"] + (2336 if plan["far"] else 512) <= _build.SMEM_LIMIT
+
+    @pytest.mark.parametrize("B,N,npoint", [(1, 10, 0), (1, 10, 11),
+                                            (1, _build.SMEM_LIMIT // 16 + 1, 5), (-1, 10, 5)])
+    def test_fps_plan_refuses(self, B, N, npoint):
+        with pytest.raises(ValueError, match="fps"):
+            tops.pointcloud._fps_plan(B, N, npoint)
+
     def test_knn_float64_witness(self, rng):
         """The float64 K-NN transfer that the card's checks hold the kernel
         to (`chip_smoke.knn_float64`), over the plain version's fp32
@@ -1206,3 +1285,49 @@ class TestKernelPlans:
             assert got.dtype == torch.float64
             want = skinning._knn_transfer_plain(garment, body, w0, k, k)[0]
             np.testing.assert_allclose(_np(got.float()), _np(want), rtol=1e-5, atol=1e-7)
+
+
+class TestCoverageBound:
+    """The coverage kernel skips a tile of centers where the float32 lower
+    bound from a point to the tile's box is >= r^2 (`coverage.cu`'s header
+    argues why that is exact). `_box_lower_bound` computes the kernel's
+    arithmetic; these check the argument on float32 inputs."""
+
+    coords = st.floats(min_value=-1e3, max_value=1e3, width=32, allow_nan=False,
+                       allow_infinity=False)
+    points = st.tuples(coords, coords, coords)
+
+    @settings(max_examples=300, deadline=None, derandomize=True, database=None)
+    @given(p=points, centers=st.lists(points, min_size=1, max_size=6))
+    def test_bound_below_every_distance(self, p, centers):
+        """lb(p, box of the centers) <= the fp32 diff-form d^2 of each center."""
+        c = torch.tensor(centers, dtype=torch.float32)
+        q = torch.tensor(p, dtype=torch.float32)
+        lb = tops.pointcloud._box_lower_bound(q, c.amin(0), c.amax(0))
+        d2 = tops.pointcloud._sqdist(c, q)
+        assert lb.dtype == torch.float32
+        assert bool((lb <= d2).all()), (lb.item(), d2.tolist())
+
+    @settings(max_examples=300, deadline=None, derandomize=True, database=None)
+    @given(c=points, ulps=st.integers(-3, 3),
+           r=st.floats(min_value=2.0 ** -10, max_value=10.0, width=32),
+           axis=st.integers(0, 2), sign=st.sampled_from([-1.0, 1.0]),
+           spread=st.floats(min_value=0.0, max_value=5.0, width=32))
+    def test_skip_only_without_a_hit(self, c, ulps, r, axis, sign, spread):
+        """A point at r (up to 3 ulp either way) from a center on its box's
+        face: where the bound is >= r^2 no center of the box is within r."""
+        c = torch.tensor(c, dtype=torch.float32)
+        p = c.clone()
+        p[axis] = c[axis] + torch.tensor(sign * r, dtype=torch.float32)
+        toward = torch.tensor(float("inf") if sign * ulps > 0 else float("-inf"))
+        for _ in range(abs(ulps)):
+            p[axis] = torch.nextafter(p[axis], toward)
+        # the box: c as one corner, a second center spread away from the point
+        far = c - torch.sign(p - c) * spread
+        box = torch.stack([c, far])
+        r2 = tops.pointcloud._f32(float(r) * float(r))
+        lb = tops.pointcloud._box_lower_bound(p, box.amin(0), box.amax(0))
+        hit = bool((tops.pointcloud._sqdist(box, p) < r2).any())
+        if lb.item() >= r2:
+            assert not hit
+        assert lb.item() <= tops.pointcloud._sqdist(c, p).item()
