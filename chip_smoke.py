@@ -20,9 +20,10 @@ then:
    coverage launch (3), each grouped launch (3) and each distinct FPS and
    flat case bitwise its plain version and timed (FPS with its launches
    queued behind a sleeping kernel, `kernel_ms`, beside the time a step;
-   coverage beside three bounds: the first-hit linear scan's tests, the
-   bytes, and the exact and box tests that the culled kernel needs on this
-   data, `coverage_work`); the PE blocks on the chain
+   FPS and coverage beside the bound of the work their culls leave on this
+   data, `fps_work` and `coverage_work`, and the parent kernels' scan
+   bound: every point each step, each point's centers up to its first
+   hit); the PE blocks on the chain
    kernel (body S=32, garment pe2) within rtol 1e-4 / atol 1e-5; the K-NN
    transfer's 1-NN indices equal, its own selections (read back through
    one-hot weights, `knn_selection`) those of the plain version wherever
@@ -45,7 +46,9 @@ then:
    the whole `ckpt_synth/posed_synth.npz`, zeroes the launch counters, runs
    `GarmentReconstructor.canonical` once and requires each of its five
    kernels to have launched; times it (median of 3 after a warm-up),
-   profiles it (torch.profiler: device ms per kernel, idle share) and times
+   profiles it (torch.profiler: device ms per kernel, idle share; a
+   session whose kernel events fall short of the launch counters is
+   profiled again, and a third short one fails) and times
    its plain path on the card (inside `ops.plain_ops()`);
 4. posed path: zeroes the counters, runs `GarmentReconstructor.posed` once
    and requires all ten kernels to have launched; prints the counts and
@@ -126,8 +129,12 @@ then:
    3x the plain version's own run-to-run difference. Train frames/s (200 /
    median of 5 steps after 2 warm-ups), the plain path's (1 step), a
    profile of one step and the peak memory;
-7. prints a JSON line of the kernels, then the card line, then as the last
-   line `{"ok": true, "device": {...}}`.
+7. prints a JSON line of the kernels (each row read from the costliest
+   case, by plain ms, of the kernel's own main path: FPS from sa1 of the
+   80-frame forward, not from the train steps' cases; the scatter-add from
+   the canonical train step, not from the op-level dtable check), then the
+   card line,
+   then as the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero without the last line; so
 it does when no CUDA device is visible or when the repo is not beside it.
@@ -154,13 +161,15 @@ scatter-add's), the PE backward at each of its six shapes and its dtable
 half, and the scatter-add at each of its 11 shapes beside one
 `index_add_`, on inputs recorded from the steps; each coverage launch of the
 posed forward and each distinct FPS case of the posed forward and both train
-steps; the ptxas lines of the chain, GCN, K-NN, ball-query, FPS and coverage
-kernels; one JSON line.
+steps; each path's profiled launches a call; the ptxas lines of the chain,
+GCN, K-NN, ball-query, FPS and coverage kernels; one JSON line. The FPS and
+coverage bounds come from this checkout's launch plans, so another
+checkout's run leaves them out.
 `--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
 this one in turns, parent, change, change, parent, so that two checkouts
 are compared in one run on one card, and prints the means (per shape: ms
-and the float64 difference of both, and the bounds) and both builds'
-ptxas lines.
+and the float64 difference of both, and this checkout's bounds) and both
+builds' ptxas lines.
 """
 
 from __future__ import annotations
@@ -264,27 +273,81 @@ def wall_s(fn, runs: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+# Each launch counter of the port (`ops.launch_counts`): the names under
+# which torch.profiler lists its CUDA kernels, the counters that launch
+# them, and the kernels one counted launch runs (the PE backward: its pass
+# and its ordered sum; the scatter-add: its sort and its segmented sum)
+PROFILED = {
+    "fused_chain": (("fused_chain_kernel",), ("fused_chain", "group_pe_max", "group_pe_max_nv"),
+                    1),
+    "gcn_stack": (("gcn_tile_kernel", "gcn_narrow_kernel"), ("gcn_stack",), 1),
+    "knn_transfer": (("knn_transfer_kernel",), ("knn_transfer",), 1),
+    "ball_query_grouped": (("ball_query_grouped_kernel",), ("ball_query_grouped",), 1),
+    "ball_query": (("ball_query_kernel<",), ("ball_query",), 1),
+    "fps": (("fps_kernel", "fps_far_kernel"), ("fps",), 1),
+    "coverage": (("coverage_kernel",), ("coverage",), 1),
+    "three_nn": (("three_nn_kernel",), ("three_nn",), 1),
+    "gather_rows": (("gather_rows_kernel",), ("gather_rows",), 1),
+    "pe_bwd": (("pe_bwd_kernel", "pe_bwd_reduce_kernel"), ("pe_bwd",), 2),
+    "banded": (("banded_kernel",), ("banded",), 1),
+    "nn1": (("nn1_kernel",), ("nn1",), 1),
+    "scatter_add": (("scatter_sort_kernel", "segment_sum_kernel"), ("scatter_add",), 2),
+}
+
+
+PROFILE_TRIES = 3
+
+
 def profile_device(fn, runs: int = 3):
     """Device time of `fn` by kernel, from torch.profiler's CUDA activity
-    over `runs` calls after a warm-up: (rows of (ms per call, launches per
-    call, kernel name), largest first; device ms per call)."""
+    over `runs` calls after a warm-up call inside the session (a session
+    without one lost the first kernel events of its first call): (rows of
+    (ms per call, launches per call, kernel name), largest first; device
+    ms per call). A session whose kernel events of the port differ from
+    the launch counters (`PROFILED`) is profiled again, up to
+    PROFILE_TRIES sessions; then it fails."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from garment4d_tpu_torch import ops
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    per_kernel = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / runs
-            per_kernel[e.name][1] += 1
-    rows = sorted(((ms, n / runs, name) for name, (ms, n) in per_kernel.items()),
-                  reverse=True)
-    return rows, sum(r[0] for r in rows)
+    for attempt in range(PROFILE_TRIES):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traces.append(p.events())) as prof:
+            fn()  # the warm-up step: tracing starts, its events are not kept
+            torch.cuda.synchronize()
+            prof.step()
+            before = collections.Counter(ops.launch_counts)
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        counted = collections.Counter(ops.launch_counts)
+        counted.subtract(before)
+        per_kernel = collections.defaultdict(lambda: [0.0, 0])
+        for e in traces[0]:
+            # the step's own range on the device is no kernel
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+                per_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / runs
+                per_kernel[e.name][1] += 1
+        short = {}
+        for key, (names, counters, per_launch) in PROFILED.items():
+            want = per_launch * sum(counted[c] for c in counters)
+            got = sum(n for name, (_, n) in per_kernel.items() if any(k in name for k in names))
+            if got != want:
+                short[key] = (got, want)
+        if not short:
+            rows = sorted(((ms, n / runs, name) for name, (ms, n) in per_kernel.items()),
+                          reverse=True)
+            return rows, sum(r[0] for r in rows)
+        print(f"profile: kernel events (profiled, counted) {short} in session "
+              f"{attempt + 1} of {PROFILE_TRIES}", flush=True)
+    raise RuntimeError(f"chip_smoke: the profiler recorded other kernel launches than the "
+                       f"counters in {PROFILE_TRIES} sessions: {short}")
 
 
 def kernel_ms(fn, reps: int = 10) -> float:
@@ -389,15 +452,33 @@ def coverage_tests(xyz, centers, radius) -> int:
     return total
 
 
+def curve_order(q):
+    """The order of each frame's points q (B, n, 3) along the Morton curve
+    of 8 cells an axis over their bounding box, as coverage.cu and fps.cu
+    sort them (`common.cuh: morton_code`), up to the order within a cell."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    cells = pc._MORTON_CELLS
+    bits = cells.bit_length() - 1
+    qlo, qhi = q.amin(1, keepdim=True), q.amax(1, keepdim=True)
+    ext = qhi - qlo
+    scale = torch.where(ext > 0, cells / ext, torch.zeros_like(ext))
+    c = ((q - qlo) * scale).trunc().clamp(0, cells - 1).to(torch.int64)
+    code = torch.zeros(q.shape[:2], dtype=torch.int64, device=q.device)
+    for bit in range(bits):
+        for a in range(3):
+            code |= ((c[..., a] >> bit) & 1) << (3 * bit + a)
+    return code.argsort(dim=1, stable=True)
+
+
 def coverage_work(xyz, centers, radius) -> tuple:
-    """(exact tests, box tests) that the coverage kernel needs on this data:
-    each block of the plan's points ordered along the Morton curve of its
-    bounding box (as the kernel sorts them, up to the order within a cell),
-    each warp of 32 visiting the 32-center tiles in order while it has an
-    open point; per tile a box test for each open point, and the tile's
-    centers for each point whose box bound is below r^2 (for each open
-    point where more than _COVERAGE_DENSE need the tile). A point closes at
-    its first tile with a hit."""
+    """(exact tests, box tests) that the coverage kernel needs on this data,
+    under its launch plan (`_coverage_plan`: points a block, centers a tile,
+    `dense`): each block's points in curve order (`curve_order`), each warp
+    of 32 visiting the tiles in order while it has an open point; per tile a
+    box test for each open point, and the tile's centers for each point
+    whose box bound is below r^2 (for each open point where more than
+    `dense` need the tile). A point closes at its first tile with a hit."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     Bc, Nc, _ = xyz.shape
@@ -405,10 +486,8 @@ def coverage_work(xyz, centers, radius) -> tuple:
     if M == 0 or Nc == 0:
         return 0, 0
     r2 = pc._f32(radius * radius)
-    tile = pc._COVERAGE_TILE
-    sms = torch.cuda.get_device_properties(xyz.device).multi_processor_count if xyz.is_cuda \
-        else 132
-    threads = pc._coverage_plan(Bc, Nc, M, sms)["threads"]
+    plan = pc._coverage_plan(Bc, Nc, M)
+    tile, threads = plan["tile"], plan["threads"]
     nt = -(-M // tile)
     pad = torch.full((Bc, nt * tile - M, 3), float("nan"), device=xyz.device)
     tiles = torch.cat([centers, pad], 1).reshape(Bc, nt, tile, 3)
@@ -417,19 +496,9 @@ def coverage_work(xyz, centers, radius) -> tuple:
     sizes = torch.full((nt,), tile, device=xyz.device)
     sizes[-1] = M - (nt - 1) * tile
     exact = box = 0
-    cells = 1 << 3
     for n0 in range(0, Nc, threads):
         q = xyz[:, n0:n0 + threads]
-        # the block's curve order: Morton code of 8 cells an axis over its box
-        qlo, qhi = q.amin(1, keepdim=True), q.amax(1, keepdim=True)
-        ext = qhi - qlo
-        scale = torch.where(ext > 0, cells / ext, torch.zeros_like(ext))
-        c = ((q - qlo) * scale).trunc().clamp(0, cells - 1).to(torch.int64)
-        code = torch.zeros(q.shape[:2], dtype=torch.int64, device=q.device)
-        for bit in range(3):
-            for a in range(3):
-                code |= ((c[..., a] >> bit) & 1) << (3 * bit + a)
-        q = torch.gather(q, 1, code.argsort(dim=1, stable=True)[..., None].expand_as(q))
+        q = torch.gather(q, 1, curve_order(q)[..., None].expand_as(q))
         d2 = pc._sqdist(q[:, :, None, None, :], tiles[:, None])  # (B, n, tiles, tile)
         hit = (d2 < r2).any(-1)
         lb = pc._box_lower_bound(q[:, :, None, :], lo[:, None], hi[:, None])
@@ -445,29 +514,71 @@ def coverage_work(xyz, centers, radius) -> tuple:
         n_need = (opened & need.reshape(Bc, -1, 32, nt)).sum(2)
         box += int((n_open * active).sum())
         # a center a lane for the needing points, else a point a lane
-        exact += int((torch.where(n_need > pc._COVERAGE_DENSE, n_open, n_need) * sizes).sum())
+        exact += int((torch.where(n_need > plan["dense"], n_open, n_need) * sizes).sum())
     return exact, box
 
 
 def coverage_launches(calls):
     """One row per recorded coverage launch of a forward: its case and
-    bounds. `bound_ms`: the first-hit linear scan's tests (9 operations
-    each, `coverage_tests`), kept from the parent kernel's rows; beside it
-    the bytes (xyz and centers read, the mask written) and the work the
-    culled kernel needs (`coverage_work`: 9 operations an exact test, 18 a
-    box test)."""
+    bounds. `bound_ms`: the bytes (xyz and centers read, the mask written)
+    or the work the culled kernel needs on this data (`coverage_work`: 9
+    operations an exact test, 18 a box test), whichever is larger; beside
+    it `scan_bound_ms`, the first-hit linear scan's tests (9 operations
+    each, `coverage_tests`), the parent kernel's bound."""
     rows = []
     for (xyz, centers, radius), _, out in calls:
         Bc, Nc = xyz.shape[:2]
         nb = nbytes(xyz, centers, out)
         exact, boxes = coverage_work(xyz, centers, radius)
-        b_ms, b_by = bound(nb, 9.0 * coverage_tests(xyz, centers, radius))
+        ops = 9.0 * exact + 18.0 * boxes
+        b_ms, b_by = bound(nb, ops)
         rows.append(dict(case=f"body ({Bc}, {Nc}) x {centers.shape[1]} centers, r {radius}",
-                         args=(xyz, centers, radius), bound_ms=b_ms, bound_by=b_by,
-                         bytes_ms=bound(nb, 0)[0],
-                         culled_ms=bound(nb, 9.0 * exact + 18.0 * boxes)[0],
-                         exact_tests=exact, box_tests=boxes, nbytes=nb, launches=1))
+                         args=(xyz, centers, radius), bound_ms=b_ms, bound_by=b_by, ops=ops,
+                         scan_bound_ms=bound(nb, 9.0 * coverage_tests(xyz, centers, radius))[0],
+                         bytes_ms=bound(nb, 0)[0], exact_tests=exact, box_tests=boxes,
+                         nbytes=nb, launches=1))
     return rows
+
+
+def fps_work(xyz, npoint, idx) -> tuple:
+    """(distance updates, box tests) that the FPS kernel needs on this data,
+    given its output `idx` (B, npoint): every point each step, but in the
+    kernel that skips far warps (`_fps_plan`'s `far`), where each warp's run
+    of 32 x ppt points along the frame's curve (`curve_order`) takes a box
+    test a step after the first and is updated only where the bound from
+    the step's new point to its box is below the run's largest running
+    distance (a NaN bound never skips)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    Bf, Nf, _ = xyz.shape
+    steps = npoint - 1
+    plan = pc._fps_plan(Bf, Nf, npoint)
+    if not plan["far"] or steps == 0:
+        return Bf * Nf * steps, 0
+    run = 32 * plan["ppt"]
+    nr = -(-Nf // run)
+    q = torch.gather(xyz, 1, curve_order(xyz)[..., None].expand_as(xyz))
+    real = torch.nn.functional.pad(torch.ones(Bf, Nf, dtype=torch.bool, device=xyz.device),
+                                   (0, nr * run - Nf)).reshape(Bf, nr, run)
+    q = torch.nn.functional.pad(q, (0, 0, 0, nr * run - Nf)).reshape(Bf, nr, run, 3)
+    lo = torch.where(real[..., None], q, torch.inf).amin(2)
+    hi = torch.where(real[..., None], q, -torch.inf).amax(2)
+    sizes = real.sum(-1)
+    mind = torch.full((Bf, nr, run), 1e10, device=xyz.device)
+    rows = torch.arange(Bf, device=xyz.device)
+    updates = torch.zeros((), dtype=torch.int64, device=xyz.device)
+    for j in range(1, npoint):
+        p = xyz[rows, idx[:, j - 1].long()]  # (B, 3): the step's new point
+        d2 = pc._sqdist(q, p[:, None, None, :])
+        if j > 1:
+            top = torch.where(real, mind, -torch.inf).amax(-1)
+            active = ~(pc._box_lower_bound(p[:, None, :], lo, hi) >= top)
+            updates += (active * sizes).sum()
+        else:
+            updates += sizes.sum()
+        # a skipped run's distances cannot drop: the update leaves it as is
+        mind = torch.minimum(mind, d2)
+    return int(updates), Bf * nr * (steps - 1)
 
 
 def chain_plain(table, idx, centers, weights, biases, relus, n_valid=None):
@@ -673,15 +784,19 @@ class Results:
         self.cases = {k: [] for k in KERNELS}
 
     def record(self, kernel, case, err, fn_k, fn_p, n_bytes, n_ops,
-               reps_k=20, reps_p=3, library=None, queued=False, **extra):
+               reps_k=20, reps_p=3, library=None, queued=False, path=None, **extra):
         """`queued`: the kernel's ms by `kernel_ms` (for launches shorter
-        than their host work), else by `cuda_ms`."""
+        than their host work), else by `cuda_ms`. `path`: the main path
+        whose inputs the case takes, where it is not the kernel's own
+        (`KERNELS`); the kernels line reads a case of the kernel's own."""
         b_ms, b_by = bound(n_bytes, n_ops)
         ms = kernel_ms(fn_k, reps_k) if queued else cuda_ms(fn_k, reps_k)
         row = dict(case=case, max_abs_err=float(err), ms=ms,
                    plain_ms=cuda_ms(fn_p, reps_p), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None if library is None else cuda_ms(library, reps_k),
                    **extra)
+        if path is not None:
+            row["path"] = path
         self.cases[kernel].append(row)
         lib = "" if library is None else f" library_ms={row['library_ms']:.4f}"
         print(f"kernel {kernel:18s} {case:52s} max_abs_err={err:.3e} "
@@ -703,12 +818,14 @@ def check_kernels(recon, pcd, res: Results):
     torch.cuda.synchronize()
     xyz0 = pcd.reshape(F, N, 3).contiguous()
 
-    # FPS, sa1: 80 x 6890 -> 1024 (per step: 8-op distance, min, argmax)
+    # FPS, sa1: 80 x 6890 -> 1024 (the distance updates and box tests of
+    # this data, `fps_ops`)
     k = pc._fps_kernel(xyz0, 1024)
     require(torch.equal(k, pc._fps_plain(xyz0, 1024)), "fps indices differ from the plain version")
     res.record("fps", f"sa1 ({F}, {N}) -> 1024", 0,
                lambda: pc._fps_kernel(xyz0, 1024), lambda: pc._fps_plain(xyz0, 1024),
-               nbytes(xyz0, k), 10.0 * F * N * 1023, reps_k=5, reps_p=1)
+               nbytes(xyz0, k), fps_ops(xyz0, 1024, k), reps_k=5, reps_p=1,
+               scan_bound_ms=bound(nbytes(xyz0, k), 10.0 * F * N * 1023)[0])
 
     def gather_case(case, table, idx):
         out = pc._gather_rows_kernel(table, idx)
@@ -844,12 +961,13 @@ def knn_float64_err(garment, body, w0, k, k64, outs):
 
 
 @torch.inference_mode()
-def check_knn(label, args, res: Results):
+def check_knn(label, args, res: Results, path=None):
     """The K-NN transfer on one recorded call's inputs: the 1-NN bitwise
     the plain version's; the kernel's selections those of the plain
     version wherever 1/d^2 is finite (elsewhere a point weighs 0 either
     way); the weights within KNN_TOL of the plain version and of the
-    float64 transfer over the kernel's selections; timed."""
+    float64 transfer over the kernel's selections; timed. `path`: the main
+    path the call comes from, where it is not the kernel's own."""
     from garment4d_tpu_torch.models import skinning
     from garment4d_tpu_torch.ops.pointcloud import pairwise_sqdist
 
@@ -879,7 +997,7 @@ def check_knn(label, args, res: Results):
                lambda: skinning._knn_transfer_plain(garment, body, w0, k, k64),
                nbytes(garment, body, w0, kk, k6, ki),
                10.0 * Bk * Vg * body.shape[1] + 2.0 * Bk * Vg * (k + k64) * J,
-               err_float64=err64)
+               err_float64=err64, path=path)
 
 
 def query_launches(calls, grouped):
@@ -904,23 +1022,38 @@ def query_launches(calls, grouped):
     return rows
 
 
+def fps_ops(xyz, npoint, idx) -> float:
+    """Operations the FPS kernel needs on this data (`fps_work`): 10 a
+    distance update (8 for the distance, the min, the compare), 18 a box
+    test."""
+    updates, boxes = fps_work(xyz, npoint, idx)
+    return 10.0 * updates + 18.0 * boxes
+
+
 def fps_launches(calls):
-    """One row per recorded FPS launch of a forward: its case and bound."""
+    """One row per recorded FPS launch of a forward: its case and bounds.
+    `bound_ms`: the bytes (xyz read, the indices written) or the work the
+    kernel needs on this data (`fps_ops`), whichever is larger; beside it
+    `scan_bound_ms`, every point updated every step (the parent kernel's
+    bound)."""
     rows = []
     for (xyz, npoint), _, out in calls:
         Bf, Nf = xyz.shape[:2]
-        ops = 10.0 * Bf * Nf * (npoint - 1)
-        b_ms, b_by = bound(nbytes(xyz, out), ops)
+        nb = nbytes(xyz, out)
+        ops = fps_ops(xyz, npoint, out)
+        b_ms, b_by = bound(nb, ops)
         rows.append(dict(case=f"({Bf}, {Nf}) -> {npoint}", args=(xyz, npoint), bound_ms=b_ms,
-                         bound_by=b_by, launches=1, ops=ops, nbytes=nbytes(xyz, out)))
+                         bound_by=b_by, launches=1, ops=ops, nbytes=nb,
+                         scan_bound_ms=bound(nb, 10.0 * Bf * Nf * (npoint - 1))[0]))
     return rows
 
 
 @torch.inference_mode()
-def check_fps(label, fcalls, res: Results):
+def check_fps(label, fcalls, res: Results, path=None):
     """Each distinct FPS case of a path's recorded launches bitwise its
-    plain version, timed beside its bound and the per-step time; returns
-    the rows (`fps_launches`)."""
+    plain version, timed beside its bounds and the per-step time; returns
+    the rows (`fps_launches`). `path`: the main path the launches come
+    from, where it is not the kernel's own (`KERNELS`)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     rows = fps_launches(fcalls)
@@ -931,20 +1064,21 @@ def check_fps(label, fcalls, res: Results):
                 f"fps {label} {case} differs from plain")
         res.record("fps", f"{label} {case} x{count}", 0,
                    lambda: pc._fps_kernel(xyz, npoint), lambda: pc._fps_plain(xyz, npoint),
-                   row["nbytes"], row["ops"], reps_k=10, reps_p=1, queued=True,
-                   launches_per_call=count)
+                   row["nbytes"], row["ops"], reps_k=10, reps_p=1, queued=True, path=path,
+                   launches_per_call=count, scan_bound_ms=row["scan_bound_ms"])
         ms = res.cases["fps"][-1]["ms"]
         print(f"fps {label} {case}: {1e3 * ms / max(npoint - 1, 1):.3f} us a step "
-              f"({npoint - 1} steps), bound {row['bound_ms']:.4f} ms", flush=True)
+              f"({npoint - 1} steps), bound {row['bound_ms']:.4f} ms, scan bound "
+              f"{row['scan_bound_ms']:.4f}", flush=True)
     return rows
 
 
 @torch.inference_mode()
 def check_coverage(ccalls, res: Results):
     """Every coverage launch of one posed forward, recorded with its
-    inputs: bitwise its plain version, its bounds printed (the linear
-    scan's, the bytes', the culled kernel's) and their sums, timed; returns
-    the rows (`coverage_launches`)."""
+    inputs: bitwise its plain version, its bounds printed (the culled
+    kernel's work or the bytes, the bytes alone, the linear scan's) and
+    their sums, timed; returns the rows (`coverage_launches`)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     rows = coverage_launches(ccalls)
@@ -956,16 +1090,16 @@ def check_coverage(ccalls, res: Results):
         res.record("coverage", f"posed forward launch {i}: {row['case']}", 0,
                    lambda: pc._covered_mask_kernel(xyz, centers, r),
                    lambda: pc._covered_mask_plain(xyz, centers, r), row["nbytes"],
-                   9.0 * coverage_tests(xyz, centers, r), reps_p=1, launches_per_forward=1,
-                   bytes_ms=row["bytes_ms"], culled_ms=row["culled_ms"],
+                   row["ops"], reps_p=1, launches_per_forward=1,
+                   bytes_ms=row["bytes_ms"], scan_bound_ms=row["scan_bound_ms"],
                    exact_tests=row["exact_tests"], box_tests=row["box_tests"])
-        print(f"coverage launch {i}: scan bound {row['bound_ms']:.4f} ms, byte bound "
-              f"{row['bytes_ms']:.4f}, culled bound {row['culled_ms']:.4f} ({row['exact_tests']} "
-              f"exact and {row['box_tests']} box tests)", flush=True)
-    sums = {k: sum(r[k] for r in rows) for k in ("bound_ms", "bytes_ms", "culled_ms")}
-    print(f"coverage: {len(rows)} launches per posed forward, summed bounds: scan "
-          f"{sums['bound_ms']:.4f} ms, bytes {sums['bytes_ms']:.4f}, culled "
-          f"{sums['culled_ms']:.4f}", flush=True)
+        print(f"coverage launch {i}: bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['exact_tests']} exact and {row['box_tests']} box tests), byte bound "
+              f"{row['bytes_ms']:.4f}, scan bound {row['scan_bound_ms']:.4f}", flush=True)
+    sums = {k: sum(r[k] for r in rows) for k in ("bound_ms", "bytes_ms", "scan_bound_ms")}
+    print(f"coverage: {len(rows)} launches per posed forward, summed bounds "
+          f"{sums['bound_ms']:.4f} ms, bytes {sums['bytes_ms']:.4f}, scan "
+          f"{sums['scan_bound_ms']:.4f}", flush=True)
     return rows
 
 
@@ -1369,7 +1503,7 @@ def check_pe_dtable(args, res: Results):
     # its scatter-add: the won slots' row gradients (the others indexed -1)
     (dqg, idx_w, n), _, out = scatters[0]
     scatter_case(f"dtable ({dqg.shape[0]}, {dqg.shape[1]}, {dqg.shape[2]}) into {n} rows, "
-                 f"{int((idx_w >= 0).sum())} won", dqg, idx_w, n, out, res)
+                 f"{int((idx_w >= 0).sum())} won", dqg, idx_w, n, out, res, path="op-level")
     return failed
 
 
@@ -1506,8 +1640,8 @@ def train_phase(assets, body, weights, res: Results):
 
     failed = check_train_kernels(dict(nn1=nn1_calls, banded=banded_calls, pe_bwd=pe_calls),
                                  res)
-    check_knn("posed train step", knn_calls[0][0], res)
-    check_fps("posed train step", fps_calls, res)
+    check_knn("posed train step", knn_calls[0][0], res, path="train")
+    check_fps("posed train step", fps_calls, res, path="train")
     del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:], fps_calls[:]
 
     # the plain path from the same weights and batch, its backward included
@@ -1545,12 +1679,13 @@ def train_phase(assets, body, weights, res: Results):
 
 
 @torch.no_grad()
-def scatter_case(case, grads, idx, n, out, res: Results):
+def scatter_case(case, grads, idx, n, out, res: Results, path=None):
     """One scatter-add call and its result `out`: against its plain version
     on the card (`index_add_`, atomics: rtol 1e-5 / atol 1e-6), bitwise
     against the ascending-order sum on the CPU (the plain version there),
     two launches bitwise equal; timed beside its bound (bytes), its plain
-    version and one `index_add_` call on the flattened rows."""
+    version and one `index_add_` call on the flattened rows. `path`: where
+    the call comes from, if not the kernel's main path."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     Bs, R, C = grads.shape
@@ -1572,7 +1707,7 @@ def scatter_case(case, grads, idx, n, out, res: Results):
     res.record("scatter_add", case, err, lambda: pc._scatter_add_rows_kernel(grads, idx, n),
                lambda: pc._scatter_add_rows_plain(grads, idx, n),
                int(valid.sum()) * C * 4 + nbytes(idx, out), float(valid.sum()) * C, reps_k=10,
-               library=lambda: lib_out.index_add_(0, flat, rows),
+               library=lambda: lib_out.index_add_(0, flat, rows), path=path,
                bitwise_cpu=True, bitwise_repeat=True)
 
 
@@ -1692,7 +1827,7 @@ def canonical_train_phase(assets, body, weights, res: Results):
     print(f"{len(grads)} parameters, all with finite gradients and moved; {len(stats)} "
           f"running statistics changed", flush=True)
     check_scatter_add(scatter_calls, res)
-    check_fps("canonical train step", fps_calls, res)
+    check_fps("canonical train step", fps_calls, res, path="canonical_train")
     del scatter_calls[:], fps_calls[:], before
 
     # the eval step: inference mode, the fused eval-mode SA path, the mask
@@ -1903,30 +2038,45 @@ def time_queries(bcalls, gcalls) -> dict:
 
 
 @torch.inference_mode()
-def time_fps(label, fcalls) -> list:
+def time_fps(label, fcalls, bounds: bool) -> list:
     """Each distinct FPS case of a path's recorded launches: ms (mean of 10
     calls queued behind a sleeping kernel, `kernel_ms`), the launches of the
-    case, the bound."""
+    case and, with `bounds` (this checkout's launch plan), the bounds
+    (`fps_launches`)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
-    return [dict(case=f"{label} {case}", launches=count, bound_ms=row["bound_ms"],
-                 ms=kernel_ms(lambda: pc._fps_kernel(*row["args"]), 10))
-            for case, (row, count) in by_case(fps_launches(fcalls)).items()]
+    out = []
+    calls = [dict(case=f"({a[0].shape[0]}, {a[0].shape[1]}) -> {a[1]}", call=(a, kw, r))
+             for a, kw, r in fcalls]
+    for case, (first, count) in by_case(calls).items():
+        args = first["call"][0]
+        row = dict(case=f"{label} {case}", launches=count,
+                   ms=kernel_ms(lambda: pc._fps_kernel(*args), 10))
+        if bounds:
+            b = fps_launches([first["call"]])[0]
+            row.update(bound_ms=b["bound_ms"], scan_bound_ms=b["scan_bound_ms"])
+        out.append(row)
+    return out
 
 
 @torch.inference_mode()
-def time_coverage(ccalls) -> list:
+def time_coverage(ccalls, bounds: bool) -> list:
     """Each coverage launch of one posed forward on its recorded inputs: ms
-    (CUDA events, mean of 20) beside the linear scan's bound."""
+    (CUDA events, mean of 20) and, with `bounds` (this checkout's launch
+    plan), its bounds (`coverage_launches`)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
-    rows = []
-    for i, ((xyz, centers, r), _, mask) in enumerate(ccalls):
-        b_ms = bound(nbytes(xyz, centers, mask), 9.0 * coverage_tests(xyz, centers, r))[0]
-        rows.append(dict(case=f"launch {i}: ({xyz.shape[0]}, {xyz.shape[1]}) x "
-                         f"{centers.shape[1]}, r {r}", bound_ms=b_ms,
-                         ms=cuda_ms(lambda: pc._covered_mask_kernel(xyz, centers, r), 20)))
-    return rows
+    out = []
+    for i, call in enumerate(ccalls):
+        xyz, centers, r = call[0]
+        row = dict(case=f"launch {i}: body ({xyz.shape[0]}, {xyz.shape[1]}) x "
+                   f"{centers.shape[1]} centers, r {r}",
+                   ms=cuda_ms(lambda: pc._covered_mask_kernel(xyz, centers, r), 20))
+        if bounds:
+            b = coverage_launches([call])[0]
+            row.update(bound_ms=b["bound_ms"], scan_bound_ms=b["scan_bound_ms"])
+        out.append(row)
+    return out
 
 
 def time_kernels(root: Path) -> int:
@@ -1958,6 +2108,7 @@ def time_kernels(root: Path) -> int:
 
     require(Path(garment4d_tpu_torch.__file__).resolve().is_relative_to(root),
             f"the package was not imported from {root}")
+    own = root == REPO  # this checkout: its launch plans give the data's bounds
     dev = torch.device("cuda")
     weights = str(root / "ckpt_synth" / "posed_synth.npz")
     assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
@@ -1971,13 +2122,15 @@ def time_kernels(root: Path) -> int:
     rows, dev_ms = profile_device(lambda: recon.posed(pcd, body_in), runs=2)
     names = sum((AB_KERNEL_NAMES[k] for k in TIMED_KERNELS), ())
     out.update(posed_frames_per_sec=F / step_s, posed_device_ms=dev_ms,
+               posed_launches=sum(r[1] for r in rows),
                chain_device_ms_per_forward=device_ms_of(rows, AB_KERNEL_NAMES["fused_chain"]),
                gcn_device_ms_per_forward=device_ms_of(rows, AB_KERNEL_NAMES["gcn_stack"]),
                posed_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
                                           for k in TIMED_KERNELS},
                posed_kernel_rows=[(ms, n, name[:90]) for ms, n, name in rows
                                   if any(k in name for k in names)])
-    _, out["canonical_device_ms"] = profile_device(lambda: recon.canonical(pcd), runs=2)
+    rows, out["canonical_device_ms"] = profile_device(lambda: recon.canonical(pcd), runs=2)
+    out["canonical_launches"] = sum(r[1] for r in rows)
     out.update(time_chain_gcn(recon, pcd, body_in))
     with recording(skinning, "knn_transfer") as kcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
@@ -1988,10 +2141,12 @@ def time_kernels(root: Path) -> int:
     torch.cuda.synchronize()
     out.update(time_queries(bcalls, gcalls))
     out["knn"] = [time_knn("posed forward", kcalls[0][0])]
-    out["fps"] = time_fps("posed forward", fcalls)
-    out["coverage"] = time_coverage(ccalls)
+    out["fps"] = time_fps("posed forward", fcalls, own)
+    out["coverage"] = time_coverage(ccalls, own)
     out["coverage_ms_sum"] = sum(c["ms"] for c in out["coverage"])
-    out["coverage_bound_ms_sum"] = sum(c["bound_ms"] for c in out["coverage"])
+    if own:
+        out["coverage_bound_ms_sum"] = sum(c["bound_ms"] for c in out["coverage"])
+        out["coverage_scan_bound_ms_sum"] = sum(c["scan_bound_ms"] for c in out["coverage"])
     del kcalls, bcalls, gcalls, fcalls, ccalls
     out["ptxas"] = ptxas_lines(("fused_chain", "gcn_", "knn_transfer", "ball_query", "fps_",
                                 "coverage_kernel"))
@@ -2009,11 +2164,12 @@ def time_kernels(root: Path) -> int:
     step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
     out.update(posed_train_frames_per_sec=TRAIN_F / step_s, posed_train_device_ms=dev_ms,
+               posed_train_launches=sum(r[1] for r in rows),
                pe_bwd_device_ms_per_step=device_ms_of(rows, AB_KERNEL_NAMES["pe_bwd"]),
                posed_train_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
                                                 for k in TIMED_KERNELS})
     out["knn"].append(time_knn("posed train step", kcalls[0][0]))
-    out["fps"] += time_fps("posed train step", fcalls)
+    out["fps"] += time_fps("posed train step", fcalls, own)
     del kcalls, fcalls
     shapes = {}
     for a, _, _ in calls:
@@ -2049,10 +2205,11 @@ def time_kernels(root: Path) -> int:
     rows, dev_ms = profile_device(step, runs=1)
     out.update(canonical_train_frames_per_sec=CANON_F / step_s,
                canonical_train_device_ms=dev_ms,
+               canonical_train_launches=sum(r[1] for r in rows),
                scatter_add_device_ms_per_step=device_ms_of(
                    rows, AB_KERNEL_NAMES["scatter_add"]),
                canonical_train_fps_device_ms=device_ms_of(rows, AB_KERNEL_NAMES["fps"]))
-    out["fps"] += time_fps("canonical train step", fcalls)
+    out["fps"] += time_fps("canonical train step", fcalls, own)
     del fcalls
     out["scatter_add"] = []
     torch.set_grad_enabled(False)
@@ -2098,7 +2255,9 @@ def ab(parent: Path) -> int:
                 "canonical_device_ms", "posed_train_frames_per_sec",
                 "posed_train_device_ms", "pe_bwd_device_ms_per_step",
                 "canonical_train_frames_per_sec", "canonical_train_device_ms",
-                "scatter_add_device_ms_per_step", "pe_bwd_dtable_ms", "dtable_scatter_ms"):
+                "scatter_add_device_ms_per_step", "pe_bwd_dtable_ms", "dtable_scatter_ms",
+                "posed_launches", "canonical_launches", "posed_train_launches",
+                "canonical_train_launches"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
     for path in ("posed", "posed_train"):
         for k in TIMED_KERNELS:
@@ -2109,7 +2268,8 @@ def ab(parent: Path) -> int:
                 "canonical_train_fps_device_ms"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
     for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum", "ball_query_grouped_bound_ms_sum",
-                "ball_query_bound_ms_sum", "coverage_bound_ms_sum"):
+                "ball_query_bound_ms_sum", "coverage_bound_ms_sum",
+                "coverage_scan_bound_ms_sum"):
         summary[key] = {"bound": runs[1][1][key]}
     for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
                    "ball_query", "fps", "coverage"):
@@ -2117,8 +2277,9 @@ def ab(parent: Path) -> int:
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
                    for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
                    if field in case for lab in ("parent", "change")}
-            if "bound_ms" in case:
-                row["bound_ms"] = case["bound_ms"]
+            # the bounds of this checkout's plans, from a run of the change
+            row.update({k: v for k, v in runs[1][1][kernel][i].items()
+                        if k in ("bound_ms", "scan_bound_ms")})
             summary[f"{kernel} {case['case']}"] = row
     for label in ("parent", "change"):
         for line in next(r for lab, r in runs if lab == label)["ptxas"]:
@@ -2316,7 +2477,9 @@ def main() -> int:
     kernels = []
     for name, cases in res.cases.items():
         source, replaces, path = KERNELS[name]
-        main_case = max(cases, key=lambda c: c["plain_ms"])
+        # the row reads the costliest case of the kernel's own main path
+        own = [c for c in cases if c.get("path", path) == path]
+        main_case = max(own, key=lambda c: c["plain_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=CSRC + source, replaces=PALLAS + replaces,
             launches=path_launches[path].get(name, 0), main_path=path,
@@ -2326,6 +2489,7 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            **{k: main_case[k] for k in ("scan_bound_ms",) if k in main_case},
             library_ms=main_case["library_ms"], case=main_case["case"], cases=cases))
     print(json.dumps({
         "kernels": kernels,

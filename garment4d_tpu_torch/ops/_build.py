@@ -55,7 +55,7 @@ _SIGNATURES = {
                                _I, _P, _F, _I, _P, _I, _I, _I, _P),
     "g4d_three_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
     "g4d_fused_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _IP, _I, _I, _I, _P, _P, _P, _P),
-    "g4d_coverage": (_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P),
+    "g4d_coverage": (_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P, _P),
     "g4d_knn_transfer": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, _P, _P, _P),
     "g4d_gcn_layer": (_PP, _IP, _I, _IP, _I, _I, _I, _I, _P, _IP, _IP, _I, _I, _I, _P, _P,

@@ -68,6 +68,14 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
+// The gap of p to [lo, hi] along one axis, each difference rounded as
+// g4d_sqdist's, NaN when p is NaN: g4d_sqdist of the three gaps is the box
+// culls' lower bound (coverage.cu's header says why it never exceeds a
+// point's fp32 distance; a NaN bound never skips).
+__device__ __forceinline__ float box_gap(float p, float lo, float hi) {
+  return max_nan(max_nan(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
+}
+
 // ---- spatial order of a block's points (coverage.cu, fps.cu) -----------------
 //
 // A block orders its points along a Morton curve of 8 x 8 x 8 cells over

@@ -25,40 +25,33 @@
 // - most tested tiles are needed by a few of the warp's points (one in a
 //   quarter of them, at most four in two thirds, on the posed forward's
 //   data). Those are tested a center a lane, the needing points broadcast
-//   in turn (32 tests in ~16 instructions a point); a tile more than kDense
-//   points need is tested a point a lane (32 x ~10 instructions).
+//   in turn (32 tests in ~16 instructions a point); a tile more than
+//   `dense` points need is tested a point a lane (32 x ~10 instructions;
+//   the two measured alike for `dense` from 8 to 16).
 //
 // Exactness of the cull. A tile is skipped only when lb >= r2, where for
 // each axis the gap to the box [lo, hi] is g = max(max(fl(lo - p), fl(p -
-// hi)), 0) and lb = g4d_sqdist(gx, gy, gz). For a center c of the tile,
-// lo <= c <= hi. If p < lo, then c - p >= lo - p > 0, and rounding is
-// monotone, so fl(c - p) >= fl(lo - p) = g; if p > hi, then |fl(c - p)| =
-// fl(p - c) >= fl(p - hi) = g (round to nearest is symmetric); otherwise g
-// = 0 <= |fl(c - p)|. Squaring and adding rounded non-negative values are
+// hi)), 0) (g4d::box_gap) and lb = g4d_sqdist(gx, gy, gz). For a center c
+// of the tile, lo <= c <= hi. If p < lo, then c - p >= lo - p > 0, and
+// rounding is monotone, so fl(c - p) >= fl(lo - p) = g; if p > hi, then
+// |fl(c - p)| = fl(p - c) >= fl(p - hi) = g (round to nearest is
+// symmetric); otherwise g = 0 <= |fl(c - p)|. Squaring and adding rounded non-negative values are
 // monotone too, and lb sums in g4d_sqdist's order, so lb <= the fp32 d^2 of
 // every center of the tile: lb >= r2 means no center of the tile has d^2 <
-// r2. NaN centers are left out of the boxes and never hit; a NaN point gets
-// gaps of 0 and its tiles are tested; a NaN bound never skips.
+// r2. NaN centers are left out of the boxes and never hit; a NaN point's
+// bound is NaN, which never skips (its tests never hit).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;  // centers per box
-// a tile that more of a warp's points need is tested a point a lane, else a
-// center a lane (see below; both measured alike from 8 to 16)
-constexpr int kDense = 16;
-
-// the gap of p to [lo, hi] along one axis, rounded as g4d_sqdist's difference
-__device__ __forceinline__ float gap(float p, float lo, float hi) {
-  return fmaxf(fmaxf(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
-}
+constexpr int kTile = 32;  // centers per box: a lane each
 
 // Shared memory (dynamic, float4 units): the chunk's centers, two box
 // corners per tile, the block's points in curve order (x, y, z, index
 // bits), then the cells' counts (int).
 __global__ void __launch_bounds__(1024)
 coverage_kernel(const float* __restrict__ xyz, const float* __restrict__ centers, int N,
-                int M, float r2, int chunk, int* __restrict__ out) {
+                int M, float r2, int chunk, int dense, int* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float4* sc = smem4;
   float4* sbox = sc + chunk;
@@ -136,11 +129,12 @@ coverage_kernel(const float* __restrict__ xyz, const float* __restrict__ centers
     for (int t = 0; t < tiles; ++t) {
       if (!__any_sync(0xffffffffu, open)) break;
       const float4 lo = sbox[2 * t], hi = sbox[2 * t + 1];
-      const float lb = g4d_sqdist(gap(px, lo.x, hi.x), gap(py, lo.y, hi.y), gap(pz, lo.z, hi.z));
+      const float lb = g4d_sqdist(g4d::box_gap(px, lo.x, hi.x), g4d::box_gap(py, lo.y, hi.y),
+                                  g4d::box_gap(pz, lo.z, hi.z));
       const unsigned need = __ballot_sync(0xffffffffu, open && !(lb >= r2));
       if (need == 0u) continue;
       const float4* ct = sc + t * kTile;
-      if (__popc(need) > kDense) {
+      if (__popc(need) > dense) {
         // many points: each lane tests its point against the tile's centers
         bool hit = false;
 #pragma unroll
@@ -173,16 +167,20 @@ coverage_kernel(const float* __restrict__ xyz, const float* __restrict__ centers
 // xyz (B, N, 3), centers (B, M, 3) f32 -> out (B, N) i32 in {0, 1}; r2 is
 // the f32 r^2. The launch plan (pointcloud._coverage_plan): `blocks` per
 // frame of `threads` threads, a point each, `chunk` centers staged at a time
-// (a multiple of 32), `smem` dynamic shared bytes.
+// in whole tiles of `tile` (kTile) centers, `dense` (the most needing points
+// a tile tested a center a lane has), `smem` dynamic shared bytes, which
+// must hold the chunk, its boxes, the points and the sort's counts.
 extern "C" int g4d_coverage(const float* xyz, const float* centers, int B, int N, int M,
-                            float r2, int threads, int chunk, int blocks, int smem, int* out,
-                            cudaStream_t stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 || chunk < kTile || chunk % kTile)
+                            float r2, int threads, int blocks, int tile, int chunk, int dense,
+                            int smem, int* out, cudaStream_t stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 || tile != kTile || chunk < kTile ||
+      chunk % kTile || dense < 0 || dense > 32 ||
+      smem < 16 * chunk + 32 * (chunk / kTile) + 16 * threads + 4 * g4d::kCodes)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       coverage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   coverage_kernel<<<dim3(blocks, B), threads, smem, stream>>>(xyz, centers, N, M, r2, chunk,
-                                                               out);
+                                                               dense, out);
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,24 @@
 
 namespace {
 
+// A step's argmax, as (running-distance bits, index) keys: the warp's
+// largest bits and the lowest index among the lanes holding them.
+__device__ __forceinline__ uint2 warp_best(unsigned bits, unsigned index) {
+  const unsigned wbest = __reduce_max_sync(0xffffffffu, bits);
+  return make_uint2(wbest, __reduce_min_sync(0xffffffffu, bits == wbest ? index : UINT_MAX));
+}
+
+// The block's winning index from each warp's key: lane 0 writes it into
+// `slots` (the step parity's array), then after the step's one barrier
+// every warp reduces all of them itself.
+__device__ __forceinline__ unsigned block_best(uint2 key, uint2* slots, int n_warps) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) slots[threadIdx.x >> 5] = key;
+  __syncthreads();
+  const uint2 s = lane < n_warps ? slots[lane] : make_uint2(0u, UINT_MAX);
+  return warp_best(s.x, s.y).y;
+}
+
 template <int PPT, bool kRegs>
 __global__ void __launch_bounds__(1024)
 fps_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out) {
@@ -50,8 +68,6 @@ fps_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ o
 
   const int T = blockDim.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int n_warps = T >> 5;
   const float* p = xyz + (size_t)blockIdx.x * N * 3;
   int* o = out + (size_t)blockIdx.x * npoint;
@@ -101,27 +117,13 @@ fps_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ o
         bk = k;
       }
     }
-    const unsigned wbest = __reduce_max_sync(0xffffffffu, best);
-    unsigned win = __reduce_min_sync(0xffffffffu, best == wbest ? (unsigned)(tid + bk * T)
-                                                                : UINT_MAX);
-    if (n_warps > 1) {
-      if (lane == 0) slots[j & 1][warp] = make_uint2(wbest, win);
-      __syncthreads();
-      const uint2 s = lane < n_warps ? slots[j & 1][lane] : make_uint2(0u, UINT_MAX);
-      const unsigned gbest = __reduce_max_sync(0xffffffffu, s.x);
-      win = __reduce_min_sync(0xffffffffu, s.x == gbest ? s.y : UINT_MAX);
-    }
+    const uint2 key = warp_best(best, (unsigned)(tid + bk * T));
+    const unsigned win = n_warps > 1 ? block_best(key, slots[j & 1], n_warps) : key.y;
     if (tid == 0) o[j] = (int)win;
     lx = sx[win];
     ly = sy[win];
     lz = sz[win];
   }
-}
-
-// the gap of p to [lo, hi] along one axis, rounded as g4d_sqdist's
-// difference; NaN when p is NaN
-__device__ __forceinline__ float gap(float p, float lo, float hi) {
-  return g4d::max_nan(g4d::max_nan(__fsub_rn(lo, p), __fsub_rn(p, hi)), 0.0f);
 }
 
 // fps_kernel for sets of 8 points a thread (4096 < N <= 8192, the frames of
@@ -262,8 +264,8 @@ fps_far_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict
     bool skip = false;
     if (j > 1) {
       const float4 blo = sbox[warp][0], bhi = sbox[warp][1];
-      const float lb = g4d_sqdist(gap(lx, blo.x, bhi.x), gap(ly, blo.y, bhi.y),
-                                  gap(lz, blo.z, bhi.z));
+      const float lb = g4d_sqdist(g4d::box_gap(lx, blo.x, bhi.x), g4d::box_gap(ly, blo.y, bhi.y),
+                                  g4d::box_gap(lz, blo.z, bhi.z));
       skip = __all_sync(0xffffffffu, lb >= __uint_as_float(wbest));  // false for a NaN
     }
     if (!skip) {
@@ -280,13 +282,9 @@ fps_far_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict
         }
       }
     }
-    wbest = __reduce_max_sync(0xffffffffu, best);
-    unsigned win = __reduce_min_sync(0xffffffffu, best == wbest ? bi : UINT_MAX);
-    if (lane == 0) slots[j & 1][warp] = make_uint2(wbest, win);
-    __syncthreads();
-    const uint2 s = lane < n_warps ? slots[j & 1][lane] : make_uint2(0u, UINT_MAX);
-    const unsigned gbest = __reduce_max_sync(0xffffffffu, s.x);
-    win = __reduce_min_sync(0xffffffffu, s.x == gbest ? s.y : UINT_MAX);
+    const uint2 key = warp_best(best, bi);
+    wbest = key.x;
+    const unsigned win = block_best(key, slots[j & 1], n_warps);
     if (tid == 0) o[j] = (int)win;
     lx = sx[win];
     ly = sy[win];
@@ -310,12 +308,16 @@ int launch(K kernel, const float* xyz, int B, int N, int npoint, int threads, in
 
 // xyz (B, N, 3) f32 -> out (B, npoint) i32, one block of `threads` threads
 // (a multiple of 32, at most 1024, threads x ppt >= N) per frame, `smem`
-// dynamic bytes; ppt 1, 2, 4 or 8 (points in registers; 8 with `far`:
+// dynamic bytes (the planes; with `far` the sorted frame and the sort's
+// counts); ppt 1, 2, 4 or 8 (points in registers; 8 with `far`:
 // fps_far_kernel) or 16 (read from the planes), from pointcloud._fps_plan.
 // Returns a cudaError_t code.
 extern "C" int g4d_fps(const float* xyz, int B, int N, int npoint, int threads, int ppt,
                        int far, int smem, int* out, cudaStream_t stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0 || (long long)threads * ppt < N)
+  const long long need = far ? (16LL * N > 4 * g4d::kCodes ? 16LL * N : 4 * g4d::kCodes)
+                             : 12LL * N;
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || (long long)threads * ppt < N ||
+      smem < need)
     return (int)cudaErrorInvalidValue;
   if (far) {
     if (ppt == 8) return launch(fps_far_kernel<8>, xyz, B, N, npoint, threads, smem, out, stream);

@@ -102,6 +102,12 @@ def _fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+# common.cuh: the Morton cells (kCodes) by which coverage.cu and fps.cu
+# order a block's points; their counting sort keeps a count a cell in
+# shared memory (the C entries refuse a plan with less)
+_MORTON_CELLS = 8
+_MORTON_CODES = _MORTON_CELLS ** 3
+
 # fps.cu: points per thread held in registers (template instances), the
 # instance that reads them from the staged frame (sets past 32 warps x 8
 # points), and the sets that one warp samples alone (no barrier).
@@ -136,7 +142,7 @@ def _fps_plan(B: int, N: int, npoint: int) -> dict:
     # sets of 8 points a thread take the kernel that skips far warps; its
     # sorted frame (float4) also holds the sort's counts (2 KB) at first
     far = not staged and ppt == _FPS_PPTS[-1] and N > 32 * 32 * _FPS_PPT
-    smem = max(16 * N, 4 * _COVERAGE_CODES) if far else 12 * N
+    smem = max(16 * N, 4 * _MORTON_CODES) if far else 12 * N
     return dict(threads=32 * -(-N // (32 * ppt)), ppt=ppt, staged=staged, far=far, smem=smem)
 
 
@@ -517,44 +523,41 @@ def _covered_mask_plain(xyz: torch.Tensor, centers: torch.Tensor,
     return torch.cat(outs, dim=1).to(torch.int32)
 
 
-# coverage.cu: centers per box (kTile), Morton cells of the point sort
-# (kCodes), the most centers staged at a time (64 KB), threads per block
-# (a point each), and the fewest a block shrinks to while the grid would
-# not give every SM a block.
+# coverage.cu: centers per box (a warp's lanes; the C entry refuses
+# another), the most staged at a time (64 KB), threads per block (a point
+# each), and the tiles more of a warp's points need than this are tested a
+# point a lane, the others a center a lane
 _COVERAGE_TILE = 32
-_COVERAGE_CODES = 512
 _COVERAGE_MAX_CHUNK = 4096
 _COVERAGE_THREADS = 512
-_COVERAGE_MIN_THREADS = 128
-_COVERAGE_DENSE = 16  # coverage.cu: kDense
+_COVERAGE_DENSE = 16
 
 
 @functools.lru_cache(maxsize=64)
-def _coverage_plan(B: int, N: int, M: int, sms: int) -> dict:
-    """The coverage kernel's launch plan on `sms` SMs: `blocks` per frame of
-    `threads` threads (a point each; fewer, down to _COVERAGE_MIN_THREADS,
-    while B x blocks < sms), `chunk` centers staged at a time
-    (whole tiles of _COVERAGE_TILE), `smem` dynamic bytes (the chunk, its
-    boxes, the block's points and the sort's counts). Raises ValueError for
-    what the kernel does not take (negative sizes, B past the grid's y)."""
+def _coverage_plan(B: int, N: int, M: int) -> dict:
+    """The coverage kernel's launch plan: `blocks` per frame of `threads`
+    threads (a point each), `chunk` centers staged at a time in whole
+    `tile`s, `dense` (a tile that more of a warp's open points need is
+    tested a point a lane), `smem` dynamic bytes (the chunk, its boxes, the
+    block's points and the sort's counts). Raises ValueError for what the
+    kernel does not take (negative sizes, B past the grid's y)."""
     if min(B, N, M) < 0 or B > 65535:
         raise ValueError(f"covered_mask: B={B}, N={N}, M={M} (B <= 65535)")
-    threads = _COVERAGE_THREADS
-    while threads > _COVERAGE_MIN_THREADS and B * -(-N // threads) < sms:
-        threads //= 2
-    tile = _COVERAGE_TILE
+    threads, tile = _COVERAGE_THREADS, _COVERAGE_TILE
     chunk = min(max(-(-M // tile) * tile, tile), _COVERAGE_MAX_CHUNK)
-    smem = 16 * chunk + 32 * (chunk // tile) + 16 * threads + 4 * _COVERAGE_CODES
-    return dict(threads=threads, chunk=chunk, smem=smem, blocks=-(-N // threads))
+    smem = 16 * chunk + 32 * (chunk // tile) + 16 * threads + 4 * _MORTON_CODES
+    return dict(threads=threads, blocks=-(-N // threads), tile=tile, chunk=chunk,
+                dense=_COVERAGE_DENSE, smem=smem)
 
 
 def _box_lower_bound(p: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """The coverage kernel's lower bound on the squared distance from points
-    p (..., 3) to every center in the box [lo, hi] (..., 3), float32 as the
-    kernel computes it: per axis the gap max(max(lo - p, p - hi), 0), then
-    the gaps' squares summed as `_sqdist` sums (the kernel skips a tile of
-    centers where it is >= r^2). For tests of the cull's exactness: finite
-    inputs (torch.maximum propagates NaN, the kernel's fmaxf drops it)."""
+    """The box culls' lower bound (coverage.cu, fps.cu) on the squared
+    distance from points p (..., 3) to every point in the box [lo, hi]
+    (..., 3), float32 as the kernels compute it (`common.cuh: box_gap`): per
+    axis the gap max(max(lo
+    - p, p - hi), 0), NaN where p is NaN, then the gaps' squares summed as
+    `_sqdist` sums (the kernel skips a tile of centers where it is >= r^2,
+    never where it is NaN)."""
     g = torch.maximum(torch.maximum(lo - p, p - hi), torch.zeros((), dtype=p.dtype))
     gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
     return gx * gx + gy * gy + gz * gz
@@ -570,7 +573,7 @@ def _covered_mask_kernel(xyz: torch.Tensor, centers: torch.Tensor,
     if C != 3 or centers.shape[0] != B or centers.shape[2] != 3:
         raise ValueError(f"covered_mask: xyz {tuple(xyz.shape)}, "
                          f"centers {tuple(centers.shape)}")
-    plan = _coverage_plan(B, N, M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = _coverage_plan(B, N, M)
     out = torch.empty((B, N), dtype=torch.int32, device=dev)
     if B == 0 or N == 0:
         return out
@@ -578,8 +581,8 @@ def _covered_mask_kernel(xyz: torch.Tensor, centers: torch.Tensor,
     _build.launch_counts["coverage"] += 1
     _build.check(lib.g4d_coverage(
         xyz.data_ptr(), centers.data_ptr(), B, N, M, _f32(radius * radius), plan["threads"],
-        plan["chunk"], plan["blocks"], plan["smem"], out.data_ptr(), _build.stream_of(xyz)),
-        "coverage")
+        plan["blocks"], plan["tile"], plan["chunk"], plan["dense"], plan["smem"],
+        out.data_ptr(), _build.stream_of(xyz)), "coverage")
     return out
 
 

@@ -445,6 +445,12 @@ def coverage_case(dev, case):
         return xyz, centers, 0.05
     if case == "no_centers":
         return xyz, torch.zeros(3, 0, 3), 0.3
+    if case == "nan":  # NaN points (their bound is NaN) and NaN centers (left out of boxes)
+        centers = xyz[:, ::7].clone()
+        xyz = xyz.clone()
+        xyz[:, ::5, 1] = float("nan")
+        centers[:, ::3, 2] = float("nan")
+        return xyz, centers, 0.1
     if case == "face":  # boundary points around a center on its tile's box faces
         radius = 0.25
         c = torch.tensor([0.3, 0.2, 0.1])
@@ -458,29 +464,64 @@ def coverage_case(dev, case):
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["far", "one_point", "ragged", "chunks", "no_centers", "face"])
+@pytest.mark.parametrize("case", ["far", "one_point", "ragged", "chunks", "no_centers", "face",
+                                  "nan"])
 def test_coverage_edges(dev, case):
     """The cull at its edges, bitwise the plain version: every tile culled,
-    zero-size boxes, a ragged last tile, two staged chunks, no center, and
+    zero-size boxes, a ragged last tile, two staged chunks, no center,
     points at r and r -+ 1, 2 ulp from a center on the lower (and, mirrored,
-    upper) faces of its tile's box."""
+    upper) faces of its tile's box, NaN points and centers."""
     xyz, centers, radius = coverage_case(dev, case)
     got = coverage_check(xyz.to(dev), centers.to(dev), radius)
     if case in ("far", "no_centers"):
         assert not got.any()
 
 
-@pytest.mark.parametrize("B,threads", [(2, 128), (8, 256), (80, 512)])
+@pytest.mark.parametrize("B,threads", [(2, 512), (8, 512), (80, 512)])
 def test_coverage_plans(dev, B, threads):
-    """The block sizes the plan picks (a point a thread, the block's points
-    sorted along the curve): 6890 points with boundary points against 2000
-    centers at r 0.4, over 2, 8 and 80 frames."""
-    assert pc._coverage_plan(B, 6890, 2000, 132)["threads"] == threads
+    """The plan's blocks (a point a thread, the block's points sorted along
+    the curve) on grids smaller and larger than the card: 6890 points with
+    boundary points against 2000 centers at r 0.4, over 2, 8 and 80
+    frames."""
+    assert pc._coverage_plan(B, 6890, 2000)["threads"] == threads
     pts, c = boundary_cloud(0.4)
     xyz = torch.cat([cloud(18, B, 6890 - pts.shape[0], device="cpu") * 2 - 0.5,
                      pts.expand(B, -1, -1)], 1)
     centers = torch.cat([c.expand(B, 1, 3), cloud(19, B, 1999, device="cpu") * 2 - 0.5], 1)
     coverage_check(xyz.to(dev), centers.to(dev), 0.4)
+
+
+@pytest.mark.parametrize("field,value", [("tile", 16), ("dense", 33), ("smem", -16)])
+def test_coverage_entry_refuses(dev, field, value):
+    """The C entry refuses a plan that does not match the kernel: another
+    tile than a warp's 32 centers, a `dense` past a warp, shared memory
+    short of the chunk, its boxes, the points and the sort's counts."""
+    from garment4d_tpu_torch.ops import _build
+
+    xyz, centers = cloud(30, 2, 100), cloud(31, 2, 50)
+    out = torch.empty((2, 100), dtype=torch.int32, device=dev)
+    plan = dict(pc._coverage_plan(2, 100, 50))
+    plan[field] = plan["smem"] + value if field == "smem" else value
+    err = _build.library().g4d_coverage(
+        xyz.data_ptr(), centers.data_ptr(), 2, 100, 50, 0.01, plan["threads"], plan["blocks"],
+        plan["tile"], plan["chunk"], plan["dense"], plan["smem"], out.data_ptr(),
+        _build.stream_of(xyz))
+    assert err != 0
+
+
+@pytest.mark.parametrize("N", [300, 6000])
+def test_fps_entry_refuses_short_smem(dev, N):
+    """The C entry refuses a plan whose shared memory cannot hold the
+    frame's planes (and, in the far-skipping kernel, the sorted frame)."""
+    from garment4d_tpu_torch.ops import _build
+
+    xyz = cloud(32, 2, N)
+    out = torch.empty((2, 8), dtype=torch.int32, device=dev)
+    plan = pc._fps_plan(2, N, 8)
+    err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, 8, plan["threads"], plan["ppt"],
+                                   int(plan["far"]), plan["smem"] - 4, out.data_ptr(),
+                                   _build.stream_of(xyz))
+    assert err != 0
 
 
 @pytest.mark.parametrize("radii,ns", [((0.2,), (8,)), ((0.1, 0.3), (8, 16)),

@@ -1186,27 +1186,27 @@ class TestKernelPlans:
         coverage, 6890 points vs 2000 garment vertices: 512-thread blocks,
         a point a thread (14 blocks a frame), every center staged at once in
         whole 32-center tiles; four blocks' shared memory fit an SM."""
-        plan = tops.pointcloud._coverage_plan(B, 6890, 2000, 132)
-        assert plan == dict(threads=512, chunk=2016, blocks=14,
+        plan = tops.pointcloud._coverage_plan(B, 6890, 2000)
+        assert plan == dict(threads=512, blocks=14, tile=32, chunk=2016, dense=16,
                             smem=16 * 2016 + 32 * 63 + 16 * 512 + 4 * 512)
         assert 4 * plan["smem"] <= _build.SMEM_LIMIT
 
     @pytest.mark.parametrize("B,N,M,threads,chunk,blocks", [
-        (1, 1, 1, 128, 32, 1), (3, 77, 45, 128, 64, 1), (8, 6890, 0, 256, 32, 27),
-        (2, 10, 100000, 128, 4096, 1), (1, 0, 5, 128, 32, 0), (65535, 3, 3, 512, 32, 1),
+        (1, 1, 1, 512, 32, 1), (3, 77, 45, 512, 64, 1), (8, 6890, 0, 512, 32, 14),
+        (2, 10, 100000, 512, 4096, 1), (1, 0, 5, 512, 32, 0), (65535, 3, 3, 512, 32, 1),
         (80, 6890, 4097, 512, 4096, 14)])
     def test_coverage_plan_edges(self, B, N, M, threads, chunk, blocks):
-        """Blocks shrink (to 128 threads) while the grid would leave SMs
-        without a block; no center still stages one tile; more centers
-        than 4096 stage 4096 at a time; no point, no block."""
-        plan = tops.pointcloud._coverage_plan(B, N, M, 132)
+        """512-thread blocks at every size; no center still stages one
+        tile; more centers than 4096 stage 4096 at a time; no point, no
+        block."""
+        plan = tops.pointcloud._coverage_plan(B, N, M)
         assert (plan["threads"], plan["chunk"], plan["blocks"]) == (threads, chunk, blocks)
         assert plan["smem"] <= _build.SMEM_LIMIT
 
     @pytest.mark.parametrize("B,N,M", [(-1, 5, 5), (1, -5, 5), (1, 5, -1), (65536, 5, 5)])
     def test_coverage_plan_refuses(self, B, N, M):
         with pytest.raises(ValueError, match="covered_mask"):
-            tops.pointcloud._coverage_plan(B, N, M, 132)
+            tops.pointcloud._coverage_plan(B, N, M)
 
     @pytest.mark.parametrize("N,npoint,threads,ppt", [
         (6890, 1024, 864, 8), (1024, 256, 256, 4), (256, 64, 32, 8), (1722, 512, 448, 4),
@@ -1285,6 +1285,57 @@ class TestKernelPlans:
             assert got.dtype == torch.float64
             want = skinning._knn_transfer_plain(garment, body, w0, k, k)[0]
             np.testing.assert_allclose(_np(got.float()), _np(want), rtol=1e-5, atol=1e-7)
+
+
+class TestWorkModels:
+    """The data-dependent work that `chip_smoke.py` counts for the bounds of
+    the culled coverage kernel (`coverage_work`) and the FPS kernel that
+    skips far warps (`fps_work`): never less than the work that the data
+    forces on any order of visits."""
+
+    @pytest.mark.parametrize("N,npoint,far", [(300, 40, False), (4500, 60, True),
+                                              (5000, 1, True)])
+    def test_fps_work(self, rng, N, npoint, far):
+        """Every point a step in the register kernel; in the far-skipping
+        kernel a box test per run of 256 points a step after the first and,
+        among the updates it counts, every one whose running distance
+        drops (a run skipped there would change the result)."""
+        from chip_smoke import fps_work
+
+        xyz = _t(_cloud(rng, 2, N))
+        assert tops.pointcloud._fps_plan(2, N, npoint)["far"] == far
+        idx = tops.pointcloud._fps_plain(xyz, npoint)
+        updates, boxes = fps_work(xyz, npoint, idx)
+        if not far:
+            assert (updates, boxes) == (2 * N * (npoint - 1), 0)
+            return
+        assert boxes == 2 * -(-N // 256) * max(npoint - 2, 0)
+        drops = 0
+        mind = torch.full((2, N), 1e10)
+        for j in range(1, npoint):
+            d2 = tops.pointcloud._sqdist(xyz, xyz[torch.arange(2), idx[:, j - 1].long()][:, None])
+            drops += int((d2 < mind).sum())
+            mind = torch.minimum(mind, d2)
+        assert drops <= updates <= 2 * N * (npoint - 1)
+        if npoint > 2:
+            assert updates < 2 * N * (npoint - 1)  # the far runs of this cloud are skipped
+
+    def test_coverage_work(self, rng):
+        """Between the exact tests every covered point needs (one) plus the
+        centers of the tiles that no cull can skip, and the first-hit
+        linear scan's; a box test per open point and tile at most."""
+        from chip_smoke import coverage_tests, coverage_work
+
+        xyz = _t(_cloud(rng, 2, 700))
+        centers = _t(_cloud(rng, 2, 90)) * 0.5 + 0.25
+        r = 0.1
+        exact, boxes = coverage_work(xyz, centers, r)
+        mask = tops.pointcloud._covered_mask_plain(xyz, centers, r)
+        assert int(mask.sum()) <= exact <= 2 * 700 * 90
+        assert 0 < boxes <= 2 * 700 * 3
+        far = coverage_work(xyz + 10.0, centers, r)
+        assert far == (0, 2 * 700 * 3)  # every tile culled for every point
+        assert coverage_tests(xyz + 10.0, centers, r) == 2 * 700 * 90
 
 
 class TestCoverageBound:
