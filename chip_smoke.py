@@ -15,15 +15,19 @@ then:
    ball-query and 3-NN indices and gathered rows equal, 3-NN squared
    distances equal, the fused SA chain within rtol 1e-4 / atol 1e-5.
    Posed-stage kernels, on inputs captured from one posed forward: every
-   FPS, coverage, flat and grouped ball-query launch of the forward recorded
-   with its inputs, each launch's bound and the summed bounds printed, each
-   coverage launch (3), each grouped launch (3) and each distinct FPS and
-   flat case bitwise its plain version and timed (FPS with its launches
-   queued behind a sleeping kernel, `kernel_ms`, beside the time a step;
-   FPS and coverage beside the bound of the work their culls leave on this
-   data, `fps_work` and `coverage_work`, and the parent kernels' scan
-   bound: every point each step, each point's centers up to its first
-   hit); the PE blocks on the chain
+   FPS, coverage, flat and grouped ball-query and 3-NN launch of the
+   forward recorded with its inputs, each launch's bound and the summed
+   bounds printed, each coverage launch (3), each grouped launch (3) and
+   each distinct FPS, flat (8) and 3-NN (3) case bitwise its plain version
+   (3-NN: indices and squared distances) and timed (FPS, flat and 3-NN
+   with their launches queued behind a sleeping kernel, `kernel_ms`; FPS
+   beside the time a step; FPS, coverage, flat and 3-NN beside the bound
+   of the work their culls leave on this data, `fps_work`,
+   `coverage_work`, `query_work` and `three_nn_work`, and the earlier
+   kernels' scan bound: every point each step, each point's centers up to
+   its first hit, each center's points up to its S-th hit, every (query,
+   known point) pair; 3-NN beside `torch.cdist` and a top-3, a time
+   yardstick only); the PE blocks on the chain
    kernel (body S=32, garment pe2) within rtol 1e-4 / atol 1e-5; the K-NN
    transfer's 1-NN indices equal, its own selections (read back through
    one-hot weights, `knn_selection`) those of the plain version wherever
@@ -51,11 +55,12 @@ then:
    profiled again, and a third short one fails) and times
    its plain path on the card (inside `ops.plain_ops()`);
 4. posed path: zeroes the counters, runs `GarmentReconstructor.posed` once
-   and requires all ten kernels to have launched; prints the counts and
+   and requires all ten kernels to have launched (the flat query 14 times,
+   the 3-NN 3); prints the counts and
    whether a body query took the overflow branch; times it (median of 5
    after a warm-up) and profiles it (the chain, GCN, K-NN, grouped and flat
-   query and FPS kernels' device ms per forward beside their summed
-   bounds); times the plain path on the card and
+   query, 3-NN, FPS and coverage kernels' device ms per forward beside
+   their summed bounds); times the plain path on the card and
    compares one sequence (B=1, T=10) of both paths with the port's plain
    path on the CPU: labels agree on >= 99.9% of points, `tpose_garment`
    within 1e-3, the LBS result within 1e-4, every iteration's vertices no
@@ -103,8 +108,8 @@ then:
    near-tie mask, two launches bitwise equal, and its scatter-add of the
    won slots' row gradients checked and timed as phase 6's scatter-adds;
    and (in phase 2) the valid-count chain call at the body PE shape,
-   bitwise the chain kernel without the count; and the step's K-NN transfer
-   (B=4) held as in phase 2;
+   bitwise the chain kernel without the count; the step's K-NN transfer
+   (B=4) held as in phase 2, and its flat and 3-NN cases as in phase 2;
 6. canonical train step at the recipe's shape (B=20, T=10, N=6890, the
    seed-1 batch, the canonical subtree of `posed_synth.npz`, Adam at lr 1e-3
    over every parameter, dropout 0.5 from a seeded generator): zeroes the
@@ -116,8 +121,9 @@ then:
    1e-5 / atol 1e-6 of its plain version on the card (`index_add_`),
    bitwise the ascending-order sum on the CPU, two launches bitwise equal;
    timed beside its bound (bytes), its plain version and one `index_add_`;
-   the step's FPS cases (200 frames) bitwise their plain versions and timed
-   as in phase 2. The eval step (fused SA path, the eval-tail mask) once;
+   the step's FPS, flat (its 10 single-radius queries) and 3-NN cases (200
+   frames) bitwise their plain versions and timed as in phase 2. The eval
+   step (fused SA path, the eval-tail mask) once;
    the same train
    step on the plain path from the same weights and dropout seed, which
    must launch no kernel, run twice: every loss term within 1e-3
@@ -145,7 +151,7 @@ it does when no CUDA device is visible or when the repo is not beside it.
 `--time-kernels` times, for the package in the checkout at ROOT (default:
 this one), the posed forward (phase 4's shape and weights; frames/s,
 device ms, the device ms per forward of the chain, GCN, K-NN, grouped and
-flat ball-query, FPS and coverage kernels) and the canonical forward's
+flat ball-query, 3-NN, FPS and coverage kernels) and the canonical forward's
 device ms;
 the chain at each of its 16 shapes in the posed forward and the GCN stack
 at its 195- and 323-wide shapes, on the inputs recorded from it (ms, the
@@ -154,17 +160,18 @@ largest difference to float64, the summed bounds; for the chain also one
 the stack its plain version); the K-NN transfer at the forward's B=8 and
 the posed train step's B=4 calls (ms, the largest difference to the
 float64 transfer over its own selections), each of the forward's three
-grouped ball-query launches and each distinct flat case (ms, bounds and
-their sums); the posed and canonical train steps (frames/s, device ms,
-the same kernels' device ms per step, the PE backward's and the
-scatter-add's), the PE backward at each of its six shapes and its dtable
-half, and the scatter-add at each of its 11 shapes beside one
-`index_add_`, on inputs recorded from the steps; each coverage launch of the
-posed forward and each distinct FPS case of the posed forward and both train
-steps; each path's profiled launches a call; the ptxas lines of the chain,
-GCN, K-NN, ball-query, FPS and coverage kernels; one JSON line. The FPS and
-coverage bounds come from this checkout's launch plans, so another
-checkout's run leaves them out.
+grouped ball-query launches (ms, bounds and their sums); the posed and
+canonical train steps (frames/s, device ms, the same kernels' device ms
+per step, the PE backward's and the scatter-add's), the PE backward at
+each of its six shapes and its dtable half, and the scatter-add at each of
+its 11 shapes beside one `index_add_`, on inputs recorded from the steps;
+each coverage launch of the posed forward and each distinct FPS, flat
+ball-query and 3-NN case of the posed forward and both train steps (3-NN
+beside `torch.cdist` and a top-3), their sums over the posed forward;
+each path's profiled launches a call; the ptxas lines of the chain, GCN,
+K-NN, ball-query, 3-NN, FPS and coverage kernels; one JSON line. The FPS,
+coverage, flat and 3-NN bounds come from this checkout's launch plans, so
+another checkout's run leaves them out.
 `--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
 this one in turns, parent, change, change, parent, so that two checkouts
 are compared in one run on one card, and prints the means (per shape: ms
@@ -236,6 +243,9 @@ NEAR_TIE_CAP = 0.05  # most (center, channel) pairs of a PE backward masked as n
 # PE backwards; 3 loss 1-NN queries; 3 loss Laplacians forward and back plus
 # 3 GCN recomputes x 4 layers forward and back
 TRAIN_LAUNCHES = {"pe_bwd": 18, "nn1": 3, "banded": 30}
+# launches per posed forward at this shape: the flat query's 5 SA stages and
+# 3 iterations x 3 garment PE blocks, the 3-NN's 3 FP stages
+POSED_LAUNCHES = {"ball_query": 14, "three_nn": 3}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -276,17 +286,21 @@ def wall_s(fn, runs: int = 5, warmup: int = 1) -> float:
 # Each launch counter of the port (`ops.launch_counts`): the names under
 # which torch.profiler lists its CUDA kernels, the counters that launch
 # them, and the kernels one counted launch runs (the PE backward: its pass
-# and its ordered sum; the scatter-add: its sort and its segmented sum)
+# and its ordered sum; the scatter-add: its sort and its segmented sum; the
+# flat query's and the 3-NN's sort pre-passes count under `ball_query_sort`
+# and `three_nn_sort`, where their plans run them); the names of an earlier
+# design stay listed, for the parent checkout of an `--ab` run
 PROFILED = {
     "fused_chain": (("fused_chain_kernel",), ("fused_chain", "group_pe_max", "group_pe_max_nv"),
                     1),
     "gcn_stack": (("gcn_tile_kernel", "gcn_narrow_kernel"), ("gcn_stack",), 1),
     "knn_transfer": (("knn_transfer_kernel",), ("knn_transfer",), 1),
     "ball_query_grouped": (("ball_query_grouped_kernel",), ("ball_query_grouped",), 1),
-    "ball_query": (("ball_query_kernel<",), ("ball_query",), 1),
+    "ball_query": (("ball_query_flat_kernel", "ball_query_lane_kernel", "flat_sort_kernel",
+                    "ball_query_kernel<"), ("ball_query", "ball_query_sort"), 1),
     "fps": (("fps_kernel", "fps_far_kernel"), ("fps",), 1),
     "coverage": (("coverage_kernel",), ("coverage",), 1),
-    "three_nn": (("three_nn_kernel",), ("three_nn",), 1),
+    "three_nn": (("three_nn_kernel", "three_nn_sort_kernel"), ("three_nn", "three_nn_sort"), 1),
     "gather_rows": (("gather_rows_kernel",), ("gather_rows",), 1),
     "pe_bwd": (("pe_bwd_kernel", "pe_bwd_reduce_kernel"), ("pe_bwd",), 2),
     "banded": (("banded_kernel",), ("banded",), 1),
@@ -452,23 +466,49 @@ def coverage_tests(xyz, centers, radius) -> int:
     return total
 
 
-def curve_order(q):
+def nan_box(q):
+    """The box (lo, hi) of each frame's points q (B, n, 3), NaN values left
+    out, as the kernels' `block_bbox` forms it."""
+    lo = torch.where(q.isnan(), torch.inf, q).amin(1, keepdim=True)
+    hi = torch.where(q.isnan(), -torch.inf, q).amax(1, keepdim=True)
+    return lo, hi
+
+
+def curve_order(q, bits=None, box=None):
     """The order of each frame's points q (B, n, 3) along the Morton curve
-    of 8 cells an axis over their bounding box, as coverage.cu and fps.cu
-    sort them (`common.cuh: morton_code`), up to the order within a cell."""
+    of 2^bits cells an axis (the coverage and FPS kernels' 8 by default)
+    over their bounding box, or over `box` (lo, hi), as the kernels sort
+    them (`common.cuh: morton_code`, `morton_cell`), up to the order within
+    a cell."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
-    cells = pc._MORTON_CELLS
+    cells = pc._MORTON_CELLS if bits is None else 1 << bits
     bits = cells.bit_length() - 1
-    qlo, qhi = q.amin(1, keepdim=True), q.amax(1, keepdim=True)
+    qlo, qhi = nan_box(q) if box is None else box
     ext = qhi - qlo
     scale = torch.where(ext > 0, cells / ext, torch.zeros_like(ext))
-    c = ((q - qlo) * scale).trunc().clamp(0, cells - 1).to(torch.int64)
+    c = ((q - qlo) * scale).trunc().nan_to_num(0.0).clamp(0, cells - 1).to(torch.int64)
     code = torch.zeros(q.shape[:2], dtype=torch.int64, device=q.device)
     for bit in range(bits):
         for a in range(3):
             code |= ((c[..., a] >> bit) & 1) << (3 * bit + a)
     return code.argsort(dim=1, stable=True)
+
+
+def sorted_tiles(p, tile, bits, box=None):
+    """Each frame's points p (B, n, 3) in curve order (`curve_order`), NaN-
+    padded to whole tiles: the order (B, n), the tiles (B, tiles, tile, 3)
+    and their boxes (lo, hi; (B, tiles, 3) each, NaN values left out, +inf /
+    -inf for none)."""
+    Bp, n, _ = p.shape
+    order = curve_order(p, bits, box)
+    q = torch.gather(p, 1, order[..., None].expand_as(p))
+    nt = -(-n // tile)
+    q = torch.nn.functional.pad(q, (0, 0, 0, nt * tile - n), value=float("nan"))
+    q = q.reshape(Bp, nt, tile, 3)
+    lo = torch.where(q.isnan(), torch.inf, q).amin(2)
+    hi = torch.where(q.isnan(), -torch.inf, q).amax(2)
+    return order, q, lo, hi
 
 
 def coverage_work(xyz, centers, radius) -> tuple:
@@ -579,6 +619,133 @@ def fps_work(xyz, npoint, idx) -> tuple:
         # a skipped run's distances cannot drop: the update leaves it as is
         mind = torch.minimum(mind, d2)
     return int(updates), Bf * nr * (steps - 1)
+
+
+def query_kept(xyz, centers, r2max, tiled=None):
+    """The tiles of the flat query's sorted frames (its points along the
+    curve of 16 cells an axis in tiles of 32, `sorted_tiles`, or `tiled`)
+    that a warp per center tests: (order (B, N), super boxes kept (B, M,
+    supers), tiles kept (B, M, tiles)). A super box (32 tiles) or tile box is
+    kept unless its bound is >= r2max (a NaN bound never skips); a tile only
+    where its super box is too."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    Bq, Nq, _ = xyz.shape
+    order, _, lo, hi = tiled or sorted_tiles(xyz, pc._FLAT_TILE, 4)
+    tiles = lo.shape[1]
+    supers = -(-tiles // 32)
+    pad = supers * 32 - tiles
+    slo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=float("inf"))
+    shi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=float("-inf"))
+    slo, shi = slo.reshape(Bq, supers, 32, 3).amin(2), shi.reshape(Bq, supers, 32, 3).amax(2)
+    c = centers[:, :, None, :]
+    need_s = ~(pc._box_lower_bound(c, slo[:, None], shi[:, None]) >= r2max)
+    need_t = ~(pc._box_lower_bound(c, lo[:, None], hi[:, None]) >= r2max)
+    return order, need_s, need_t & need_s.repeat_interleave(32, dim=-1)[..., :tiles]
+
+
+def query_work(xyz, new_xyz, radii, outs) -> tuple:
+    """(exact tests, box tests, bitmap words walked) that the flat query
+    needs on this data (its outputs `outs`, one per radius) under its
+    launch plan (`_flat_plan`), up to three radii a launch. A lane per
+    center (frames of at most _FLAT_UNSORTED points) tests points in index
+    order up to the S-th hit of every radius (`scan_tests`), with no box. A
+    warp per center over a sorted frame tests every super box (one per 32
+    tiles), the tile boxes of each super box it keeps and the 32 points of
+    each tile it keeps (`query_kept`), then walks its R bitmaps: every hit
+    lies in a kept tile, since a box bound never exceeds a distance."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    Bq, Nq, _ = xyz.shape
+    M = new_xyz.shape[1]
+    exact = boxes = words = 0
+    tiled = None
+    for i in range(0, len(radii), pc._FLAT_MAX_RADII):
+        rs, os_ = radii[i:i + pc._FLAT_MAX_RADII], outs[i:i + pc._FLAT_MAX_RADII]
+        plan = pc._flat_plan(Bq, Nq, M, len(rs), 1)
+        if not plan["sort"]:
+            exact += scan_tests(os_, torch.full((Bq,), Nq, device=xyz.device))
+            continue
+        r2max = max(pc._r2(r) for r in rs)
+        tiles, supers = plan["tiles"], plan["supers"]
+        tiled = tiled or sorted_tiles(xyz, pc._FLAT_TILE, 4)
+        per_super = torch.full((supers,), 32, device=xyz.device)
+        per_super[-1] = tiles - 32 * (supers - 1)
+        windows = -(-Nq // (32 * plan["words"]))
+        for m0 in range(0, M, 256):
+            _, need_s, need_t = query_kept(xyz, new_xyz[:, m0:m0 + 256], r2max, tiled)
+            boxes += windows * int(supers * need_s.shape[0] * need_s.shape[1]
+                                   + (need_s * per_super).sum())
+            exact += 32 * int(need_t.sum())
+        words += windows * len(rs) * plan["words"] * Bq * M
+    return exact, boxes, words
+
+
+def query_ops(xyz, new_xyz, radii, outs) -> float:
+    """Operations the flat query needs on this data (`query_work`): 8 a
+    distance and one a radius an exact test, 18 a box test, 4 a bitmap word
+    walked."""
+    exact, boxes, words = query_work(xyz, new_xyz, radii, outs)
+    return (8.0 + min(len(radii), 3)) * exact + 18.0 * boxes + 4.0 * words
+
+
+def three_nn_kept(unknown, known, d2, tile):
+    """The known tiles that each query of the 3-NN's sorted path needs, given
+    the squared distances `d2` (B, n, 3) of its result: along the curve of
+    16 cells an axis over the known points' box, the known points in tiles
+    (`sorted_tiles`) and the queries in order; a query needs a tile whose
+    box bound is not above its final third distance (a NaN bound never
+    skips). Returns (known order (B, m), query order (B, n), needed tiles
+    (B, n, tiles) of the queries in their order)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    order_k, _, lo, hi = sorted_tiles(known, tile, 4)
+    order_q = curve_order(unknown, 4, nan_box(known))
+    q = torch.gather(unknown, 1, order_q[..., None].expand_as(unknown))
+    b2 = torch.gather(d2[..., 2], 1, order_q)
+    need = torch.cat([~(pc._box_lower_bound(q[b0:b0 + 8, :, None, :], lo[b0:b0 + 8, None],
+                                            hi[b0:b0 + 8, None]) > b2[b0:b0 + 8, :, None])
+                      for b0 in range(0, q.shape[0], 8)])
+    return order_k, order_q, need
+
+
+def three_nn_work(unknown, known, d2) -> tuple:
+    """(lane tests, box tests) that the 3-NN kernel needs on this data under
+    its launch plan (`_three_nn_plan`), given the squared distances `d2`
+    (B, n, 3) of its result. A small known set is scanned whole by every
+    query. Else a warp of 32 queries in curve order visits, a known point a
+    test for each of its lanes, every tile one of its queries needs
+    (`three_nn_kept`: the least its walk can visit, since a lane's bound
+    only shrinks to its final third distance), and tests each tile's box
+    against its queries' box (a lane a tile) and each visited tile's
+    against each lane."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    Bk, n, _ = unknown.shape
+    m = known.shape[1]
+    plan = pc._three_nn_plan(Bk, n, m)
+    kt, tiles = plan["tile"], plan["tiles"]
+    if not plan["sort"] or n == 0:
+        return Bk * n * tiles * kt, 0
+    w = -(-n // 32)
+    lanes = torch.full((w,), 32, device=unknown.device)
+    lanes[-1] = n - 32 * (w - 1)
+    tests = fine = 0
+    for b0 in range(0, Bk, 8):
+        need = three_nn_kept(unknown[b0:b0 + 8], known[b0:b0 + 8], d2[b0:b0 + 8], kt)[2]
+        need = torch.nn.functional.pad(need, (0, 0, 0, 32 * w - n)).reshape(-1, w, 32, tiles)
+        kept = need.any(2).sum(-1)  # (b, warps)
+        tests += int((kept * lanes * kt).sum())
+        fine += int((kept * lanes).sum())
+    return tests, Bk * w * tiles + fine
+
+
+def three_nn_ops(unknown, known, d2) -> float:
+    """Operations the 3-NN kernel needs on this data (`three_nn_work`): 12 a
+    lane test (8 for the distance, the compare with the third distance and
+    its share of the insertions), 18 a box test."""
+    tests, boxes = three_nn_work(unknown, known, d2)
+    return 12.0 * tests + 18.0 * boxes
 
 
 def chain_plain(table, idx, centers, weights, biases, relus, n_valid=None):
@@ -852,7 +1019,8 @@ def check_kernels(recon, pcd, res: Results):
     res.record("ball_query", f"sa1 ({F}, {N}) x 1024, r .05/.1, S 16/32", 0,
                lambda: pc._ball_query_kernel(radii, ns, xyz0, centers),
                lambda: [pc._ball_query_plain(r, s, xyz0, centers) for r, s in zip(radii, ns)],
-               nbytes(xyz0, centers, *qk), 10.0 * scan_tests(qk, full))
+               nbytes(xyz0, centers, *qk), query_ops(xyz0, centers, radii, qk), queued=True,
+               scan_bound_ms=bound(nbytes(xyz0, centers, *qk), 10.0 * scan_tests(qk, full))[0])
 
     # 3-NN, fp1: 6890 unknown vs 1024 known
     unknown, known, _, known_feats = got["pointnet.fp1"]
@@ -863,7 +1031,10 @@ def check_kernels(recon, pcd, res: Results):
     res.record("three_nn", f"fp1 ({F}, {N}) vs 1024", 0,
                lambda: pc._three_nn_kernel(unknown, known),
                lambda: pc._three_nn_plain(unknown, known),
-               nbytes(unknown, known, dk, ik), 9.0 * F * N * known.shape[1])
+               nbytes(unknown, known, dk, ik), three_nn_ops(unknown, known, dk), queued=True,
+               library=lambda: cdist_top3(unknown, known),
+               scan_bound_ms=bound(nbytes(unknown, known, dk, ik),
+                                   9.0 * F * N * known.shape[1])[0])
 
     feats = known_feats.contiguous()
     gather_case(f"fp1 interp {tuple(feats.shape)} x {N * 3}", feats,
@@ -1000,25 +1171,111 @@ def check_knn(label, args, res: Results, path=None):
                err_float64=err64, path=path)
 
 
+def query_case(args, grouped=False) -> str:
+    radii, nsamples, xyz, new_xyz = args[:4]
+    Bq, Nq = xyz.shape[:2]
+    return (f"({Bq}, {Nq}{' compacted' if grouped else ''}) x {new_xyz.shape[1]}, r "
+            f"{'/'.join(f'{r:g}' for r in radii)}, S {'/'.join(map(str, nsamples))}")
+
+
 def query_launches(calls, grouped):
-    """One row per recorded ball-query wrapper call of a forward (flat:
-    one launch per two radii; grouped: one launch for up to three): its
-    case, arguments, launches and summed bound (the distance tests this
-    run's early exits need, 8 operations each and one per radius)."""
+    """One row per recorded ball-query wrapper call of a path (flat: one
+    launch per three radii; grouped: one launch for up to three): its case,
+    arguments, launches and bound. `scan_bound_ms`: the distance tests that
+    an index-order scan's early exits need on this run (8 operations each
+    and one per radius of its pass: three radii a pass in the grouped
+    kernel, two in the earlier flat kernel), the grouped kernel's bound and
+    the earlier flat kernel's; the flat query's `bound_ms` counts the work
+    its culls leave (`query_ops`)."""
     rows = []
     step = 3 if grouped else 2
     for args, _, outs in calls:
         radii, nsamples, xyz, new_xyz = args[:4]
         Bq, Nq = xyz.shape[:2]
         n_scan = args[4] if grouped else torch.full((Bq,), Nq, device=xyz.device)
-        ops = sum((8.0 + len(outs[i:i + step])) * scan_tests(outs[i:i + step], n_scan)
-                  for i in range(0, len(outs), step))
+        scan_ops = sum((8.0 + len(outs[i:i + step])) * scan_tests(outs[i:i + step], n_scan)
+                       for i in range(0, len(outs), step))
+        ops = scan_ops if grouped else query_ops(xyz, new_xyz, radii, outs)
         nb = nbytes(xyz, new_xyz, *outs) + (nbytes(n_scan) if grouped else 0)
         b_ms, b_by = bound(nb, ops)
-        case = (f"({Bq}, {Nq}{' compacted' if grouped else ''}) x {new_xyz.shape[1]}, r "
-                f"{'/'.join(f'{r:g}' for r in radii)}, S {'/'.join(map(str, nsamples))}")
-        rows.append(dict(case=case, args=args, nbytes=nb, ops=ops, bound_ms=b_ms, bound_by=b_by,
-                         launches=-(-len(radii) // step)))
+        rows.append(dict(case=query_case(args, grouped), args=args, nbytes=nb, ops=ops,
+                         bound_ms=b_ms, bound_by=b_by, scan_bound_ms=bound(nb, scan_ops)[0],
+                         launches=-(-len(radii) // 3)))
+    return rows
+
+
+def three_nn_launches(calls):
+    """One row per recorded 3-NN launch of a path: its case, arguments and
+    bounds. `bound_ms`: the bytes (both sets read, the distances and
+    indices written) or the work its culls leave on this data
+    (`three_nn_ops`), whichever is larger; `scan_bound_ms`: every (query,
+    known point) pair at 9 operations, the earlier kernel's bound."""
+    rows = []
+    for (unknown, known), _, (d2, idx) in calls:
+        Bk, n = unknown.shape[:2]
+        m = known.shape[1]
+        nb = nbytes(unknown, known, d2, idx)
+        ops = three_nn_ops(unknown, known, d2)
+        b_ms, b_by = bound(nb, ops)
+        rows.append(dict(case=f"({Bk}, {n}) vs {m}", args=(unknown, known), nbytes=nb, ops=ops,
+                         bound_ms=b_ms, bound_by=b_by, launches=1,
+                         scan_bound_ms=bound(nb, 9.0 * Bk * n * m)[0]))
+    return rows
+
+
+def cdist_top3(unknown, known):
+    """The 3-NN's time yardstick: one exact-distance `torch.cdist` and a
+    top-3 (its tie order is not fixed, so it is no oracle)."""
+    return torch.cdist(unknown, known, compute_mode="donot_use_mm_for_euclid_dist").topk(
+        3, largest=False)
+
+
+@torch.inference_mode()
+def check_flat(label, bcalls, res: Results, path=None):
+    """Each distinct flat ball-query case of a path's recorded launches
+    bitwise its plain version, timed (`kernel_ms`) beside its bound (the
+    work its culls leave, `query_ops`) and the earlier kernel's scan bound;
+    returns the rows (`query_launches`). `path`: the main path the launches
+    come from, where it is not the kernel's own (`KERNELS`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    rows = query_launches(bcalls, False)
+    for case, (row, count) in by_case(rows).items():
+        radii, nsamples, xyz, new_xyz = args = row["args"][:4]
+
+        def plain():
+            return [pc._ball_query_plain(r, s, xyz, new_xyz) for r, s in zip(radii, nsamples)]
+
+        require(all(torch.equal(a, b) for a, b in zip(pc._ball_query_kernel(*args), plain())),
+                f"ball_query {label} {case}: indices differ from the plain version")
+        res.record("ball_query", f"{label} {case} x{count}", 0,
+                   lambda: pc._ball_query_kernel(*args), plain, row["nbytes"], row["ops"],
+                   reps_p=1, queued=True, path=path, launches_per_call=count * row["launches"],
+                   scan_bound_ms=row["scan_bound_ms"])
+    return rows
+
+
+@torch.inference_mode()
+def check_three_nn(label, tcalls, res: Results, path=None):
+    """Each distinct 3-NN case of a path's recorded launches bitwise its
+    plain version (indices and squared distances), timed (`kernel_ms`)
+    beside its bound (the work its culls leave, `three_nn_ops`), the
+    earlier kernel's scan bound and `cdist_top3`; returns the rows
+    (`three_nn_launches`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    rows = three_nn_launches(tcalls)
+    for case, (row, count) in by_case(rows).items():
+        unknown, known = row["args"]
+        dk, ik = pc._three_nn_kernel(unknown, known)
+        dp, ip = pc._three_nn_plain(unknown, known)
+        require(torch.equal(ik, ip) and torch.equal(dk, dp),
+                f"three_nn {label} {case}: indices or squared distances differ from plain")
+        res.record("three_nn", f"{label} {case} x{count}", 0,
+                   lambda: pc._three_nn_kernel(unknown, known),
+                   lambda: pc._three_nn_plain(unknown, known), row["nbytes"], row["ops"],
+                   reps_p=1, queued=True, path=path, library=lambda: cdist_top3(unknown, known),
+                   launches_per_call=count, scan_bound_ms=row["scan_bound_ms"])
     return rows
 
 
@@ -1104,35 +1361,36 @@ def check_coverage(ccalls, res: Results):
 
 
 @torch.inference_mode()
-def check_forward_queries(fcalls, bcalls, gcalls, ccalls, res: Results):
-    """The FPS, coverage, flat and grouped ball-query launches of one posed
-    forward, recorded with their inputs: summed bounds printed; each
-    coverage and grouped launch, and each distinct FPS and flat-query case,
-    bitwise its plain version and timed. Returns the summed bounds (ms)."""
+def check_forward_queries(fcalls, bcalls, gcalls, tcalls, ccalls, res: Results):
+    """The FPS, coverage, flat and grouped ball-query and 3-NN launches of
+    one posed forward, recorded with their inputs: summed bounds printed;
+    each coverage and grouped launch, and each distinct FPS, flat-query and
+    3-NN case, bitwise its plain version and timed. Returns the summed
+    bounds (ms)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
-    flat, grouped = query_launches(bcalls, False), query_launches(gcalls, True)
+    grouped = query_launches(gcalls, True)
     sums = dict(fps=print_launch_bounds("fps", check_fps("posed forward", fcalls, res)),
-                ball_query=print_launch_bounds("ball_query", flat),
+                ball_query=print_launch_bounds("ball_query",
+                                               check_flat("posed forward", bcalls, res)),
                 ball_query_grouped=print_launch_bounds("ball_query_grouped", grouped),
+                three_nn=print_launch_bounds("three_nn",
+                                             check_three_nn("posed forward", tcalls, res)),
                 coverage=sum(r["bound_ms"] for r in check_coverage(ccalls, res)))
-    for name, rows, every in (("ball_query", flat, False), ("ball_query_grouped", grouped, True)):
-        groups = [(r["case"], (r, 1)) for r in rows] if every else by_case(rows).items()
-        for i, (case, (row, count)) in enumerate(groups):
-            args = row["args"]
-            radii, nsamples, xyz, new_xyz = args[:4]
-            n_valid = args[4] if every else None
-            kernel = pc._ball_query_grouped_kernel if every else pc._ball_query_kernel
+    for i, row in enumerate(grouped):
+        args = row["args"]
+        radii, nsamples, xyz, new_xyz, n_valid = args[:5]
 
-            def plain():
-                return [pc._ball_query_plain(r, s, xyz, new_xyz, n_valid)
-                        for r, s in zip(radii, nsamples)]
+        def plain():
+            return [pc._ball_query_plain(r, s, xyz, new_xyz, n_valid)
+                    for r, s in zip(radii, nsamples)]
 
-            require(all(torch.equal(a, b) for a, b in zip(kernel(*args), plain())),
-                    f"{name} {case}: indices differ from the plain version")
-            label = f"posed forward launch {i}: {case}" if every else f"posed forward {case} x{count}"
-            res.record(name, label, 0, lambda: kernel(*args), plain, row["nbytes"], row["ops"],
-                       reps_p=1, launches_per_forward=count * row["launches"])
+        require(all(torch.equal(a, b)
+                    for a, b in zip(pc._ball_query_grouped_kernel(*args), plain())),
+                f"ball_query_grouped launch {i}: indices differ from the plain version")
+        res.record("ball_query_grouped", f"posed forward launch {i}: {row['case']}", 0,
+                   lambda: pc._ball_query_grouped_kernel(*args), plain, row["nbytes"],
+                   row["ops"], reps_p=1, launches_per_forward=1)
     return sums
 
 
@@ -1149,14 +1407,15 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
             recording(pc, "_fps_kernel") as fcalls, \
             recording(pc, "_covered_mask_kernel") as ccalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
-            recording(pc, "_ball_query_grouped_kernel") as gcalls:
+            recording(pc, "_ball_query_grouped_kernel") as gcalls, \
+            recording(pc, "_three_nn_kernel") as tcalls:
         got, handles = capture_inputs(recon.model, ["garment_pe2"])
         recon.posed(pcd, body_in)
         for h in handles:
             h.remove()
     torch.cuda.synchronize()
-    sums = check_forward_queries(fcalls, bcalls, gcalls, ccalls, res)
-    del fcalls[:], bcalls[:], gcalls[:], ccalls[:]
+    sums = check_forward_queries(fcalls, bcalls, gcalls, tcalls, ccalls, res)
+    del fcalls[:], bcalls[:], gcalls[:], tcalls[:], ccalls[:]
 
     # grouped ball query over the compacted table of iteration 0 (the body
     # (80, 6890) x the 2000 garment vertices, coverage at r = 0.4)
@@ -1618,6 +1877,8 @@ def train_phase(assets, body, weights, res: Results):
             recording(pemax, "_pe_bwd_kernel") as pe_calls, \
             recording(skinning, "knn_transfer") as knn_calls, \
             recording(pc, "_fps_kernel") as fps_calls, \
+            recording(pc, "_ball_query_kernel") as bq_calls, \
+            recording(pc, "_three_nn_kernel") as tn_calls, \
             recording(model, "refine") as steps:
         losses, launches = counted("train", lambda: train_step(state, batch), POSED_TRAIN_KERNELS)
     for name, n in TRAIN_LAUNCHES.items():
@@ -1642,7 +1903,10 @@ def train_phase(assets, body, weights, res: Results):
                                  res)
     check_knn("posed train step", knn_calls[0][0], res, path="train")
     check_fps("posed train step", fps_calls, res, path="train")
-    del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:], fps_calls[:]
+    check_flat("posed train step", bq_calls, res, path="train")
+    check_three_nn("posed train step", tn_calls, res, path="train")
+    del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:], fps_calls[:], bq_calls[:]
+    del tn_calls[:]
 
     # the plain path from the same weights and batch, its backward included
     ops.reset_counts()
@@ -1805,7 +2069,9 @@ def canonical_train_phase(assets, body, weights, res: Results):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
     with recording(pc, "_scatter_add_rows_kernel") as scatter_calls, \
-            recording(pc, "_fps_kernel") as fps_calls:
+            recording(pc, "_fps_kernel") as fps_calls, \
+            recording(pc, "_ball_query_kernel") as bq_calls, \
+            recording(pc, "_three_nn_kernel") as tn_calls:
         losses, launches = counted("canonical train", lambda: train_step(state, batch, generator()),
                                    CANON_TRAIN_KERNELS)
     peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1828,7 +2094,9 @@ def canonical_train_phase(assets, body, weights, res: Results):
           f"running statistics changed", flush=True)
     check_scatter_add(scatter_calls, res)
     check_fps("canonical train step", fps_calls, res, path="canonical_train")
-    del scatter_calls[:], fps_calls[:], before
+    check_flat("canonical train step", bq_calls, res, path="canonical_train")
+    check_three_nn("canonical train step", tn_calls, res, path="canonical_train")
+    del scatter_calls[:], fps_calls[:], bq_calls[:], tn_calls[:], before
 
     # the eval step: inference mode, the fused eval-mode SA path, the mask
     valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
@@ -1918,7 +2186,10 @@ AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                    "gcn_stack": ("gcn_",),
                    "knn_transfer": ("knn_transfer",),
                    "ball_query_grouped": ("ball_query_kernel<3>", "ball_query_grouped"),
-                   "ball_query": ("ball_query_kernel<1>", "ball_query_kernel<2>"),
+                   "ball_query": ("ball_query_kernel<1>", "ball_query_kernel<2>",
+                                  "ball_query_flat_kernel", "ball_query_lane_kernel",
+                                  "flat_sort_kernel"),
+                   "three_nn": ("three_nn_kernel", "three_nn_sort_kernel"),
                    "fps": ("fps_kernel", "fps_far_kernel"),
                    "coverage": ("coverage_kernel",)}
 
@@ -1926,7 +2197,7 @@ AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
 # the kernels whose device ms per posed forward and per posed train step
 # `--time-kernels` reports
 TIMED_KERNELS = ("fused_chain", "gcn_stack", "knn_transfer", "ball_query_grouped", "ball_query",
-                 "fps", "coverage")
+                 "three_nn", "fps", "coverage")
 
 
 def device_ms_of(rows, names) -> float:
@@ -2014,26 +2285,73 @@ def time_knn(label, args) -> dict:
 
 
 @torch.inference_mode()
-def time_queries(bcalls, gcalls) -> dict:
-    """The ball-query launches of one posed forward on their recorded
-    inputs (CUDA events, mean of 20): each grouped launch, each distinct
-    flat case (a wrapper call, one launch per two radii), the sums over the
-    forward and the summed bounds."""
+def time_grouped(gcalls) -> dict:
+    """The grouped ball-query launches of one posed forward on their
+    recorded inputs (CUDA events, mean of 20), their sum and summed
+    bounds."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
-    grouped, flat = query_launches(gcalls, True), query_launches(bcalls, False)
-    out = dict(ball_query_grouped=[], ball_query=[])
-    for i, row in enumerate(grouped):
-        out["ball_query_grouped"].append(dict(
-            case=f"launch {i}: {row['case']}", bound_ms=row["bound_ms"],
-            ms=cuda_ms(lambda: pc._ball_query_grouped_kernel(*row["args"]), 20)))
-    for case, (row, count) in by_case(flat).items():
-        out["ball_query"].append(dict(
-            case=case, calls=count, launches=count * row["launches"], bound_ms=row["bound_ms"],
-            ms=cuda_ms(lambda: pc._ball_query_kernel(*row["args"]), 20)))
-    for key, rows in (("ball_query_grouped", grouped), ("ball_query", flat)):
-        out[f"{key}_bound_ms_sum"] = sum(r["bound_ms"] for r in rows)
-        out[f"{key}_ms_sum"] = sum(c["ms"] * c.get("calls", 1) for c in out[key])
+    grouped = query_launches(gcalls, True)
+    out = dict(ball_query_grouped=[dict(
+        case=f"launch {i}: {row['case']}", bound_ms=row["bound_ms"],
+        ms=cuda_ms(lambda: pc._ball_query_grouped_kernel(*row["args"]), 20))
+        for i, row in enumerate(grouped)])
+    out["ball_query_grouped_bound_ms_sum"] = sum(r["bound_ms"] for r in grouped)
+    out["ball_query_grouped_ms_sum"] = sum(c["ms"] for c in out["ball_query_grouped"])
+    return out
+
+
+@torch.inference_mode()
+def time_flat(label, bcalls, bounds: bool) -> list:
+    """Each distinct flat ball-query case of a path's recorded launches: ms
+    (mean of 20 launches queued behind a sleeping kernel, `kernel_ms`), the
+    wrapper calls of the case and, with `bounds` (this checkout's launch
+    plans), its bounds (`query_launches`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    out = []
+    calls = [dict(case=query_case(a), call=(a, kw, r)) for a, kw, r in bcalls]
+    for case, (first, count) in by_case(calls).items():
+        args = first["call"][0]
+        row = dict(case=f"{label} {case}", calls=count,
+                   ms=kernel_ms(lambda: pc._ball_query_kernel(*args), 20))
+        if bounds:
+            b = query_launches([first["call"]], False)[0]
+            row.update(bound_ms=b["bound_ms"], scan_bound_ms=b["scan_bound_ms"])
+        out.append(row)
+    return out
+
+
+@torch.inference_mode()
+def time_three_nn(label, tcalls, bounds: bool) -> list:
+    """Each distinct 3-NN case of a path's recorded launches: ms (as
+    `time_flat`), its launches, `cdist_top3`'s ms (CUDA events, mean of 5)
+    and, with `bounds`, its bounds (`three_nn_launches`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    out = []
+    calls = [dict(case=f"({a[0].shape[0]}, {a[0].shape[1]}) vs {a[1].shape[1]}", call=(a, kw, r))
+             for a, kw, r in tcalls]
+    for case, (first, count) in by_case(calls).items():
+        unknown, known = first["call"][0]
+        row = dict(case=f"{label} {case}", calls=count,
+                   ms=kernel_ms(lambda: pc._three_nn_kernel(unknown, known), 20),
+                   library_ms=cuda_ms(lambda: cdist_top3(unknown, known), 5))
+        if bounds:
+            b = three_nn_launches([first["call"]])[0]
+            row.update(bound_ms=b["bound_ms"], scan_bound_ms=b["scan_bound_ms"])
+        out.append(row)
+    return out
+
+
+def case_sums(rows, prefix, key) -> dict:
+    """The sums over a path's launches (a row's `calls` each) of the rows'
+    ms and, where present, their bounds: {f"{key}_ms_sum": ...}."""
+    mine = [r for r in rows if r["case"].startswith(prefix)]
+    out = {f"{key}_ms_sum": sum(r["ms"] * r["calls"] for r in mine)}
+    for b in ("bound_ms", "scan_bound_ms"):
+        if mine and b in mine[0]:
+            out[f"{key}_{b}_sum"] = sum(r[b] * r["calls"] for r in mine)
     return out
 
 
@@ -2135,11 +2453,16 @@ def time_kernels(root: Path) -> int:
     with recording(skinning, "knn_transfer") as kcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
             recording(pc, "_ball_query_grouped_kernel") as gcalls, \
+            recording(pc, "_three_nn_kernel") as tcalls, \
             recording(pc, "_fps_kernel") as fcalls, \
             recording(pc, "_covered_mask_kernel") as ccalls:
         recon.posed(pcd, body_in)
     torch.cuda.synchronize()
-    out.update(time_queries(bcalls, gcalls))
+    out.update(time_grouped(gcalls))
+    out["ball_query"] = time_flat("posed forward", bcalls, own)
+    out["three_nn"] = time_three_nn("posed forward", tcalls, own)
+    out.update(case_sums(out["ball_query"], "posed forward", "ball_query"))
+    out.update(case_sums(out["three_nn"], "posed forward", "three_nn"))
     out["knn"] = [time_knn("posed forward", kcalls[0][0])]
     out["fps"] = time_fps("posed forward", fcalls, own)
     out["coverage"] = time_coverage(ccalls, own)
@@ -2147,9 +2470,9 @@ def time_kernels(root: Path) -> int:
     if own:
         out["coverage_bound_ms_sum"] = sum(c["bound_ms"] for c in out["coverage"])
         out["coverage_scan_bound_ms_sum"] = sum(c["scan_bound_ms"] for c in out["coverage"])
-    del kcalls, bcalls, gcalls, fcalls, ccalls
+    del kcalls, bcalls, gcalls, tcalls, fcalls, ccalls
     out["ptxas"] = ptxas_lines(("fused_chain", "gcn_", "knn_transfer", "ball_query", "fps_",
-                                "coverage_kernel"))
+                                "coverage_kernel", "three_nn", "flat_sort"))
     del recon, batch, pcd, body_in
     torch.cuda.empty_cache()
 
@@ -2159,7 +2482,9 @@ def time_kernels(root: Path) -> int:
     train_step, _ = make_posed_steps(model, assets, body.faces)
     with recording(pemax, "_pe_bwd_kernel") as calls, \
             recording(skinning, "knn_transfer") as kcalls, \
-            recording(pc, "_fps_kernel") as fcalls:
+            recording(pc, "_fps_kernel") as fcalls, \
+            recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_three_nn_kernel") as tcalls:
         train_step(state, batch)
     step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
@@ -2170,7 +2495,9 @@ def time_kernels(root: Path) -> int:
                                                 for k in TIMED_KERNELS})
     out["knn"].append(time_knn("posed train step", kcalls[0][0]))
     out["fps"] += time_fps("posed train step", fcalls, own)
-    del kcalls, fcalls
+    out["ball_query"] += time_flat("posed train step", bcalls, own)
+    out["three_nn"] += time_three_nn("posed train step", tcalls, own)
+    del kcalls, fcalls, bcalls, tcalls
     shapes = {}
     for a, _, _ in calls:
         shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
@@ -2199,7 +2526,9 @@ def time_kernels(root: Path) -> int:
         return train_step(state, batch, torch.Generator(device=dev).manual_seed(1))
 
     with recording(pc, "_scatter_add_rows_kernel") as calls, \
-            recording(pc, "_fps_kernel") as fcalls:
+            recording(pc, "_fps_kernel") as fcalls, \
+            recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_three_nn_kernel") as tcalls:
         step()
     step_s = wall_s(step, runs=5, warmup=2)
     rows, dev_ms = profile_device(step, runs=1)
@@ -2208,9 +2537,13 @@ def time_kernels(root: Path) -> int:
                canonical_train_launches=sum(r[1] for r in rows),
                scatter_add_device_ms_per_step=device_ms_of(
                    rows, AB_KERNEL_NAMES["scatter_add"]),
-               canonical_train_fps_device_ms=device_ms_of(rows, AB_KERNEL_NAMES["fps"]))
+               canonical_train_fps_device_ms=device_ms_of(rows, AB_KERNEL_NAMES["fps"]),
+               canonical_train_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
+                                                    for k in TIMED_KERNELS})
     out["fps"] += time_fps("canonical train step", fcalls, own)
-    del fcalls
+    out["ball_query"] += time_flat("canonical train step", bcalls, own)
+    out["three_nn"] += time_three_nn("canonical train step", tcalls, own)
+    del fcalls, bcalls, tcalls
     out["scatter_add"] = []
     torch.set_grad_enabled(False)
     for (grads, idx, n), _, _ in calls:
@@ -2259,20 +2592,21 @@ def ab(parent: Path) -> int:
                 "posed_launches", "canonical_launches", "posed_train_launches",
                 "canonical_train_launches"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
-    for path in ("posed", "posed_train"):
+    for path in ("posed", "posed_train", "canonical_train"):
         for k in TIMED_KERNELS:
             summary[f"{path} {k} device_ms"] = {
                 lab: mean(lab, lambda r: r[f"{path}_device_ms_by_kernel"][k])
                 for lab in ("parent", "change")}
-    for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum", "coverage_ms_sum",
-                "canonical_train_fps_device_ms"):
+    for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum", "three_nn_ms_sum",
+                "coverage_ms_sum", "canonical_train_fps_device_ms"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
     for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum", "ball_query_grouped_bound_ms_sum",
-                "ball_query_bound_ms_sum", "coverage_bound_ms_sum",
+                "ball_query_bound_ms_sum", "ball_query_scan_bound_ms_sum",
+                "three_nn_bound_ms_sum", "three_nn_scan_bound_ms_sum", "coverage_bound_ms_sum",
                 "coverage_scan_bound_ms_sum"):
         summary[key] = {"bound": runs[1][1][key]}
     for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
-                   "ball_query", "fps", "coverage"):
+                   "ball_query", "three_nn", "fps", "coverage"):
         for i, case in enumerate(runs[0][1][kernel]):
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
                    for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
@@ -2361,6 +2695,9 @@ def main() -> int:
             recording(recon.model, "refine") as steps:
         out, launches = counted("posed", lambda: recon.posed(pcd, body_in, return_all=True),
                                 FORWARD_KERNELS)
+    for name, n in POSED_LAUNCHES.items():
+        require(launches.get(name, 0) == n, f"{name}: {launches.get(name, 0)} launches in a "
+                f"posed forward, {n} expected")
     overflows = [c[2][1] for c in compactions]
     print(f"body queries: {len(overflows)}, overflow branch taken: {overflows} "
           f"(one host read each)", flush=True)
@@ -2380,7 +2717,7 @@ def main() -> int:
           f"(summed bound {bound_sums['chain']:.4f}), GCN layer kernels "
           f"{posed_kernel_ms['gcn_stack']:.4f} (summed bound {bound_sums['gcn']:.4f})",
           flush=True)
-    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "fps", "coverage"):
+    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "three_nn", "fps", "coverage"):
         print(f"posed forward device ms per forward: {k} {posed_kernel_ms[k]:.4f} in "
               f"{launches.get(k, 0)} launches (summed bound {bound_sums[k]:.4f})", flush=True)
 

@@ -17,9 +17,11 @@ failed build or a failed launch raises.
 `models/skinning.py` adds one where it launches its kernel and nowhere
 else, so a run can show which kernels its main path went through (the
 PE-backward wrapper counts its two launches, the per-block pass and the
-ordered sum of the partials, as one, and the scatter-add its sort and its
-segmented sum as one; the PE backward's dtable half's scatter-add counts
-under `scatter_add`).
+ordered sum of the partials, as one, the scatter-add its sort and its
+segmented sum as one; the flat ball query and the 3-NN count their sort
+pre-pass, where their plans run it, under `ball_query_sort` and
+`three_nn_sort` beside `ball_query` and `three_nn`; the PE backward's
+dtable half's scatter-add counts under `scatter_add`).
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ _IP = ctypes.POINTER(ctypes.c_int)     # host array of ints
 _SIGNATURES = {
     "g4d_fps": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "g4d_gather_rows": (_P, _P, _I, _I, _I, _I, _P, _P),
-    "g4d_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _F, _I, _P, _P),
+    "g4d_ball_query": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _F, _I, _P, _F, _I, _P,
+                       _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "g4d_ball_query_grouped": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _F,
                                _I, _P, _F, _I, _P, _I, _I, _I, _P),
-    "g4d_three_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "g4d_three_nn": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "g4d_fused_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _IP, _I, _I, _I, _P, _P, _P, _P),
     "g4d_coverage": (_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P, _P),
     "g4d_knn_transfer": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

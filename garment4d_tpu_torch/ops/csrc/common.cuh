@@ -126,19 +126,41 @@ __device__ __forceinline__ void block_bbox(float (&lo)[3], float (&hi)[3], float
   __syncthreads();
 }
 
-// the Morton cell of a point in the box bb (NaN and out-of-box values clamp)
-__device__ __forceinline__ unsigned morton_code(float x, float y, float z, const float* bb) {
+// The lower corner and scales of a Morton curve of 2^kBits cells an axis
+// over the box bb (lo, hi): scale[a] = 2^kBits / extent, 0 for an empty
+// extent.
+template <int kBits>
+__device__ __forceinline__ void curve_scale(const float* bb, float (&lo)[3], float (&scale)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float ext = bb[3 + a] - bb[a];
+    lo[a] = bb[a];
+    scale[a] = ext > 0.0f ? (float)(1 << kBits) / ext : 0.0f;
+  }
+}
+
+// The Morton cell of a point on the curve of curve_scale's lo and scale
+// (NaN and out-of-box values clamp); with them computed once a block, one
+// division per block rather than per point.
+template <int kBits>
+__device__ __forceinline__ unsigned morton_cell(float x, float y, float z, const float (&lo)[3],
+                                                const float (&scale)[3]) {
   const float v[3] = {x, y, z};
   unsigned code = 0;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float ext = bb[3 + a] - bb[a];
-    const float scale = ext > 0.0f ? (float)(1 << kCellBits) / ext : 0.0f;
-    const int c = min(max(__float2int_rz((v[a] - bb[a]) * scale), 0), (1 << kCellBits) - 1);
+    const int c = min(max(__float2int_rz((v[a] - lo[a]) * scale[a]), 0), (1 << kBits) - 1);
 #pragma unroll
-    for (int b = 0; b < kCellBits; ++b) code |= (((unsigned)c >> b) & 1u) << (3 * b + a);
+    for (int b = 0; b < kBits; ++b) code |= (((unsigned)c >> b) & 1u) << (3 * b + a);
   }
   return code;
+}
+
+// the Morton cell of a point in the box bb on the 8 x 8 x 8 curve
+__device__ __forceinline__ unsigned morton_code(float x, float y, float z, const float* bb) {
+  float lo[3], scale[3];
+  curve_scale<kCellBits>(bb, lo, scale);
+  return morton_cell<kCellBits>(x, y, z, lo, scale);
 }
 
 // Exclusive scan of hist[kCodes] in place, by warp 0 (the caller's barriers
@@ -158,6 +180,362 @@ __device__ __forceinline__ void scan_codes(int* hist) {
     }
     hist[c0 + lane] = carry + s - v;
     carry += __shfl_sync(0xffffffffu, s, 31);
+  }
+}
+
+// Exclusive scan of hist[C] in place by the whole block (C a multiple of
+// blockDim.x): each thread sums its C / blockDim.x consecutive cells, the
+// warps scan those sums. Every thread calls it; it ends with a barrier.
+template <int C>
+__device__ __forceinline__ void scan_cells(int* hist) {
+  __shared__ int wsum[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, per = C / blockDim.x;
+  int own = 0;
+  for (int k = 0; k < per; ++k) own += hist[tid * per + k];
+  int s = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += t;
+  }
+  if (lane == 31) wsum[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < (int)(blockDim.x >> 5) ? wsum[lane] : 0;
+    int u = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, u, o);
+      if (lane >= o) u += t;
+    }
+    if (lane < (int)(blockDim.x >> 5)) wsum[lane] = u - v;
+  }
+  __syncthreads();
+  int run = wsum[warp] + s - own;
+  for (int k = 0; k < per; ++k) {
+    const int v = hist[tid * per + k];
+    hist[tid * per + k] = run;
+    run += v;
+  }
+  __syncthreads();
+}
+
+// ---- Morton-sorted frames in tiles with boxes (ball_query.cu, three_nn.cu) --
+//
+// A frame's points sorted along the Morton curve of their bounding box, as
+// float4 (x, y, z, the point's index as int bits), in tiles of KT
+// consecutive points, each tile with an axis-aligned box: a query skips a
+// tile whose box bound (box_gap) rules out every point of it. Padding to
+// whole tiles is NaN (within no distance of anything) with index -1.
+
+// n entries from shared memory to device memory, one a thread (coalesced);
+// a barrier of the caller's orders them after their writers.
+template <class T>
+__device__ __forceinline__ void copy_out(T* __restrict__ dst, const T* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// n4 float4s from device memory into shared memory (both 16-byte aligned)
+// by cp.async; a barrier of the caller's makes them visible to the block.
+__device__ __forceinline__ void stage16(float4* dst, const float4* __restrict__ src, int n4) {
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    cp_async16(reinterpret_cast<float*>(dst + i), reinterpret_cast<const float*>(src + i));
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// The n points p (n, 3) in Morton order (2^kBits cells an axis) over the
+// box bb into dst[0, n), padded with NaN points of index -1 to dst[n,
+// padded). With `own_box`, bb (6 floats of shared memory) is first set to
+// the points' bounding box (NaN values left out); else it is read as the
+// caller set it. hist: 2^(3 kBits) ints of shared memory, a multiple of the
+// block's threads; on return hist[c] is where cell c's run begins in dst.
+// The order within a cell is free. Every thread of the block calls it; it
+// ends with a barrier, after which dst (shared or device memory) is visible
+// to the whole block. Up to kSortPPT points a thread stay in registers from
+// the first read to the scatter (one latency of device memory); larger
+// sets are read again for each pass. `placed(at, cell)` is called for each
+// point as it lands at dst[at].
+constexpr int kSortPPT = 8;
+
+struct NoPlaced {
+  __device__ __forceinline__ void operator()(int, unsigned) const {}
+};
+
+template <int kBits, class Placed = NoPlaced>
+__device__ __forceinline__ void sort_frame(const float* __restrict__ p, int n, int padded,
+                                           float4* dst, int* hist, float (*part)[6], float* bb,
+                                           bool own_box, Placed placed = Placed()) {
+  constexpr int C = 1 << (3 * kBits);
+  const int T = blockDim.x, tid = threadIdx.x;
+  for (int i = tid; i < C; i += T) hist[i] = 0;
+  if (n <= kSortPPT * T) {
+    float x[kSortPPT], y[kSortPPT], z[kSortPPT];
+    float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int k = 0; k < kSortPPT; ++k) {
+      const int i = tid + k * T;
+      x[k] = i < n ? p[3 * i] : NAN;
+      y[k] = i < n ? p[3 * i + 1] : NAN;
+      z[k] = i < n ? p[3 * i + 2] : NAN;
+      lo[0] = fminf(lo[0], x[k]); hi[0] = fmaxf(hi[0], x[k]);
+      lo[1] = fminf(lo[1], y[k]); hi[1] = fmaxf(hi[1], y[k]);
+      lo[2] = fminf(lo[2], z[k]); hi[2] = fmaxf(hi[2], z[k]);
+    }
+    if (own_box)
+      block_bbox(lo, hi, part, bb);  // its barriers also order the zeroed counts
+    else
+      __syncthreads();
+    float base[3], scale[3];
+    curve_scale<kBits>(bb, base, scale);
+    unsigned code[kSortPPT];
+    int rank[kSortPPT];
+#pragma unroll
+    for (int k = 0; k < kSortPPT; ++k) {
+      code[k] = morton_cell<kBits>(x[k], y[k], z[k], base, scale);
+      if (tid + k * T < n) rank[k] = atomicAdd(&hist[code[k]], 1);
+    }
+    __syncthreads();
+    scan_cells<C>(hist);
+#pragma unroll
+    for (int k = 0; k < kSortPPT; ++k) {
+      const int i = tid + k * T;
+      if (i < n) {
+        const int at = hist[code[k]] + rank[k];
+        dst[at] = make_float4(x[k], y[k], z[k], __int_as_float(i));
+        placed(at, code[k]);
+      }
+    }
+  } else {
+    if (own_box) {
+      float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+      for (int i = tid; i < n; i += T) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          lo[a] = fminf(lo[a], p[3 * i + a]);
+          hi[a] = fmaxf(hi[a], p[3 * i + a]);
+        }
+      }
+      block_bbox(lo, hi, part, bb);
+    } else {
+      __syncthreads();
+    }
+    float base[3], scale[3];
+    curve_scale<kBits>(bb, base, scale);
+    for (int i = tid; i < n; i += T)
+      atomicAdd(&hist[morton_cell<kBits>(p[3 * i], p[3 * i + 1], p[3 * i + 2], base, scale)], 1);
+    __syncthreads();
+    scan_cells<C>(hist);
+    for (int i = tid; i < n; i += T) {
+      const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
+      const unsigned code = morton_cell<kBits>(x, y, z, base, scale);
+      const int at = atomicAdd(&hist[code], 1);
+      dst[at] = make_float4(x, y, z, __int_as_float(i));
+      placed(at, code);
+    }
+    // hist[c] now ends cell c's run: take its points off again
+    __syncthreads();
+    for (int i = tid; i < n; i += T)
+      atomicSub(&hist[morton_cell<kBits>(p[3 * i], p[3 * i + 1], p[3 * i + 2], base, scale)], 1);
+  }
+  for (int i = n + tid; i < padded; i += T) dst[i] = make_float4(NAN, NAN, NAN, __int_as_float(-1));
+  __syncthreads();
+}
+
+// The box of each group of KT consecutive entries of `in` (KT a power of
+// two up to 32; shared or device memory) into out[2 g] = (lowest x, y, z,
+// lowest index), out[2 g + 1] = (highest x, y, z, highest index). With
+// kPoints the n entries are points as sort_frame writes them (NaN
+// coordinates and the padding's index -1 left out); else boxes of that
+// layout (in[2 j], in[2 j + 1]). A group of no point gets lo = +inf, hi =
+// -inf (every bound to it is +inf) and the index range (-1, -1). A warp
+// step reduces 32 / KT groups, four steps' loads issued together.
+template <int KT, bool kPoints>
+__device__ __forceinline__ void group_boxes(const float4* in, int n, float4* out) {
+  static_assert(KT >= 1 && KT <= 32 && (KT & (KT - 1)) == 0, "KT: a power of two up to 32");
+  constexpr int kPer = 32 / KT, kUnroll = 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stride = (blockDim.x >> 5) * kPer, groups = (n + KT - 1) / KT;
+  const float4 none_lo = make_float4(INFINITY, INFINITY, INFINITY, __int_as_float(-1));
+  const float4 none_hi = make_float4(-INFINITY, -INFINITY, -INFINITY, __int_as_float(-1));
+  for (int g0 = warp * kPer; g0 < groups; g0 += kUnroll * stride) {
+    float4 lv[kUnroll], hv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = (g0 + u * stride + lane / KT) * KT + (lane & (KT - 1));
+      lv[u] = none_lo;
+      hv[u] = none_hi;
+      if (j < n) {
+        if constexpr (kPoints) {
+          lv[u] = hv[u] = in[j];
+        } else {
+          lv[u] = in[2 * j];
+          hv[u] = in[2 * j + 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int g = g0 + u * stride + lane / KT;
+      float lo[3] = {fminf(lv[u].x, INFINITY), fminf(lv[u].y, INFINITY), fminf(lv[u].z, INFINITY)};
+      float hi[3] = {fmaxf(hv[u].x, -INFINITY), fmaxf(hv[u].y, -INFINITY),
+                     fmaxf(hv[u].z, -INFINITY)};
+      unsigned imin = (unsigned)__float_as_int(lv[u].w);  // -1 (none) is the largest
+      int imax = __float_as_int(hv[u].w);
+#pragma unroll
+      for (int o = KT / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], o));
+          hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], o));
+        }
+        imin = min(imin, __shfl_xor_sync(0xffffffffu, imin, o));
+        imax = max(imax, __shfl_xor_sync(0xffffffffu, imax, o));
+      }
+      if ((lane & (KT - 1)) == 0 && g < groups) {
+        out[2 * g] = make_float4(lo[0], lo[1], lo[2], __int_as_float((int)imin));
+        out[2 * g + 1] = make_float4(hi[0], hi[1], hi[2], __int_as_float(imax));
+      }
+    }
+  }
+}
+
+// The box of each tile of KT points of a sorted frame (tiles x KT float4,
+// padded as sort_frame pads them) into box[2 t], box[2 t + 1].
+template <int KT>
+__device__ __forceinline__ void tile_boxes(const float4* pts, int tiles, float4* box) {
+  group_boxes<KT, true>(pts, tiles * KT, box);
+}
+
+// The gap along one axis between the intervals [wl, wh] and [lo, hi], each
+// difference rounded as g4d_sqdist's, NaN when a bound is NaN. For q in
+// [wl, wh] and p in [lo, hi], |fl(q - p)| >= the gap (box_gap's argument on
+// both ends), so g4d_sqdist of the three gaps bounds every pair's distance.
+__device__ __forceinline__ float interval_gap(float wl, float wh, float lo, float hi) {
+  return max_nan(max_nan(__fsub_rn(lo, wh), __fsub_rn(wl, hi)), 0.0f);
+}
+
+// The K nearest (squared distance, index) pairs seen so far, ascending in
+// (distance, index) order: ties go to the lower index whatever the order in
+// which points arrive. A NaN distance is never taken; until K points arrive
+// the open slots hold (+inf, 0).
+template <int K>
+struct Nearest {
+  float d[K];
+  int i[K];
+
+  __device__ __forceinline__ Nearest() {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      d[s] = INFINITY;
+      i[s] = 0;
+    }
+  }
+
+  // the K-th distance: a point farther than it cannot enter
+  __device__ __forceinline__ float bound() const { return d[K - 1]; }
+
+  // insert for points arriving in ascending index: a strict < keeps the
+  // lower index on ties
+  __device__ __forceinline__ void insert_ascending(float x, int j) {
+    if (!(x < d[K - 1])) return;
+    bool placed = false;
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      if (placed) continue;
+      if (x < d[s - 1]) {
+        d[s] = d[s - 1];
+        i[s] = i[s - 1];
+      } else {
+        d[s] = x;
+        i[s] = j;
+        placed = true;
+      }
+    }
+    if (!placed) {
+      d[0] = x;
+      i[0] = j;
+    }
+  }
+
+  __device__ __forceinline__ void insert(float x, int j) {
+    if (!(x < d[K - 1] || (x == d[K - 1] && j < i[K - 1]))) return;
+    bool placed = false;
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      if (placed) continue;
+      if (x < d[s - 1] || (x == d[s - 1] && j < i[s - 1])) {
+        d[s] = d[s - 1];
+        i[s] = i[s - 1];
+      } else {
+        d[s] = x;
+        i[s] = j;
+        placed = true;
+      }
+    }
+    if (!placed) {
+      d[0] = x;
+      i[0] = j;
+    }
+  }
+};
+
+// A float4 of a sorted frame or its boxes, from shared memory or (kGlobal)
+// through the read-only L1 path.
+template <bool kGlobal>
+__device__ __forceinline__ float4 load4(const float4* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  return *p;
+}
+
+// One warp's walk for its lanes' K nearest over a sorted frame's tiles of KT
+// points (pts, their boxes box): each lane owns the query q (when `active`)
+// and has already taken the points of its tile `own` (the tile at its
+// place on the curve, so its bound starts near its final value). The warp
+// visits the tiles from `start` on, wrapping around. Every 32 tiles it
+// tests their boxes against the box of its active queries and the largest
+// K-th distance of its lanes, then each remaining tile against each lane's
+// own bound: a lane needs a tile unless its bound is strictly below the
+// tile's box bound (a point at exactly the bound with a lower index still
+// enters; a NaN bound never skips), and the warp visits the tile, a point
+// at a time as broadcasts, when a lane needs it.
+template <int KT, int K, bool kGlobal>
+__device__ __forceinline__ void nearest_walk(const float4* pts, const float4* box, int tiles,
+                                             int start, int own, float qx, float qy, float qz,
+                                             bool active, Nearest<K>& best) {
+  const int lane = threadIdx.x & 31;
+  const float wl[3] = {warp_min(active ? qx : INFINITY), warp_min(active ? qy : INFINITY),
+                       warp_min(active ? qz : INFINITY)};
+  const float wh[3] = {warp_max(active ? qx : -INFINITY), warp_max(active ? qy : -INFINITY),
+                       warp_max(active ? qz : -INFINITY)};
+  for (int k0 = 0; k0 < tiles; k0 += 32) {
+    const float top = warp_max(active ? best.bound() : -INFINITY);
+    bool cand = false;
+    if (k0 + lane < tiles) {
+      int t = start + k0 + lane;
+      if (t >= tiles) t -= tiles;
+      const float4 lo = load4<kGlobal>(box + 2 * t), hi = load4<kGlobal>(box + 2 * t + 1);
+      const float g = g4d_sqdist(interval_gap(wl[0], wh[0], lo.x, hi.x),
+                                 interval_gap(wl[1], wh[1], lo.y, hi.y),
+                                 interval_gap(wl[2], wh[2], lo.z, hi.z));
+      cand = !(g > top);
+    }
+    for (unsigned c = __ballot_sync(0xffffffffu, cand); c != 0u; c &= c - 1u) {
+      int t = start + k0 + __ffs(c) - 1;
+      if (t >= tiles) t -= tiles;
+      const float4 lo = load4<kGlobal>(box + 2 * t), hi = load4<kGlobal>(box + 2 * t + 1);
+      const float lb = g4d_sqdist(box_gap(qx, lo.x, hi.x), box_gap(qy, lo.y, hi.y),
+                                  box_gap(qz, lo.z, hi.z));
+      const bool need = active && t != own && !(lb > best.bound());
+      if (!__any_sync(0xffffffffu, need)) continue;
+      const float4* tp = pts + t * KT;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float4 p = load4<kGlobal>(tp + j);
+        const float d = g4d_sqdist(qx - p.x, qy - p.y, qz - p.z);
+        if (need) best.insert(d, __float_as_int(p.w));
+      }
+    }
   }
 }
 

@@ -358,6 +358,76 @@ def _ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+# ball_query.cu's flat query: points a box (a lane each), bitmap words a
+# lane reads a walk step (a radius's bitmap is a multiple of them), frames of
+# at most _FLAT_UNSORTED points served a lane per center in index order
+# without the sort pre-pass (the model's small tables are FPS samples, which
+# no box culls, and the pre-pass would cost more than it saves), the warps
+# a block tried in turn while the layout does not fit, the radii one launch
+# serves, and threads resident on an SM at most
+_FLAT_TILE = 32
+_FLAT_WALK_WORDS = 4
+_FLAT_UNSORTED = 512
+_FLAT_WARPS = (32, 16, 8)
+_FLAT_LANE_WARPS = 4  # a lane per center: small blocks, many of them (all
+# 128 threads stage the frame, also where a frame has fewer centers)
+_FLAT_MAX_RADII = 3
+_SM_THREADS = 2048
+
+
+@functools.lru_cache(maxsize=64)
+def _flat_plan(B: int, N: int, M: int, R: int, sms: int) -> dict:
+    """The flat query's launch plan for R radii on `sms` SMs. `sort`: the
+    pre-pass orders each frame along the Morton curve into `tiles` of 32
+    points with boxes, and a box per 32 tiles (`supers`), for frames past
+    _FLAT_UNSORTED points (or past 65535 frames), served a warp per center
+    (smaller frames: a lane per center, in index order); `staged`: each
+    frame (sorted points and boxes, or the unsorted frame) is staged in
+    shared memory, else the pre-pass's output is read through L1; `warps`
+    a block (the most of _FLAT_WARPS whose layout fits); `words` bitmap
+    words a radius and warp of a sorted frame (its indices, or windows of
+    32 x words of them where even the smallest block's bitmaps would not
+    fit); `smem` dynamic bytes (the staged points, 16 x 32 bytes a tile,
+    and boxes, 32 bytes each, then the bitmaps; unsorted, 16 bytes a
+    point); `blocks`: enough for the SMs' resident blocks, no more than
+    gives each warp a center; a lane per center takes `blocks` a frame of
+    _FLAT_LANE_WARPS warps. Raises ValueError for what the kernel does not
+    take."""
+    if not 1 <= R <= _FLAT_MAX_RADII or min(B, N, M) < 0 or sms < 1:
+        raise ValueError(f"ball_query: B={B}, N={N}, M={M}, R={R} (1..{_FLAT_MAX_RADII} "
+                         f"radii a launch)")
+    tiles = -(-N // _FLAT_TILE)
+    sort = N > _FLAT_UNSORTED or B > 65535  # a lane per center: frames on the grid's y
+    supers = -(-tiles // 32) if sort else 0
+    words = max(1, -(-tiles // _FLAT_WALK_WORDS)) * _FLAT_WALK_WORDS if sort else 0
+    frame = 16 * _FLAT_TILE * tiles + 32 * (tiles + supers) if sort else 16 * N
+    fits = [w for w in _FLAT_WARPS if frame + 4 * w * R * words <= _build.SMEM_LIMIT]
+    staged = bool(fits)
+    if staged:
+        warps, smem = fits[0], frame + 4 * fits[0] * R * words
+    else:
+        fits = [w for w in _FLAT_WARPS if 4 * w * R * words <= _build.SMEM_LIMIT]
+        warps = fits[0] if fits else _FLAT_WARPS[-1]
+        if not fits:  # windows of the index range
+            words = _build.SMEM_LIMIT // (4 * warps * R) // _FLAT_WALK_WORDS * _FLAT_WALK_WORDS
+        smem = 4 * warps * R * words
+    resident = max(1, min(_SM_THREADS // (32 * warps),
+                          (_build.SMEM_LIMIT + 1024) // (smem + 1024)))
+    if not sort:  # `blocks` a frame, a lane per center
+        warps = _FLAT_LANE_WARPS
+        blocks = max(1, -(-M // (32 * warps)))
+    else:
+        blocks = max(1, min(sms * resident, -(-B * M // warps)))
+    return dict(sort=sort, staged=staged, warps=warps, words=words, tiles=tiles, supers=supers,
+                blocks=blocks, smem=smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _r2(radius: float) -> float:
+    """The float32 r^2 that membership compares with (d^2 < r^2)."""
+    return _f32(radius * radius)
+
+
 def _ball_query_kernel(radii, nsamples, xyz: torch.Tensor,
                        new_xyz: torch.Tensor):
     dev = xyz.device
@@ -365,26 +435,37 @@ def _ball_query_kernel(radii, nsamples, xyz: torch.Tensor,
     _build.require(new_xyz, "new_xyz", torch.float32, 3, dev)
     B, N, C = xyz.shape
     M = new_xyz.shape[1]
-    if C != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3:
-        raise ValueError(f"ball_query: xyz {tuple(xyz.shape)}, "
-                         f"new_xyz {tuple(new_xyz.shape)}")
+    if C != 3 or new_xyz.shape[0] != B or new_xyz.shape[2] != 3 or len(radii) != len(nsamples):
+        raise ValueError(f"ball_query: xyz {tuple(xyz.shape)}, new_xyz "
+                         f"{tuple(new_xyz.shape)}, radii {radii}, nsamples {nsamples}")
     if any(s < 1 for s in nsamples):
         raise ValueError(f"ball_query: nsamples {nsamples}")
+    outs = [torch.empty((B, M, s), dtype=torch.int32, device=dev) for s in nsamples]
+    if B == 0 or M == 0:
+        return tuple(outs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.library()
-    outs = [torch.empty((B, M, s), dtype=torch.int32, device=dev)
-            for s in nsamples]
-    # one distance pass serves two radii
-    for i in range(0, len(radii), 2):
-        ra, sa, oa = _f32(radii[i] * radii[i]), nsamples[i], outs[i]
-        if i + 1 < len(radii):
-            rb, sb, ob = (_f32(radii[i + 1] * radii[i + 1]), nsamples[i + 1],
-                          outs[i + 1].data_ptr())
-        else:
-            rb, sb, ob = 0.0, 0, None
+    # one distance pass serves up to three radii
+    for i in range(0, len(radii), _FLAT_MAX_RADII):
+        rs, ss, os_ = (radii[i:i + _FLAT_MAX_RADII], nsamples[i:i + _FLAT_MAX_RADII],
+                       outs[i:i + _FLAT_MAX_RADII])
+        plan = _flat_plan(B, N, M, len(rs), sms)
+        args = []
+        for k in range(_FLAT_MAX_RADII):
+            args += [_r2(rs[k]), ss[k], os_[k].data_ptr()] if k < len(rs) else [0.0, 0, None]
+        sorted_ptr = boxes_ptr = None
+        if plan["sort"]:  # the pre-pass's sorted frames, then their boxes
+            rows = _FLAT_TILE * plan["tiles"]
+            scratch = torch.empty((B, rows + 2 * (plan["tiles"] + plan["supers"]), 4),
+                                  dtype=torch.float32, device=dev)
+            sorted_ptr = scratch.data_ptr()
+            boxes_ptr = sorted_ptr + 16 * B * rows
+            _build.launch_counts["ball_query_sort"] += 1
         _build.launch_counts["ball_query"] += 1
         _build.check(lib.g4d_ball_query(
-            xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, ra, sa,
-            oa.data_ptr(), rb, sb, ob, _build.stream_of(xyz)), "ball_query")
+            xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, len(rs), *args, int(plan["sort"]),
+            int(plan["staged"]), plan["warps"], plan["words"], plan["blocks"], plan["smem"],
+            sorted_ptr, boxes_ptr, _build.stream_of(xyz)), "ball_query")
     return tuple(outs)
 
 
@@ -457,9 +538,9 @@ def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
 
     `n_valid` (B,) int, optional: only the leading n_valid[b] rows of frame
     b are scanned (a compacted table padded with far sentinels; the count
-    stays on the device). With it, the kernel is the grouped query, which
-    serves up to three radii in one distance pass; without it, the flat
-    query, which shares each pass between two radii."""
+    stays on the device). With it, the kernel is the grouped query;
+    without it, the flat query. Each serves up to three radii in one
+    distance pass."""
     radii = tuple(float(r) for r in radii)
     nsamples = tuple(int(s) for s in nsamples)
     xyz, new_xyz = xyz.detach(), new_xyz.detach()
@@ -622,6 +703,41 @@ def _three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
     return torch.cat(dists, dim=1), torch.cat(idxs, dim=1).to(torch.int32)
 
 
+# three_nn.cu: known points a box (the C entry refuses another), warps a
+# block (a query a lane),
+# and known sets of at most _THREE_NN_UNSORTED points scanned whole by each
+# query in index order, in blocks of _THREE_NN_SCAN_WARPS warps (the sort
+# pre-pass and the culls would cost more than they save); the known points
+# are staged in shared memory where two blocks' share of an SM holds them
+# (with their boxes), else read through L1
+_THREE_NN_TILE = 8
+_THREE_NN_WARPS = 8
+_THREE_NN_SCAN_WARPS = 4
+_THREE_NN_UNSORTED = 256
+
+
+@functools.lru_cache(maxsize=64)
+def _three_nn_plan(B: int, n: int, m: int) -> dict:
+    """The 3-NN kernel's launch plan: `tile` known points a box, `tiles` of
+    them; `sort`: the pre-pass orders the known points and the queries
+    along the Morton curve and the walk culls tiles (known sets past
+    _THREE_NN_UNSORTED points; smaller ones are scanned whole); blocks of
+    `warps` warps over each frame's queries; `staged`: the known points
+    (16 x tile bytes a tile) and, sorted, their boxes (32 bytes a tile;
+    `smem` in all) in shared memory when two blocks' share of an SM holds
+    them, else read through L1. Raises ValueError for what the kernel does
+    not take (m < 3, B past the grid's y)."""
+    if m < 3 or n < 0 or not 0 <= B <= 65535:
+        raise ValueError(f"three_nn: B={B}, n={n}, m={m} (m >= 3, B <= 65535)")
+    tiles = -(-m // _THREE_NN_TILE)
+    sort = m > _THREE_NN_UNSORTED
+    smem = 16 * (_THREE_NN_TILE + (2 if sort else 0)) * tiles
+    staged = smem <= _build.SMEM_TWO_BLOCKS
+    return dict(tile=_THREE_NN_TILE, tiles=tiles, sort=sort,
+                warps=_THREE_NN_WARPS if sort else _THREE_NN_SCAN_WARPS, staged=staged,
+                smem=smem if staged else 0)
+
+
 def _three_nn_kernel(unknown: torch.Tensor, known: torch.Tensor):
     dev = unknown.device
     _build.require(unknown, "unknown", torch.float32, 3, dev)
@@ -631,13 +747,29 @@ def _three_nn_kernel(unknown: torch.Tensor, known: torch.Tensor):
     if unknown.shape[2] != 3 or known.shape[0] != B or known.shape[2] != 3 or m < 3:
         raise ValueError(f"three_nn: unknown {tuple(unknown.shape)}, "
                          f"known {tuple(known.shape)}")
+    plan = _three_nn_plan(B, n, m)
     dist2 = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=dev)
+    if B == 0 or n == 0:
+        return dist2, idx
+    sorted_k = boxes = sorted_q = own = None
+    if plan["sort"]:  # the pre-pass's sorted known points, their boxes,
+        # the sorted queries (float4 each), then each query's own tile (int32)
+        rows = plan["tile"] * plan["tiles"]
+        scratch = torch.empty(B * (4 * (rows + 2 * plan["tiles"] + n) + n), dtype=torch.float32,
+                              device=dev)
+        sorted_k = scratch.data_ptr()
+        boxes = sorted_k + 16 * B * rows
+        sorted_q = boxes + 32 * B * plan["tiles"]
+        own = sorted_q + 16 * B * n
     lib = _build.library()
     _build.launch_counts["three_nn"] += 1
-    _build.check(lib.g4d_three_nn(unknown.data_ptr(), known.data_ptr(), B, n,
-                                  m, dist2.data_ptr(), idx.data_ptr(),
-                                  _build.stream_of(unknown)), "three_nn")
+    if plan["sort"]:
+        _build.launch_counts["three_nn_sort"] += 1
+    _build.check(lib.g4d_three_nn(unknown.data_ptr(), known.data_ptr(), B, n, m, plan["tile"],
+                                  int(plan["sort"]), plan["warps"], int(plan["staged"]),
+                                  plan["smem"], sorted_k, boxes, sorted_q, own, dist2.data_ptr(),
+                                  idx.data_ptr(), _build.stream_of(unknown)), "three_nn")
     return dist2, idx
 
 

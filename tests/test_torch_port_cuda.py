@@ -28,7 +28,15 @@ size (20000 points, and N + 2k at its limit), J = 1 and 32, and the
 kernel's own selections read back against the plain version's; grouped
 queries with every row in radius, no hit, rows at r, hits and sentinels
 past n_valid, fewer valid rows than S, 1 to 2000 centers, and a table
-longer than a block stages.
+longer than a block stages; flat queries with points at r -+ 1, 2 ulp on a
+tile box's face, every point in one Morton cell, N < 32, a ragged last
+tile, a frame past the staged size, S above the hits and S = N, NaN
+points, 1 and 2000 centers, index order scrambled against space, 1 to 3
+radii, every instance the plan picks and bitmaps smaller than the frame;
+3-NN with three known points, all equal, a lattice of exact ties whose
+lower indices sit in later tiles, queries on (duplicated) known points,
+one query, fp1's shape at 2 and 200 frames and known points past the
+staged size; the C entries refusing plans that do not match them.
 Indices, masks, the 1-NN, the banded product and the scatter-add (against
 the CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
 stack and the PE backward's dcenters agree within rtol 1e-4 / atol 1e-5,
@@ -521,6 +529,256 @@ def test_fps_entry_refuses_short_smem(dev, N):
     err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, 8, plan["threads"], plan["ppt"],
                                    int(plan["far"]), plan["smem"] - 4, out.data_ptr(),
                                    _build.stream_of(xyz))
+    assert err != 0
+
+
+# ---- the flat query and 3-NN (sorted tiles with exact box culls) ------------
+
+
+def flat_check(dev, radii, ns, xyz, centers):
+    """The flat query bitwise the plain version, on the card."""
+    xyz, centers = xyz.contiguous().to(dev), centers.contiguous().to(dev)
+    got = pc._ball_query_kernel(radii, ns, xyz, centers)
+    for g, r, s in zip(got, radii, ns):
+        torch.testing.assert_close(g, pc._ball_query_plain(r, s, xyz, centers), rtol=0, atol=0)
+    return got
+
+
+def face_frame(radius, filler=0):
+    """A center c and, along +x, points at r -+ 1 and 2 ulp and at r from
+    it, each the lowest x of its own 32-point tile in index order (the
+    others further along +x at c's y and z), so that each tile's box bound
+    from c is that point's distance; `filler` far points after them."""
+    c = np.array([0.3, 0.2, 0.1], np.float32)
+    r = np.float32(radius)
+    lo1, hi1 = np.nextafter(r, np.float32(0)), np.nextafter(r, np.float32(1))
+    pts = []
+    for o in (np.nextafter(lo1, np.float32(0)), lo1, r, hi1, np.nextafter(hi1, np.float32(1))):
+        tile = np.repeat(c[None], 32, 0)
+        tile[:, 0] = np.float32(c[0] + o) + np.linspace(0, 0.05, 32, dtype=np.float32)
+        pts.append(tile)
+    pts.append(np.random.default_rng(5).random((filler, 3), dtype=np.float32) + 3.0)
+    return torch.from_numpy(np.concatenate(pts))[None], torch.from_numpy(c)[None, None]
+
+
+def flat_case(case):
+    """(radii, nsamples, xyz, centers) of one flat-query edge case."""
+    g = torch.Generator().manual_seed(21)
+    r3, s3 = (0.05, 0.1, 0.3), (8, 16, 24)
+    if case in ("face", "face sorted"):
+        xyz, c = face_frame(0.25, 0 if case == "face" else 600)
+        return (0.25,), (32,), xyz, c
+    if case == "boundary":  # points at r -+ 1, 2 ulp along each axis, both signs
+        pts, c = boundary_cloud(0.1)
+        xyz = torch.cat([torch.rand(1, 700, 3, generator=g), pts[None]], 1)
+        return (0.1, 0.2), (16, 32), xyz, torch.cat([c[None, None], xyz[:, :30]], 1)
+    if case == "one cell":  # every point in one Morton cell but one far point
+        xyz = torch.rand(2, 2000, 3, generator=g) * 0.01
+        xyz[:, 1234] = 10.0
+        return r3, (8, 16, 2000), xyz, xyz[:, :40].clone()
+    if case == "N < 32":
+        xyz = torch.rand(3, 7, 3, generator=g)
+        return r3[:2], (4, 16), xyz, torch.rand(3, 9, 3, generator=g)
+    if case == "ragged":  # 1000 = 31 tiles of 32 and one of 8
+        xyz = torch.rand(2, 1000, 3, generator=g)
+        return r3, s3, xyz, xyz[:, :100].clone()
+    if case == "past staged":  # a frame too large to stage: read through L1
+        xyz = torch.rand(2, 20000, 3, generator=g)
+        return r3, s3, xyz, torch.rand(2, 50, 3, generator=g)
+    if case == "S > hits":
+        xyz = torch.rand(2, 900, 3, generator=g)
+        return (0.05,), (64,), xyz, xyz[:, :80].clone()
+    if case == "S = N":
+        xyz = torch.rand(2, 600, 3, generator=g)
+        return (0.3, 2.0), (600, 600), xyz, xyz[:, :20].clone()
+    if case == "nan":  # NaN points (never hit, left out of boxes), 1 and 3 radii
+        xyz = torch.rand(2, 800, 3, generator=g)
+        xyz[:, ::7, 1] = float("nan")
+        return r3, s3, xyz, torch.rand(2, 60, 3, generator=g)
+    if case == "M = 1":
+        xyz = torch.rand(2, 3000, 3, generator=g)
+        return (0.2,), (32,), xyz, xyz[:, 5:6].clone()
+    if case == "M = 2000":
+        xyz = torch.rand(4, 1722, 3, generator=g)
+        return (0.1,), (32,), xyz, torch.rand(4, 2000, 3, generator=g)
+    if case == "scrambled":  # a lattice, its index order random against space
+        lat = torch.stack(torch.meshgrid(*[torch.arange(14.0)] * 3, indexing="ij"), -1)
+        lat = lat.reshape(-1, 3)[torch.randperm(14 ** 3, generator=g)] * 0.05
+        return (0.05, 0.1), (16, 32), lat[None], lat[None, :300].clone()
+    raise ValueError(case)
+
+
+FLAT_CASES = ["face", "face sorted", "boundary", "one cell", "N < 32", "ragged", "past staged",
+              "S > hits", "S = N", "nan", "M = 1", "M = 2000", "scrambled"]
+
+
+@pytest.mark.parametrize("case", FLAT_CASES)
+def test_flat_query_edges(dev, case):
+    """The flat query at the edges of its cull and its bitmaps, bitwise the
+    plain version: points at r and r -+ 1, 2 ulp on a tile box's face (index
+    order, and sorted), around a center on every axis; every point in one
+    Morton cell; N < 32, a ragged last tile, a frame past the staged size
+    (read through L1); S above the hits, S = N; NaN points; 1 and 2000
+    centers; index order scrambled against space; 1 to 3 radii."""
+    radii, ns, xyz, centers = flat_case(case)
+    got = flat_check(dev, radii, ns, xyz, centers)
+    if case == "face":  # only a tile's first point lies near r, the rest beyond
+        assert set(got[0][0, 0].tolist()) <= {0, 32, 64, 96, 128}
+
+
+def test_flat_query_plans(dev):
+    """Every instance the plan picks: a lane per center over a frame in
+    index order (N <= 512), sorted and staged with 32 or fewer warps, read
+    through L1, over frame counts below and above the card's blocks."""
+    seen = set()
+    for B, N, M, radii, ns in [(80, 256, 64, (0.2, 0.4), (32, 64)), (3, 6890, 1024, (0.05, 0.1),
+                               (16, 32)), (200, 1024, 256, (0.1,), (16,)),
+                               (2, 8000, 40, (0.1, 0.2, 0.4), (8, 16, 32)),
+                               (1, 15000, 30, (0.1,), (8,))]:
+        g = torch.Generator().manual_seed(B + N)
+        xyz = torch.rand(B, N, 3, generator=g)
+        plan = pc._flat_plan(B, N, M, len(radii), torch.cuda.get_device_properties(dev)
+                             .multi_processor_count)
+        seen.add((plan["sort"], plan["staged"], plan["warps"]))
+        flat_check(dev, radii, ns, xyz, torch.rand(B, M, 3, generator=g))
+    assert {(True, True, 32), (True, False, 32)} <= seen
+    assert any(not s and st for s, st, w in seen)  # a lane per center, index order
+    assert any(s and st and w < 32 for s, st, w in seen)
+
+
+@pytest.mark.parametrize("words", [4, 8, 216])
+def test_flat_query_windows(dev, words):
+    """Bitmaps smaller than the frame's indices (windows of 32 x words,
+    through the C entry): the same hits as one window."""
+    from garment4d_tpu_torch.ops import _build
+
+    xyz = cloud(40, 2, 6890)
+    centers = xyz[:, :64].contiguous()
+    radii, ns = (0.05, 0.1), (16, 32)
+    plan = pc._flat_plan(2, 6890, 64, 2, 132)
+    outs = [torch.full((2, 64, s), -1, dtype=torch.int32, device=dev) for s in ns]
+    tiles = plan["tiles"]
+    scratch = torch.empty((2, 32 * tiles + 2 * (tiles + plan["supers"]), 4), device=dev)
+    warps = 8
+    err = _build.library().g4d_ball_query(
+        xyz.data_ptr(), centers.data_ptr(), 2, 6890, 64, 2, pc._r2(0.05), 16, outs[0].data_ptr(),
+        pc._r2(0.1), 32, outs[1].data_ptr(), 0.0, 0, None, 1, 0, warps, words, 4,
+        4 * warps * 2 * words, scratch.data_ptr(), scratch.data_ptr() + 16 * 2 * 32 * tiles,
+        _build.stream_of(xyz))
+    assert err == 0
+    for o, r, s in zip(outs, radii, ns):
+        torch.testing.assert_close(o, pc._ball_query_plain(r, s, xyz, centers), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("field,value", [("R", 4), ("words", 6), ("smem", -4), ("unstaged", 0),
+                                         ("warps", 33)])
+def test_flat_entry_refuses(dev, field, value):
+    """The C entry refuses a plan that does not match the kernel: more than
+    three radii, bitmap rows not whole walk steps, shared memory short of
+    the staged frame and bitmaps, an unstaged frame without the pre-pass,
+    more warps than a block holds."""
+    from garment4d_tpu_torch.ops import _build
+
+    xyz = cloud(41, 2, 700)
+    centers = xyz[:, :10].contiguous()
+    plan = dict(pc._flat_plan(2, 700, 10, 1, 132), R=1)
+    if field == "unstaged":
+        plan.update(staged=False, sort=False)
+    elif field == "smem":
+        plan["smem"] += value
+    else:
+        plan[field] = value
+    out = torch.empty((2, 10, 8), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2, 32 * plan["tiles"] + 2 * (plan["tiles"] + plan["supers"]), 4),
+                          device=dev)
+    err = _build.library().g4d_ball_query(
+        xyz.data_ptr(), centers.data_ptr(), 2, 700, 10, plan["R"], 0.01, 8, out.data_ptr(),
+        0.01, 8, out.data_ptr(), 0.01, 8, out.data_ptr(), int(plan["sort"]), int(plan["staged"]),
+        plan["warps"], plan["words"], plan["blocks"], plan["smem"], scratch.data_ptr(),
+        scratch.data_ptr() + 16 * 2 * 32 * plan["tiles"], _build.stream_of(xyz))
+    assert err != 0
+
+
+def three_nn_check(unknown, known):
+    """The 3-NN kernel bitwise the plain version, indices and squared
+    distances, on the card."""
+    dk, ik = pc._three_nn_kernel(unknown.contiguous(), known.contiguous())
+    dp, ip = pc._three_nn_plain(unknown, known)
+    torch.testing.assert_close(ik, ip, rtol=0, atol=0)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=0)
+    return dk, ik
+
+
+def lattice(n, seed):
+    """An n^3 lattice of unit spacing whose index order is random against
+    space (so a lower index often sits in a later tile), and queries on
+    half-integer points: many exact ties at every rank."""
+    g = torch.Generator().manual_seed(seed)
+    lat = torch.stack(torch.meshgrid(*[torch.arange(float(n))] * 3, indexing="ij"), -1)
+    lat = lat.reshape(1, -1, 3)[:, torch.randperm(n ** 3, generator=g)]
+    q = (torch.rand(1, 500, 3, generator=g) * (2 * n - 2)).round() * 0.5
+    return q, lat
+
+
+@pytest.mark.parametrize("case", ["m = 3", "all equal", "lattice ties", "on known points",
+                                  "n = 1", "m past staged"])
+def test_three_nn_edges(dev, case):
+    """Three known points; every known point equal (ties to the lowest
+    indices); a lattice of exact ties, its lower indices in later tiles;
+    queries on known points (zero distances) and on duplicated ones; one
+    query; known points past the staged size (read through L1)."""
+    g = torch.Generator().manual_seed(31)
+    if case == "m = 3":
+        unknown, known = torch.rand(2, 400, 3, generator=g), torch.rand(2, 3, 3, generator=g)
+    elif case == "all equal":
+        unknown, known = torch.rand(2, 300, 3, generator=g), torch.full((2, 50, 3), 0.5)
+    elif case == "lattice ties":
+        unknown, known = lattice(9, 32)
+    elif case == "on known points":
+        known = torch.rand(2, 1024, 3, generator=g)
+        known[:, 900:] = known[:, :124]  # duplicates at higher indices
+        unknown = torch.cat([known[:, 1000:], known[:, :300], torch.rand(2, 500, 3, generator=g)], 1)
+    elif case == "n = 1":
+        unknown, known = torch.rand(3, 1, 3, generator=g), torch.rand(3, 1024, 3, generator=g)
+    else:
+        unknown, known = torch.rand(2, 3000, 3, generator=g), torch.rand(2, 9000, 3, generator=g)
+        assert not pc._three_nn_plan(2, 3000, 9000)["staged"]
+    d, i = three_nn_check(unknown.to(dev), known.to(dev))
+    if case == "all equal":
+        assert (i == torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)).all()
+
+
+@pytest.mark.parametrize("B", [2, 200])
+def test_three_nn_main_shapes(dev, B):
+    """fp1's shape, 6890 queries against 1024 known points, at 2 and 200
+    frames (the canonical train step's), with duplicated known points."""
+    known = cloud(33, B, 1024, dup=100)
+    unknown = cloud(34, B, 6890)
+    unknown[:, :50] = known[:, 974:]  # on the duplicates: ties to the lower index
+    three_nn_check(unknown, known)
+
+
+@pytest.mark.parametrize("field,value", [("tile", 16), ("smem", -16), ("warps", 0),
+                                         ("staged", False)])
+def test_three_nn_entry_refuses(dev, field, value):
+    """The C entry refuses a plan that does not match the kernel: another
+    tile size, shared memory short of the staged points and boxes, no
+    warps, unstaged known points without the pre-pass."""
+    from garment4d_tpu_torch.ops import _build
+
+    unknown, known = cloud(35, 2, 100), cloud(36, 2, 300)
+    plan = dict(pc._three_nn_plan(2, 100, 300))
+    plan[field] = plan["smem"] + value if field == "smem" else value
+    if field == "staged":
+        plan["sort"] = False
+    d = torch.empty((2, 100, 3), device=dev)
+    i = torch.empty((2, 100, 3), dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * (4 * (8 * plan["tiles"] + 2 * plan["tiles"] + 100) + 100), device=dev)
+    p = scratch.data_ptr()
+    err = _build.library().g4d_three_nn(
+        unknown.data_ptr(), known.data_ptr(), 2, 100, 300, plan["tile"], int(plan["sort"]),
+        plan["warps"], int(plan["staged"]), plan["smem"], p, p, p, p, d.data_ptr(), i.data_ptr(),
+        _build.stream_of(unknown))
     assert err != 0
 
 

@@ -160,6 +160,45 @@ class TestIndexOps:
         np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
 
 
+class TestPlainAgainstPallas:
+    """The port's plain flat query and plain 3-NN against the TPU kernels
+    (`ball_query_multi_pallas`, `three_nn_pallas`) in interpret mode, as
+    the JAX package's own tests run them on the CPU."""
+
+    def test_flat_query_plain_matches_pallas(self, rng):
+        """Two radii in one call, duplicated points and centers with no hit
+        (every slot 0): indices equal."""
+        from jax.experimental.pallas import tpu as pltpu
+        from garment4d_tpu.ops.pallas.ball_query import ball_query_multi_pallas
+
+        xyz = _cloud(rng, 2, 300, dup=60)
+        centers = np.concatenate([xyz[:, 200:250], np.full((2, 6, 3), 7.0, np.float32)], 1)
+        radii, ns = (0.1, 0.25), (8, 32)
+        with pltpu.force_tpu_interpret_mode():
+            want = ball_query_multi_pallas(radii, ns, jnp.asarray(xyz), jnp.asarray(centers))
+        got = tops.pointcloud.ball_query_multi(radii, ns, _t(xyz), _t(centers))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
+        assert (_np(got[1])[:, -6:] == 0).all()
+
+    def test_three_nn_plain_matches_pallas(self, rng):
+        """Duplicated known points (ties to the lower index) and queries on
+        them: indices equal, squared distances to fp32 roundoff (rtol 1e-6:
+        the kernel forms its distances in another order)."""
+        from jax.experimental.pallas import tpu as pltpu
+        from garment4d_tpu.ops.pallas.three_nn import three_nn_pallas
+
+        known = _cloud(rng, 2, 90, dup=30)
+        unknown = _cloud(rng, 2, 70)
+        unknown[:, :15] = known[:, 60:75]
+        with pltpu.force_tpu_interpret_mode():
+            wd, wi = three_nn_pallas(jnp.asarray(unknown), jnp.asarray(known))
+        gd, gi = tops.pointcloud._three_nn_plain(_t(unknown), _t(known))
+        np.testing.assert_array_equal(_np(gi), np.asarray(wi))
+        assert (_np(gi)[:, :15, 0] < 30).all()
+        np.testing.assert_allclose(_np(gd), np.asarray(wd), rtol=1e-6)
+
+
 def _boundary_points(center, radius):
     """Points at exactly r from `center` and at r -+ 1 and 2 ulp along each
     axis, both signs: (30, 3)."""
@@ -1257,6 +1296,91 @@ class TestKernelPlans:
         with pytest.raises(ValueError, match="fps"):
             tops.pointcloud._fps_plan(B, N, npoint)
 
+    # the flat query's cases: (N, M, R) of the posed forward / train step
+    # (80 / 40 frames) and the canonical train step (200 frames, one radius
+    # a call); frames of at most 512 points take a lane per center
+    FLAT_CASES = [(6890, 1024, 2), (1024, 256, 2), (256, 64, 2), (1722, 512, 2), (512, 64, 2),
+                  (1722, 2000, 1), (512, 2000, 1), (64, 2000, 1)]
+
+    @pytest.mark.parametrize("N,M,R", FLAT_CASES + [(6890, 1024, 1), (1024, 256, 1),
+                                                     (256, 64, 1), (1722, 512, 1), (512, 64, 1)])
+    def test_flat_plan_main_path(self, N, M, R):
+        """Every flat case of the three paths is planned: frames past 512
+        points sorted into 32-point tiles with a box per 32 tiles, staged
+        with 32 warps a block and a bitmap row of the frame's indices (one
+        window), blocks for the SMs' resident ones; smaller frames a lane
+        per center, 4 warps a block, blocks enough for a frame's centers;
+        the shared memory is the layout's."""
+        for B in (80, 40, 200):
+            plan = tops.pointcloud._flat_plan(B, N, M, R, 132)
+            tiles = -(-N // 32)
+            assert plan["tiles"] == tiles and plan["staged"]
+            assert plan["smem"] <= _build.SMEM_LIMIT
+            if N > 512:
+                words = -(-tiles // 4) * 4
+                assert plan["sort"] and plan["warps"] == 32 and plan["words"] == words
+                assert plan["supers"] == -(-tiles // 32) and 32 * words >= N
+                assert plan["smem"] == 16 * 32 * tiles + 32 * (tiles + plan["supers"]) \
+                    + 4 * 32 * R * words
+                resident = 1 if plan["smem"] > _build.SMEM_LIMIT // 2 else 2
+                assert plan["blocks"] == min(132 * resident, -(-B * M // 32))
+            else:
+                assert not plan["sort"] and plan["warps"] == 4
+                assert plan["smem"] == 16 * N and plan["blocks"] == -(-M // 128)
+
+    @pytest.mark.parametrize("B,N,M,R,sort,staged,warps,windows", [
+        (2, 0, 5, 1, False, True, 4, 0), (1, 1, 1, 3, False, True, 4, 0),
+        (2, 513, 7, 3, True, True, 32, 1), (2, 8000, 40, 3, True, True, 16, 1),
+        (2, 15000, 30, 1, True, False, 32, 1), (2, 20000, 50, 3, True, False, 16, 1),
+        (2, 700000, 5, 3, True, False, 8, 10), (70000, 100, 4, 1, True, True, 32, 1)])
+    def test_flat_plan_edges(self, B, N, M, R, sort, staged, warps, windows):
+        """No point; one point; a frame just past the lane mode; a staged
+        frame with fewer warps; frames past the staged size (read through
+        L1) with every index in one window, and one whose bitmaps take ten
+        windows; more frames than the grid's y (the lane mode's) holds."""
+        plan = tops.pointcloud._flat_plan(B, N, M, R, 132)
+        assert (plan["sort"], plan["staged"], plan["warps"]) == (sort, staged, warps)
+        assert plan["smem"] <= _build.SMEM_LIMIT and plan["blocks"] >= 1
+        if sort:
+            assert -(-N // (32 * plan["words"])) == windows and plan["words"] % 4 == 0
+
+    @pytest.mark.parametrize("B,N,M,R", [(1, 10, 5, 0), (1, 10, 5, 4), (-1, 10, 5, 1),
+                                         (1, -3, 5, 1)])
+    def test_flat_plan_refuses(self, B, N, M, R):
+        with pytest.raises(ValueError, match="ball_query"):
+            tops.pointcloud._flat_plan(B, N, M, R, 132)
+
+    @pytest.mark.parametrize("n,m,sort", [(6890, 1024, True), (1024, 256, False),
+                                          (256, 64, False)])
+    def test_three_nn_plan_main_path(self, n, m, sort):
+        """fp1-fp3 at 80, 40 and 200 frames: fp1's 1024 known points sorted
+        into 8-point tiles with boxes, staged (20 KB), 8 warps a block; fp2
+        and fp3 scanned whole in index order, 4 warps a block."""
+        for B in (80, 40, 200):
+            plan = tops.pointcloud._three_nn_plan(B, n, m)
+            tiles = -(-m // 8)
+            assert (plan["tile"], plan["tiles"], plan["sort"], plan["staged"]) == (
+                8, tiles, sort, True)
+            assert plan["warps"] == (8 if sort else 4)
+            assert plan["smem"] == 16 * (8 + (2 if sort else 0)) * tiles
+
+    @pytest.mark.parametrize("B,n,m,sort,staged", [(2, 1, 3, False, True), (2, 5, 256, False, True),
+                                                   (2, 5, 257, True, True),
+                                                   (2, 3000, 9000, True, False),
+                                                   (65535, 1, 3, False, True)])
+    def test_three_nn_plan_edges(self, B, n, m, sort, staged):
+        """Three known points; the largest scanned set; the smallest sorted
+        one; known points past two blocks' shared memory (read through L1,
+        no shared memory); the grid's largest frame count."""
+        plan = tops.pointcloud._three_nn_plan(B, n, m)
+        assert (plan["sort"], plan["staged"]) == (sort, staged)
+        assert plan["smem"] == (16 * (8 + (2 if sort else 0)) * plan["tiles"] if staged else 0)
+
+    @pytest.mark.parametrize("B,n,m", [(1, 5, 2), (65536, 5, 5), (1, -1, 5)])
+    def test_three_nn_plan_refuses(self, B, n, m):
+        with pytest.raises(ValueError, match="three_nn"):
+            tops.pointcloud._three_nn_plan(B, n, m)
+
     def test_knn_float64_witness(self, rng):
         """The float64 K-NN transfer that the card's checks hold the kernel
         to (`chip_smoke.knn_float64`), over the plain version's fp32
@@ -1336,6 +1460,95 @@ class TestWorkModels:
         far = coverage_work(xyz + 10.0, centers, r)
         assert far == (0, 2 * 700 * 3)  # every tile culled for every point
         assert coverage_tests(xyz + 10.0, centers, r) == 2 * 700 * 90
+
+
+def _tied_cloud(draw_seed, B, N, lattice):
+    """Points for the work models' tests: uniform, or (lattice) on an integer
+    lattice of spacing 0.1, scrambled, with duplicates: exact distance ties
+    at every rank and many points in one tile box."""
+    g = np.random.RandomState(draw_seed)
+    if lattice:
+        pts = g.randint(0, 6, size=(B, N, 3)).astype(np.float32) * np.float32(0.1)
+    else:
+        pts = g.rand(B, N, 3).astype(np.float32)
+    return _t(pts)
+
+
+class TestFlatAndThreeNNWork:
+    """The work models of the flat query (`chip_smoke.query_work`) and the
+    3-NN (`three_nn_work`) that their bounds count: never less than the
+    data forces. Every (center, point) hit lies in a tile the flat model
+    keeps; each query's true three nearest (ties to the lower index) lie in
+    tiles the 3-NN model keeps for it; and neither counts more than a full
+    scan plus its box tests."""
+
+    @settings(max_examples=12, deadline=None, derandomize=True, database=None)
+    @given(seed=st.integers(0, 2 ** 16), n=st.integers(513, 900), m=st.integers(1, 40),
+           lattice=st.booleans(), r=st.sampled_from([0.05, 0.1, 0.25]))
+    def test_query_work_keeps_every_hit(self, seed, n, m, lattice, r):
+        from chip_smoke import query_kept, query_work
+
+        xyz = _tied_cloud(seed, 2, n, lattice)
+        centers = _tied_cloud(seed + 1, 2, m, lattice)
+        centers[:, : m // 2] = xyz[:, : m // 2]  # centers on points
+        r2 = tops.pointcloud._r2(r)
+        order, _, need = query_kept(xyz, centers, r2)
+        tile_of = torch.empty_like(order)
+        tile_of.scatter_(1, order, torch.arange(n).expand(2, n) // 32)
+        hit = tops.pointcloud.pairwise_sqdist(centers, xyz) < r2  # (B, m, n)
+        kept_for_hit = torch.gather(need, 2, tile_of[:, None, :].expand(2, m, n))
+        assert bool(kept_for_hit[hit].all())
+        outs = [tops.pointcloud._ball_query_plain(r, 16, xyz, centers)]
+        exact, boxes, words = query_work(xyz, centers, (r,), outs)
+        tiles = -(-n // 32)
+        hit_tiles = torch.zeros(2, m, tiles, dtype=torch.bool)
+        hit_tiles.scatter_(2, tile_of[:, None, :].expand(2, m, n), hit)
+        assert 32 * int(hit_tiles.sum()) <= exact <= 2 * m * 32 * tiles
+        assert 2 * m * -(-tiles // 32) <= boxes <= 2 * m * (tiles + -(-tiles // 32))
+        assert words == 2 * m * (-(-tiles // 4) * 4)
+
+    def test_query_work_lane_mode(self, rng):
+        """Frames of at most 512 points: the index-order scan's tests up to
+        each center's S-th hit (`scan_tests`), no box, no bitmap."""
+        from chip_smoke import query_work, scan_tests
+
+        xyz = _t(_cloud(rng, 2, 300))
+        centers = xyz[:, :20].clone()
+        outs = [tops.pointcloud._ball_query_plain(r, s, xyz, centers) for r, s in ((0.1, 8),
+                                                                                 (0.3, 32))]
+        work = query_work(xyz, centers, (0.1, 0.3), outs)
+        assert work == (scan_tests(outs, torch.full((2,), 300)), 0, 0)
+
+    @settings(max_examples=12, deadline=None, derandomize=True, database=None)
+    @given(seed=st.integers(0, 2 ** 16), n=st.integers(1, 300), m=st.integers(257, 600),
+           lattice=st.booleans())
+    def test_three_nn_work_keeps_the_three_nearest(self, seed, n, m, lattice):
+        from chip_smoke import three_nn_kept, three_nn_work
+
+        known = _tied_cloud(seed, 2, m, lattice)
+        unknown = _tied_cloud(seed + 1, 2, n, lattice)
+        unknown[:, : n // 2] = known[:, : n // 2]  # queries on known points
+        d2, idx = tops.pointcloud._three_nn_plain(unknown, known)
+        order_k, order_q, need = three_nn_kept(unknown, known, d2, 8)
+        tile_of = torch.empty_like(order_k)
+        tile_of.scatter_(1, order_k, torch.arange(m).expand(2, m) // 8)
+        rank_q = torch.empty_like(order_q)
+        rank_q.scatter_(1, order_q, torch.arange(n).expand(2, n))
+        need_q = torch.gather(need, 1, rank_q[..., None].expand_as(need))  # queries in index order
+        nearest_tiles = torch.gather(tile_of, 1, idx.long().reshape(2, -1)).reshape(2, n, 3)
+        assert bool(torch.gather(need_q, 2, nearest_tiles).all())
+        tests, boxes = three_nn_work(unknown, known, d2)
+        tiles = -(-m // 8)
+        assert 8 * int(need_q.any(-1).sum()) <= tests <= 2 * n * 8 * tiles + 2 * 31 * 8 * tiles
+        assert boxes >= 2 * -(-n // 32) * tiles
+
+    def test_three_nn_work_scan(self, rng):
+        """A known set of at most 256 points is scanned whole by every query."""
+        from chip_smoke import three_nn_work
+
+        unknown, known = _t(_cloud(rng, 3, 50)), _t(_cloud(rng, 3, 100))
+        d2, _ = tops.pointcloud._three_nn_plain(unknown, known)
+        assert three_nn_work(unknown, known, d2) == (3 * 50 * 104, 0)
 
 
 class TestCoverageBound:
