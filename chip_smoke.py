@@ -37,7 +37,8 @@ then:
    within rtol 1e-4 / atol 1e-5 on `out` and `hidden`. Then every chain
    and GCN-stack launch of one posed forward is recorded with its inputs
    (28 chain launches, 3 stacks of 4 layer launches): each launch's bound
-   and the summed bounds printed, and at each distinct shape the kernel
+   and the summed bounds printed (the 14 row gathers' too, beside their
+   device ms in phase 4), and at each distinct shape the kernel
    within rtol 1e-4 / atol 1e-5 of its plain version and of the plain
    version in float64, two launches bitwise equal. Each is timed with
    CUDA events beside its plain version, its bound (the larger of the bytes
@@ -75,10 +76,14 @@ then:
    the three train kernels; requires all thirteen kernels to have launched
    (pe_bwd 18, nn1 3 and banded 30 times), every loss term finite, every
    trainable parameter with a finite gradient and moved, every canonical
-   parameter and buffer bitwise unchanged. On the recorded inputs: the
-   1-NN's indices and squared distances and the banded product (the GCN
-   recompute's C=128 band, its transpose, the loss Laplacian's C=3 band)
-   bitwise equal to their plain versions; the PE backward at each of its
+   parameter and buffer bitwise unchanged. On the recorded inputs: each
+   distinct 1-NN case (the loss's 3 launches) bitwise its plain version in
+   indices and squared distances and timed (`kernel_ms`) beside its bound
+   (the work its culls leave on this data, `nn1_work`), the earlier
+   kernel's scan bound and `cdist_min` (exact `torch.cdist` and a min, a
+   time yardstick only); the banded product (the GCN recompute's C=128
+   band, its transpose, the loss Laplacian's C=3 band) bitwise equal to
+   its plain version; the PE backward at each of its
    six shapes (body 6 wide at S=8/16/32, garment unsplit 67/99/387 wide at
    S=32/16/8), with a zero cotangent at the (center, channel) pairs whose
    max another fp32 summation order may put on another slot (`pe_near_ties`,
@@ -90,8 +95,9 @@ then:
    difference
    and the share of the pairs that fp32 routes otherwise than float64
    printed; each timed beside its plain version, its bound (the work this
-   run's routing needs) and a library yardstick (`torch.cdist(q,
-   p).min(-1)`, a dense `torch.matmul(adj, x)`). The same step on the plain
+   run's routing needs) and a library yardstick (a dense
+   `torch.matmul(adj, x)`). The profiler's device ms of the step's 3 1-NN
+   and 30 banded launches beside their summed bounds. The same step on the plain
    path from the same weights, which must launch no kernel, its backward
    included: every loss term within 1e-3 relative; each
    refinement iteration fed its recorded inputs and one random cotangent,
@@ -121,9 +127,11 @@ then:
    1e-5 / atol 1e-6 of its plain version on the card (`index_add_`),
    bitwise the ascending-order sum on the CPU, two launches bitwise equal;
    timed beside its bound (bytes), its plain version and one `index_add_`;
-   the step's FPS, flat (its 10 single-radius queries) and 3-NN cases (200
-   frames) bitwise their plain versions and timed as in phase 2. The eval
-   step (fused SA path, the eval-tail mask) once;
+   the step's FPS, flat (its 10 single-radius queries), 3-NN (200 frames)
+   and 1-NN cases bitwise their plain versions and timed as in phase 2 and
+   5; the profiler's device ms of its 1-NN and its 20 row gathers beside
+   their summed bounds. The eval step (fused SA path, the eval-tail mask)
+   once, its 1-NN held and timed as the train step's;
    the same train
    step on the plain path from the same weights and dropout seed, which
    must launch no kernel, run twice: every loss term within 1e-3
@@ -168,10 +176,15 @@ its 11 shapes beside one `index_add_`, on inputs recorded from the steps;
 each coverage launch of the posed forward and each distinct FPS, flat
 ball-query and 3-NN case of the posed forward and both train steps (3-NN
 beside `torch.cdist` and a top-3), their sums over the posed forward;
+each distinct 1-NN case of the posed train step and the canonical train
+and eval steps beside `cdist_min`, their sum over the
+posed train step (`nn1_ms_sum`, `nn1_bound_ms_sum`) and the 1-NN
+pre-pass's device ms a posed train step; the device ms a call of each
+path of the row gather and the banded product too;
 each path's profiled launches a call; the ptxas lines of the chain, GCN,
 K-NN, ball-query, 3-NN, FPS and coverage kernels; one JSON line. The FPS,
-coverage, flat and 3-NN bounds come from this checkout's launch plans, so
-another checkout's run leaves them out.
+coverage, flat, 3-NN and 1-NN bounds come from this checkout's launch
+plans, so another checkout's run leaves them out.
 `--ab` runs it for the checkout at PARENT (unpacked under `_archive/`) and
 this one in turns, parent, change, change, parent, so that two checkouts
 are compared in one run on one card, and prints the means (per shape: ms
@@ -287,9 +300,10 @@ def wall_s(fn, runs: int = 5, warmup: int = 1) -> float:
 # which torch.profiler lists its CUDA kernels, the counters that launch
 # them, and the kernels one counted launch runs (the PE backward: its pass
 # and its ordered sum; the scatter-add: its sort and its segmented sum; the
-# flat query's and the 3-NN's sort pre-passes count under `ball_query_sort`
-# and `three_nn_sort`, where their plans run them); the names of an earlier
-# design stay listed, for the parent checkout of an `--ab` run
+# flat query's, the 3-NN's and the 1-NN's sort pre-passes count under
+# `ball_query_sort`, `three_nn_sort` and `nn1_sort`, where their plans run
+# them); the names of an earlier design stay listed, for the parent
+# checkout of an `--ab` run
 PROFILED = {
     "fused_chain": (("fused_chain_kernel",), ("fused_chain", "group_pe_max", "group_pe_max_nv"),
                     1),
@@ -304,7 +318,7 @@ PROFILED = {
     "gather_rows": (("gather_rows_kernel",), ("gather_rows",), 1),
     "pe_bwd": (("pe_bwd_kernel", "pe_bwd_reduce_kernel"), ("pe_bwd",), 2),
     "banded": (("banded_kernel",), ("banded",), 1),
-    "nn1": (("nn1_kernel",), ("nn1",), 1),
+    "nn1": (("nn1_kernel", "nn1_nearest_kernel", "nn1_sort_kernel"), ("nn1", "nn1_sort"), 1),
     "scatter_add": (("scatter_sort_kernel", "segment_sum_kernel"), ("scatter_add",), 2),
 }
 
@@ -403,16 +417,17 @@ def capture_inputs(model, names):
 
 
 @contextlib.contextmanager
-def recording(owner, name):
+def recording(owner, name, keep=None):
     """Record the arguments and result of every call of `owner.name` (a
-    module's function or an object's method)."""
+    module's function or an object's method), or what `keep(args, kwargs,
+    result)` makes of them (where holding the tensors would cost memory)."""
     calls = []
     fn = getattr(owner, name)
     own = name in vars(owner)
 
     def wrapper(*args, **kwargs):
         result = fn(*args, **kwargs)
-        calls.append((args, kwargs, result))
+        calls.append((args, kwargs, result) if keep is None else keep(args, kwargs, result))
         return result
 
     setattr(owner, name, wrapper)
@@ -433,6 +448,20 @@ def bound(n_bytes: float, n_ops: float):
     """The least time the card could take: (ms, "bytes" or "operations")."""
     t_bytes, t_ops = n_bytes / PEAK_HBM, n_ops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gather_bound(args, _kwargs, out) -> float:
+    """A row gather's bound (ms): the table and the indices read, the rows
+    written (`bound` of its bytes; a recording's `keep`)."""
+    return bound(nbytes(*args, out), 0)[0]
+
+
+def banded_bound(args, _kwargs, out) -> float:
+    """A banded product's bound (ms): the larger of its bytes (the
+    diagonals and x read, the product written) and 2 operations a diagonal
+    and element of x (a recording's `keep`)."""
+    vals, x, offsets = args
+    return bound(nbytes(vals, x, out), 2.0 * len(offsets) * x.numel())[0]
 
 
 def scan_tests(outs, n_scan) -> int:
@@ -689,41 +718,38 @@ def query_ops(xyz, new_xyz, radii, outs) -> float:
     return (8.0 + min(len(radii), 3)) * exact + 18.0 * boxes + 4.0 * words
 
 
-def three_nn_kept(unknown, known, d2, tile):
-    """The known tiles that each query of the 3-NN's sorted path needs, given
-    the squared distances `d2` (B, n, 3) of its result: along the curve of
-    16 cells an axis over the known points' box, the known points in tiles
-    (`sorted_tiles`) and the queries in order; a query needs a tile whose
-    box bound is not above its final third distance (a NaN bound never
-    skips). Returns (known order (B, m), query order (B, n), needed tiles
-    (B, n, tiles) of the queries in their order)."""
+def nearest_kept(unknown, known, d2, tile):
+    """The known tiles that each query of a nearest-neighbour search's sorted
+    path (3-NN, 1-NN) needs, given the squared distances `d2` (B, n, K) of
+    its result: along the curve of 16 cells an axis over the known points'
+    box, the known points in tiles (`sorted_tiles`) and the queries in
+    order; a query needs a tile whose box bound is not above its final K-th
+    distance (a NaN bound never skips). Returns (known order (B, m), query
+    order (B, n), needed tiles (B, n, tiles) of the queries in their
+    order)."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     order_k, _, lo, hi = sorted_tiles(known, tile, 4)
     order_q = curve_order(unknown, 4, nan_box(known))
     q = torch.gather(unknown, 1, order_q[..., None].expand_as(unknown))
-    b2 = torch.gather(d2[..., 2], 1, order_q)
+    bk = torch.gather(d2[..., -1], 1, order_q)
     need = torch.cat([~(pc._box_lower_bound(q[b0:b0 + 8, :, None, :], lo[b0:b0 + 8, None],
-                                            hi[b0:b0 + 8, None]) > b2[b0:b0 + 8, :, None])
+                                            hi[b0:b0 + 8, None]) > bk[b0:b0 + 8, :, None])
                       for b0 in range(0, q.shape[0], 8)])
     return order_k, order_q, need
 
 
-def three_nn_work(unknown, known, d2) -> tuple:
-    """(lane tests, box tests) that the 3-NN kernel needs on this data under
-    its launch plan (`_three_nn_plan`), given the squared distances `d2`
-    (B, n, 3) of its result. A small known set is scanned whole by every
-    query. Else a warp of 32 queries in curve order visits, a known point a
-    test for each of its lanes, every tile one of its queries needs
-    (`three_nn_kept`: the least its walk can visit, since a lane's bound
-    only shrinks to its final third distance), and tests each tile's box
-    against its queries' box (a lane a tile) and each visited tile's
-    against each lane."""
-    from garment4d_tpu_torch.ops import pointcloud as pc
-
+def nearest_work(unknown, known, d2, plan) -> tuple:
+    """(lane tests, box tests) that a nearest-neighbour search (three_nn.cu,
+    nn1.cu: common.cuh's `nearest_query`) needs on this data under its
+    launch plan, given the squared distances `d2` (B, n, K) of its result. A
+    small known set is scanned whole by every query. Else a warp of 32
+    queries in curve order visits, a known point a test for each of its
+    lanes, every tile one of its queries needs (`nearest_kept`: the least
+    its walk can visit, since a lane's bound only shrinks to its final K-th
+    distance), and tests each tile's box against its queries' box (a lane a
+    tile) and each visited tile's against each lane."""
     Bk, n, _ = unknown.shape
-    m = known.shape[1]
-    plan = pc._three_nn_plan(Bk, n, m)
     kt, tiles = plan["tile"], plan["tiles"]
     if not plan["sort"] or n == 0:
         return Bk * n * tiles * kt, 0
@@ -732,12 +758,30 @@ def three_nn_work(unknown, known, d2) -> tuple:
     lanes[-1] = n - 32 * (w - 1)
     tests = fine = 0
     for b0 in range(0, Bk, 8):
-        need = three_nn_kept(unknown[b0:b0 + 8], known[b0:b0 + 8], d2[b0:b0 + 8], kt)[2]
+        need = nearest_kept(unknown[b0:b0 + 8], known[b0:b0 + 8], d2[b0:b0 + 8], kt)[2]
         need = torch.nn.functional.pad(need, (0, 0, 0, 32 * w - n)).reshape(-1, w, 32, tiles)
         kept = need.any(2).sum(-1)  # (b, warps)
         tests += int((kept * lanes * kt).sum())
         fine += int((kept * lanes).sum())
     return tests, Bk * w * tiles + fine
+
+
+def three_nn_work(unknown, known, d2) -> tuple:
+    """`nearest_work` of the 3-NN kernel (`_three_nn_plan`), given its
+    squared distances `d2` (B, n, 3)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    plan = pc._three_nn_plan(unknown.shape[0], unknown.shape[1], known.shape[1])
+    return nearest_work(unknown, known, d2, plan)
+
+
+def nn1_work(query, points, d2) -> tuple:
+    """`nearest_work` of the 1-NN kernel (`_nn1_plan`), given its squared
+    distances `d2` (B, M)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    plan = pc._nn1_plan(query.shape[0], query.shape[1], points.shape[1], 1)
+    return nearest_work(query, points, d2[..., None], plan)
 
 
 def three_nn_ops(unknown, known, d2) -> float:
@@ -746,6 +790,14 @@ def three_nn_ops(unknown, known, d2) -> float:
     its share of the insertions), 18 a box test."""
     tests, boxes = three_nn_work(unknown, known, d2)
     return 12.0 * tests + 18.0 * boxes
+
+
+def nn1_ops(query, points, d2) -> float:
+    """Operations the 1-NN kernel needs on this data (`nn1_work`): 10 a lane
+    test (8 for the distance, the compare and its share of the insertion),
+    18 a box test."""
+    tests, boxes = nn1_work(query, points, d2)
+    return 10.0 * tests + 18.0 * boxes
 
 
 def chain_plain(table, idx, centers, weights, biases, relus, n_valid=None):
@@ -865,16 +917,15 @@ def by_case(rows):
     return cases
 
 
-def print_launch_bounds(label, rows, launches_per_row=1):
+def print_launch_bounds(label, rows, launches_per_row=1, per="posed forward"):
     """Print each case's count and bound and the summed bound of the
-    launches of one posed forward (a row's `launches`, else
+    launches of one call of a path (a row's `launches`, else
     `launches_per_row`, each); returns the sum (ms)."""
     total = sum(r["bound_ms"] for r in rows)
     for case, (row, count) in by_case(rows).items():
         print(f"{label} {case}: x{count}, bound {row['bound_ms']:.4f} ms each", flush=True)
     launches = sum(r.get("launches", launches_per_row) for r in rows)
-    print(f"{label}: {launches} launches per posed forward, summed bound {total:.4f} ms",
-          flush=True)
+    print(f"{label}: {launches} launches per {per}, summed bound {total:.4f} ms", flush=True)
     return total
 
 
@@ -1230,6 +1281,32 @@ def cdist_top3(unknown, known):
         3, largest=False)
 
 
+def nn1_launches(calls):
+    """One row per recorded 1-NN launch of a path: its case, arguments and
+    bounds. `bound_ms`: the bytes (both sets read, the distances and
+    indices written) or the work its culls leave on this data (`nn1_ops`),
+    whichever is larger; `scan_bound_ms`: every (query, point) pair at 9
+    operations, the earlier kernel's bound."""
+    rows = []
+    for (query, points), _, (d2, idx) in calls:
+        Bq, M = query.shape[:2]
+        N = points.shape[1]
+        nb = nbytes(query, points, d2, idx)
+        ops = nn1_ops(query, points, d2)
+        b_ms, b_by = bound(nb, ops)
+        rows.append(dict(case=f"({Bq}, {M}) vs {N}", args=(query, points), out=(d2, idx),
+                         nbytes=nb, ops=ops,
+                         bound_ms=b_ms, bound_by=b_by, launches=1,
+                         scan_bound_ms=bound(nb, 9.0 * Bq * M * N)[0]))
+    return rows
+
+
+def cdist_min(query, points):
+    """The 1-NN's time yardstick: one exact-distance `torch.cdist` and its
+    min (the same function up to the square root and the tie order)."""
+    return torch.cdist(query, points, compute_mode="donot_use_mm_for_euclid_dist").min(-1)
+
+
 @torch.inference_mode()
 def check_flat(label, bcalls, res: Results, path=None):
     """Each distinct flat ball-query case of a path's recorded launches
@@ -1276,6 +1353,33 @@ def check_three_nn(label, tcalls, res: Results, path=None):
                    lambda: pc._three_nn_plain(unknown, known), row["nbytes"], row["ops"],
                    reps_p=1, queued=True, path=path, library=lambda: cdist_top3(unknown, known),
                    launches_per_call=count, scan_bound_ms=row["scan_bound_ms"])
+    return rows
+
+
+@torch.inference_mode()
+def check_nn1(label, calls, res: Results, path=None):
+    """Every 1-NN launch of a path (its recorded result) bitwise its plain
+    version on the same inputs (squared distances and indices); each
+    distinct case timed (`kernel_ms`) beside its bound (the work its culls
+    leave, `nn1_ops`), the earlier kernel's scan bound and `cdist_min`;
+    returns the rows (`nn1_launches`). `path`: the main path the launches
+    come from, where it is not the kernel's own (`KERNELS`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    rows = nn1_launches(calls)
+    for i, row in enumerate(rows):
+        dk, ik = row["out"]
+        dp, ip = pc._nn1_plain(*row["args"])
+        require(torch.equal(ik, ip) and torch.equal(dk, dp),
+                f"nn1 {label} launch {i} {row['case']}: indices or squared distances differ "
+                f"from plain")
+    for case, (row, count) in by_case(rows).items():
+        query, points = row["args"]
+        res.record("nn1", f"{label} {case} x{count}", 0,
+                   lambda: pc._nn1_kernel(query, points), lambda: pc._nn1_plain(query, points),
+                   row["nbytes"], row["ops"], reps_p=1, queued=True, path=path,
+                   library=lambda: cdist_min(query, points), launches_per_call=count,
+                   scan_bound_ms=row["scan_bound_ms"])
     return rows
 
 
@@ -1408,13 +1512,17 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
             recording(pc, "_covered_mask_kernel") as ccalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
             recording(pc, "_ball_query_grouped_kernel") as gcalls, \
-            recording(pc, "_three_nn_kernel") as tcalls:
+            recording(pc, "_three_nn_kernel") as tcalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_bound) as gather_bounds:
         got, handles = capture_inputs(recon.model, ["garment_pe2"])
         recon.posed(pcd, body_in)
         for h in handles:
             h.remove()
     torch.cuda.synchronize()
     sums = check_forward_queries(fcalls, bcalls, gcalls, tcalls, ccalls, res)
+    sums["gather_rows"] = sum(gather_bounds)
+    print(f"gather_rows: {len(gather_bounds)} launches per posed forward, summed bound "
+          f"{sums['gather_rows']:.4f} ms", flush=True)
     del fcalls[:], bcalls[:], gcalls[:], tcalls[:], ccalls[:]
 
     # grouped ball query over the compacted table of iteration 0 (the body
@@ -1622,21 +1730,10 @@ def pe_grads_agree(got, want) -> bool:
 
 @torch.no_grad()
 def check_train_kernels(calls, res: Results):
-    """The train step's three kernels against their plain versions, on the
-    inputs recorded from one train step."""
+    """The train step's banded product and PE backward against their plain
+    versions, on the inputs recorded from one train step (the 1-NN:
+    `check_nn1`)."""
     from garment4d_tpu_torch.ops import graph, pemax, pointcloud as pc
-
-    # 1-NN: the loss's (40, 2000) garment vertices vs the 6890 body vertices
-    q, p = calls["nn1"][0][0]
-    dk, ik = pc._nn1_kernel(q, p)
-    dp, ip = pc._nn1_plain(q, p)
-    require(torch.equal(ik, ip), "1-NN indices differ from the plain version")
-    require(torch.equal(dk, dp), "1-NN squared distances differ from the plain version")
-    Bq, M, _ = q.shape
-    res.record("nn1", f"loss ({Bq}, {M}) vs {p.shape[1]}", 0,
-               lambda: pc._nn1_kernel(q, p), lambda: pc._nn1_plain(q, p),
-               nbytes(q, p, dk, ik), 9.0 * Bq * M * p.shape[1],
-               library=lambda: torch.cdist(q, p).min(-1))
 
     # banded: the GCN recompute (C=128) and its transpose, the loss (C=3)
     fwd = [a for a, _, _ in calls["banded"]]
@@ -1899,8 +1996,10 @@ def train_phase(assets, body, weights, res: Results):
     print(f"{len(trainable)} trainable tensors, all with finite gradients and moved; "
           f"{len(canonical)} canonical tensors bitwise unchanged", flush=True)
 
-    failed = check_train_kernels(dict(nn1=nn1_calls, banded=banded_calls, pe_bwd=pe_calls),
-                                 res)
+    failed = check_train_kernels(dict(banded=banded_calls, pe_bwd=pe_calls), res)
+    bounds = dict(nn1=print_launch_bounds("nn1", check_nn1("posed train step", nn1_calls, res),
+                                          per="posed train step"),
+                  banded=sum(banded_bound(*c) for c in banded_calls))
     check_knn("posed train step", knn_calls[0][0], res, path="train")
     check_fps("posed train step", fps_calls, res, path="train")
     check_flat("posed train step", bq_calls, res, path="train")
@@ -1935,8 +2034,13 @@ def train_phase(assets, body, weights, res: Results):
           f"({plain_s * 1e3:.2f} ms)", flush=True)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
     idle = print_profile("train", rows, dev_ms, step_s * 1e3, top=20)
+    kernel_ms_ = {k: device_ms_of(rows, AB_KERNEL_NAMES[k]) for k in bounds}
+    for k, b in bounds.items():
+        print(f"posed train step device ms per step: {k} {kernel_ms_[k]:.4f} in "
+              f"{launches.get(k, 0)} launches (summed bound {b:.4f})", flush=True)
     torch.cuda.synchronize()
     return dict(launches=launches, frames_per_sec=TRAIN_F / step_s,
+                kernel_device_ms=kernel_ms_, summed_bound_ms=bounds,
                 plain_frames_per_sec=TRAIN_F / plain_s, device_ms_per_step=dev_ms,
                 idle_share=idle, loss_rel_err=loss_err, forced=forced,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -2071,7 +2175,9 @@ def canonical_train_phase(assets, body, weights, res: Results):
     with recording(pc, "_scatter_add_rows_kernel") as scatter_calls, \
             recording(pc, "_fps_kernel") as fps_calls, \
             recording(pc, "_ball_query_kernel") as bq_calls, \
-            recording(pc, "_three_nn_kernel") as tn_calls:
+            recording(pc, "_three_nn_kernel") as tn_calls, \
+            recording(pc, "_nn1_kernel") as nn1_calls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_bound) as gather_bounds:
         losses, launches = counted("canonical train", lambda: train_step(state, batch, generator()),
                                    CANON_TRAIN_KERNELS)
     peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2096,15 +2202,22 @@ def canonical_train_phase(assets, body, weights, res: Results):
     check_fps("canonical train step", fps_calls, res, path="canonical_train")
     check_flat("canonical train step", bq_calls, res, path="canonical_train")
     check_three_nn("canonical train step", tn_calls, res, path="canonical_train")
-    del scatter_calls[:], fps_calls[:], bq_calls[:], tn_calls[:], before
+    bounds = dict(nn1=print_launch_bounds("nn1", check_nn1("canonical train step", nn1_calls, res,
+                                                           path="canonical_train"),
+                                          per="canonical train step"),
+                  gather_rows=sum(gather_bounds))
+    del scatter_calls[:], fps_calls[:], bq_calls[:], tn_calls[:], nn1_calls[:], before
 
     # the eval step: inference mode, the fused eval-mode SA path, the mask
     valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
-    eval_losses, eval_launches = counted(
-        "canonical eval", lambda: eval_step(state, dict(batch, valid_mask=valid)),
-        ["fused_chain", "nn1"])
+    with recording(pc, "_nn1_kernel") as nn1_calls:
+        eval_losses, eval_launches = counted(
+            "canonical eval", lambda: eval_step(state, dict(batch, valid_mask=valid)),
+            ["fused_chain", "nn1"])
     for k, v in eval_losses.items():
         require(bool(torch.isfinite(v).all()), f"canonical eval loss {k} is not finite")
+    check_nn1("canonical eval step", nn1_calls, res, path="canonical_train")
+    del nn1_calls[:]
 
     # the same step on the plain path from the same weights and dropout
     # seed, twice: it must launch no kernel and give the same losses. Its
@@ -2147,8 +2260,13 @@ def canonical_train_phase(assets, body, weights, res: Results):
     del state_plain, train_plain
     rows, dev_ms = profile_device(lambda: train_step(state, batch, generator()), runs=1)
     idle = print_profile("canonical train", rows, dev_ms, step_s * 1e3, top=20)
+    kernel_ms_ = {k: device_ms_of(rows, AB_KERNEL_NAMES[k]) for k in bounds}
+    for k, b in bounds.items():
+        print(f"canonical train step device ms per step: {k} {kernel_ms_[k]:.4f} in "
+              f"{launches.get(k, 0)} launches (summed bound {b:.4f})", flush=True)
     torch.cuda.synchronize()
     return dict(launches=launches, eval_launches=eval_launches, forced=forced,
+                kernel_device_ms=kernel_ms_, summed_bound_ms=bounds,
                 path_grad_rel_l2=path_err, path_grad_plain_spread=path_spread,
                 frames_per_sec=CANON_F / step_s,
                 plain_frames_per_sec=CANON_F / plain_s, device_ms_per_step=dev_ms,
@@ -2178,7 +2296,9 @@ def counted(label, fn, names):
 # the grouped ball query (the flat query's 3-radius instance in the earlier
 # design, its own kernel since), the flat ball query, FPS (one kernel in
 # the earlier design; the register kernel and the kernel that skips far
-# warps since), the coverage mask
+# warps since), the coverage mask, the 1-NN (one scan kernel in the earlier
+# design; its pre-pass and query kernel since), the row gather, the banded
+# product
 AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                    "scatter_add": ("scatter_add_kernel", "scatter_sort_kernel",
                                    "segment_sum_kernel"),
@@ -2191,13 +2311,16 @@ AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                                   "flat_sort_kernel"),
                    "three_nn": ("three_nn_kernel", "three_nn_sort_kernel"),
                    "fps": ("fps_kernel", "fps_far_kernel"),
-                   "coverage": ("coverage_kernel",)}
+                   "coverage": ("coverage_kernel",),
+                   "nn1": ("nn1_kernel", "nn1_nearest_kernel", "nn1_sort_kernel"),
+                   "gather_rows": ("gather_rows_kernel",),
+                   "banded": ("banded_kernel",)}
 
 
 # the kernels whose device ms per posed forward and per posed train step
 # `--time-kernels` reports
 TIMED_KERNELS = ("fused_chain", "gcn_stack", "knn_transfer", "ball_query_grouped", "ball_query",
-                 "three_nn", "fps", "coverage")
+                 "three_nn", "fps", "coverage", "nn1", "gather_rows", "banded")
 
 
 def device_ms_of(rows, names) -> float:
@@ -2344,6 +2467,29 @@ def time_three_nn(label, tcalls, bounds: bool) -> list:
     return out
 
 
+@torch.inference_mode()
+def time_nn1(label, calls, bounds: bool) -> list:
+    """Each distinct 1-NN case of a path's recorded launches: ms (as
+    `time_flat`), its launches, `cdist_min`'s ms (CUDA events, mean of 5)
+    and, with `bounds` (this checkout's plans), its bounds
+    (`nn1_launches`)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    out = []
+    rows = [dict(case=f"({a[0].shape[0]}, {a[0].shape[1]}) vs {a[1].shape[1]}", call=(a, kw, r))
+            for a, kw, r in calls]
+    for case, (first, count) in by_case(rows).items():
+        query, points = first["call"][0]
+        row = dict(case=f"{label} {case}", calls=count,
+                   ms=kernel_ms(lambda: pc._nn1_kernel(query, points), 20),
+                   library_ms=cuda_ms(lambda: cdist_min(query, points), 5))
+        if bounds:
+            b = nn1_launches([first["call"]])[0]
+            row.update(bound_ms=b["bound_ms"], scan_bound_ms=b["scan_bound_ms"])
+        out.append(row)
+    return out
+
+
 def case_sums(rows, prefix, key) -> dict:
     """The sums over a path's launches (a row's `calls` each) of the rows'
     ms and, where present, their bounds: {f"{key}_ms_sum": ...}."""
@@ -2410,8 +2556,9 @@ def time_kernels(root: Path) -> int:
     in the canonical step beside one `index_add_`, on inputs recorded from
     the steps (CUDA events); each coverage launch of the posed forward
     (CUDA events) and each distinct FPS case of the posed forward and both
-    train steps (`time_fps`), and the canonical train step's FPS device ms.
-    One JSON line."""
+    train steps (`time_fps`), and the canonical train step's FPS device ms;
+    each distinct 1-NN case of the posed train step and the canonical train
+    and eval steps (`time_nn1`). One JSON line."""
     root = root.resolve()
     sys.path.insert(0, str(root))
     import garment4d_tpu_torch
@@ -2484,20 +2631,24 @@ def time_kernels(root: Path) -> int:
             recording(skinning, "knn_transfer") as kcalls, \
             recording(pc, "_fps_kernel") as fcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
-            recording(pc, "_three_nn_kernel") as tcalls:
+            recording(pc, "_three_nn_kernel") as tcalls, \
+            recording(pc, "_nn1_kernel") as ncalls:
         train_step(state, batch)
     step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
     out.update(posed_train_frames_per_sec=TRAIN_F / step_s, posed_train_device_ms=dev_ms,
                posed_train_launches=sum(r[1] for r in rows),
                pe_bwd_device_ms_per_step=device_ms_of(rows, AB_KERNEL_NAMES["pe_bwd"]),
+               nn1_sort_device_ms_per_step=device_ms_of(rows, ("nn1_sort_kernel",)),
                posed_train_device_ms_by_kernel={k: device_ms_of(rows, AB_KERNEL_NAMES[k])
                                                 for k in TIMED_KERNELS})
     out["knn"].append(time_knn("posed train step", kcalls[0][0]))
     out["fps"] += time_fps("posed train step", fcalls, own)
     out["ball_query"] += time_flat("posed train step", bcalls, own)
     out["three_nn"] += time_three_nn("posed train step", tcalls, own)
-    del kcalls, fcalls, bcalls, tcalls
+    out["nn1"] = time_nn1("posed train step", ncalls, own)
+    out.update(case_sums(out["nn1"], "posed train step", "nn1"))
+    del kcalls, fcalls, bcalls, tcalls, ncalls
     shapes = {}
     for a, _, _ in calls:
         shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
@@ -2520,7 +2671,7 @@ def time_kernels(root: Path) -> int:
     model = CanonicalGarmentModel(assets).to(dev)
     model.load_state_dict(load_npz_subtree(weights, "canonical"), strict=True)
     state = make_state_for(model, lr=TRAIN_LR)
-    train_step, _ = make_canonical_steps(model, assets, body.faces)
+    train_step, eval_step = make_canonical_steps(model, assets, body.faces)
 
     def step():
         return train_step(state, batch, torch.Generator(device=dev).manual_seed(1))
@@ -2528,8 +2679,12 @@ def time_kernels(root: Path) -> int:
     with recording(pc, "_scatter_add_rows_kernel") as calls, \
             recording(pc, "_fps_kernel") as fcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
-            recording(pc, "_three_nn_kernel") as tcalls:
+            recording(pc, "_three_nn_kernel") as tcalls, \
+            recording(pc, "_nn1_kernel") as ncalls:
         step()
+    valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
+    with recording(pc, "_nn1_kernel") as ecalls:
+        eval_step(state, dict(batch, valid_mask=valid))
     step_s = wall_s(step, runs=5, warmup=2)
     rows, dev_ms = profile_device(step, runs=1)
     out.update(canonical_train_frames_per_sec=CANON_F / step_s,
@@ -2543,7 +2698,9 @@ def time_kernels(root: Path) -> int:
     out["fps"] += time_fps("canonical train step", fcalls, own)
     out["ball_query"] += time_flat("canonical train step", bcalls, own)
     out["three_nn"] += time_three_nn("canonical train step", tcalls, own)
-    del fcalls, bcalls, tcalls
+    out["nn1"] += time_nn1("canonical train step", ncalls, own)
+    out["nn1"] += time_nn1("canonical eval step", ecalls, own)
+    del fcalls, bcalls, tcalls, ncalls, ecalls
     out["scatter_add"] = []
     torch.set_grad_enabled(False)
     for (grads, idx, n), _, _ in calls:
@@ -2587,6 +2744,7 @@ def ab(parent: Path) -> int:
                 "gcn_device_ms_per_forward", "chain_ms_sum", "gcn_ms_sum",
                 "canonical_device_ms", "posed_train_frames_per_sec",
                 "posed_train_device_ms", "pe_bwd_device_ms_per_step",
+                "nn1_sort_device_ms_per_step",
                 "canonical_train_frames_per_sec", "canonical_train_device_ms",
                 "scatter_add_device_ms_per_step", "pe_bwd_dtable_ms", "dtable_scatter_ms",
                 "posed_launches", "canonical_launches", "posed_train_launches",
@@ -2598,15 +2756,15 @@ def ab(parent: Path) -> int:
                 lab: mean(lab, lambda r: r[f"{path}_device_ms_by_kernel"][k])
                 for lab in ("parent", "change")}
     for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum", "three_nn_ms_sum",
-                "coverage_ms_sum", "canonical_train_fps_device_ms"):
+                "coverage_ms_sum", "canonical_train_fps_device_ms", "nn1_ms_sum"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
     for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum", "ball_query_grouped_bound_ms_sum",
                 "ball_query_bound_ms_sum", "ball_query_scan_bound_ms_sum",
                 "three_nn_bound_ms_sum", "three_nn_scan_bound_ms_sum", "coverage_bound_ms_sum",
-                "coverage_scan_bound_ms_sum"):
+                "coverage_scan_bound_ms_sum", "nn1_bound_ms_sum", "nn1_scan_bound_ms_sum"):
         summary[key] = {"bound": runs[1][1][key]}
     for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
-                   "ball_query", "three_nn", "fps", "coverage"):
+                   "ball_query", "three_nn", "fps", "coverage", "nn1"):
         for i, case in enumerate(runs[0][1][kernel]):
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
                    for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
@@ -2717,7 +2875,8 @@ def main() -> int:
           f"(summed bound {bound_sums['chain']:.4f}), GCN layer kernels "
           f"{posed_kernel_ms['gcn_stack']:.4f} (summed bound {bound_sums['gcn']:.4f})",
           flush=True)
-    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "three_nn", "fps", "coverage"):
+    for k in ("knn_transfer", "ball_query_grouped", "ball_query", "three_nn", "fps", "coverage",
+              "gather_rows"):
         print(f"posed forward device ms per forward: {k} {posed_kernel_ms[k]:.4f} in "
               f"{launches.get(k, 0)} launches (summed bound {bound_sums[k]:.4f})", flush=True)
 
@@ -2846,6 +3005,8 @@ def main() -> int:
         "posed_train_plain_frames_per_sec": train["plain_frames_per_sec"],
         "posed_train_device_ms_per_step": train["device_ms_per_step"],
         "posed_train_idle_share": train["idle_share"],
+        "posed_train_kernel_device_ms": train["kernel_device_ms"],
+        "posed_train_summed_bound_ms": train["summed_bound_ms"],
         "posed_train_peak_gib": train["peak_gib"],
         "train_loss_rel_err_kernel_vs_plain": train["loss_rel_err"],
         "train_forced_grads": train["forced"],
@@ -2853,6 +3014,8 @@ def main() -> int:
         "canonical_train_plain_frames_per_sec": canon_train["plain_frames_per_sec"],
         "canonical_train_device_ms_per_step": canon_train["device_ms_per_step"],
         "canonical_train_idle_share": canon_train["idle_share"],
+        "canonical_train_kernel_device_ms": canon_train["kernel_device_ms"],
+        "canonical_train_summed_bound_ms": canon_train["summed_bound_ms"],
         "canonical_train_peak_gib": canon_train["peak_gib"],
         "canonical_train_step_peak_gib": canon_train["peak_step_gib"],
         "canonical_train_loss_rel_err_kernel_vs_plain": canon_train["loss_rel_err"],

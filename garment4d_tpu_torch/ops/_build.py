@@ -18,9 +18,10 @@ failed build or a failed launch raises.
 else, so a run can show which kernels its main path went through (the
 PE-backward wrapper counts its two launches, the per-block pass and the
 ordered sum of the partials, as one, the scatter-add its sort and its
-segmented sum as one; the flat ball query and the 3-NN count their sort
-pre-pass, where their plans run it, under `ball_query_sort` and
-`three_nn_sort` beside `ball_query` and `three_nn`; the PE backward's
+segmented sum as one; the flat ball query, the 3-NN and the 1-NN count
+their sort pre-pass, where their plans run it, under `ball_query_sort`,
+`three_nn_sort` and `nn1_sort` beside `ball_query`, `three_nn` and
+`nn1`; the PE backward's
 dtable half's scatter-add counts under `scatter_add`).
 """
 
@@ -66,7 +67,7 @@ _SIGNATURES = {
     "g4d_pe_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "g4d_banded": (_P, _IP, _I, _P, _I, _I, _I, _P, _P),
-    "g4d_nn1": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "g4d_nn1": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "g4d_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 

@@ -539,6 +539,196 @@ __device__ __forceinline__ void nearest_walk(const float4* pts, const float4* bo
   }
 }
 
+// ---- the K nearest known points of each query (three_nn.cu, nn1.cu) --------
+//
+// A search for each query's K nearest known points of its frame, as squared
+// g4d_sqdist distances ascending in (d^2, index) order: a NaN distance (a
+// NaN query or known point) is never taken, and a slot that no point takes
+// holds (+inf, 0) (Nearest). Known sets of the plan's size or less are
+// scanned whole, a lane per query in index order; larger ones are sorted
+// first (nearest_sort), and each lane walks the culled tiles from its own
+// (nearest_walk). Each source instantiates these bodies in kernels of its
+// own name and launches them through launch_nearest.
+constexpr int kNearestTile = 8;            // known points a box (the model's best cull)
+constexpr int kNearestSortThreads = 1024;  // the pre-pass: a block a frame
+constexpr int kNearestSortBits = 4;        // its curve: 16 cells an axis
+constexpr int kNearestSortSmem = 190 * 1024;  // its dynamic shared memory at most
+
+// The pre-pass for frame blockIdx.x: its known points into sorted_k (B,
+// KT tiles) float4, NaN-padded, and their tile boxes into boxes (B, 2
+// tiles); its queries in curve order into sorted_q (B, n) float4 (x, y, z,
+// index bits) and each one's own tile into own (B, n). kShared: both are
+// sorted in shared memory (16 (KT tiles + n) + 4 n dynamic bytes) and
+// copied out coalesced (scattered stores to device memory from one SM
+// would cost more than the sort); else in place.
+template <int KT, bool kShared>
+__device__ __forceinline__ void nearest_sort(const float* __restrict__ unknown,
+                                             const float* __restrict__ known, int n, int m,
+                                             int tiles, float4* __restrict__ sorted_k,
+                                             float4* __restrict__ boxes,
+                                             float4* __restrict__ sorted_q, int* __restrict__ own) {
+  extern __shared__ float4 smem4[];
+  __shared__ int hist_k[1 << (3 * kNearestSortBits)];
+  __shared__ int hist_q[1 << (3 * kNearestSortBits)];
+  __shared__ float part[32][6];
+  __shared__ float bb[6];
+  const size_t b = blockIdx.x;
+  const int rows = tiles * KT;
+  float4* kd = kShared ? smem4 : sorted_k + b * rows;
+  float4* qd = kShared ? smem4 + rows : sorted_q + b * n;
+  int* qo = kShared ? reinterpret_cast<int*>(smem4 + rows + n) : own + b * n;
+  sort_frame<kNearestSortBits>(known + b * m * 3, m, rows, kd, hist_k, part, bb, true);
+  tile_boxes<KT>(kd, tiles, boxes + b * 2 * tiles);
+  // the queries on the known points' curve; each one's own tile: where its
+  // cell's run of known points begins
+  const int* starts = hist_k;
+  sort_frame<kNearestSortBits>(unknown + b * n * 3, n, n, qd, hist_q, part, bb, false,
+                               [=](int at, unsigned cell) {
+                                 qo[at] = min(starts[cell] / KT, tiles - 1);
+                               });
+  if (kShared) {
+    copy_out(sorted_k + b * rows, kd, rows);
+    copy_out(sorted_q + b * n, qd, n);
+    copy_out(own + b * n, qo, n);
+  }
+}
+
+// A lane per query, its K nearest into dist2 and idx (B, n, K). kSorted:
+// the pre-pass's sorted queries, each walking the culled tiles from its
+// own; else the frame's queries in index order, each scanning every known
+// point in index order (a broadcast load a point). Dynamic shared memory
+// (kStaged): the frame's known points (KT tiles float4: the pre-pass's, or
+// staged from `known` in index order), then, sorted, their boxes (2
+// tiles).
+template <int KT, int K, bool kStaged, bool kSorted>
+__device__ __forceinline__ void nearest_query(const float* __restrict__ unknown,
+                                              const float* __restrict__ known, int m,
+                                              const float4* __restrict__ sorted_k,
+                                              const float4* __restrict__ boxes,
+                                              const float4* __restrict__ sorted_q,
+                                              const int* __restrict__ own, int n, int tiles,
+                                              float* __restrict__ dist2, int* __restrict__ idx) {
+  static_assert(kStaged || kSorted, "known points read through L1 are the pre-pass's");
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y;
+  const float4* pts = sorted_k + (size_t)b * tiles * KT;
+  const float4* box = boxes + (size_t)b * 2 * tiles;
+  if constexpr (kStaged) {
+    float4* spts = smem4;
+    if constexpr (kSorted) {
+      stage16(spts, pts, tiles * KT);
+      stage16(smem4 + tiles * KT, box, 2 * tiles);
+      box = smem4 + tiles * KT;
+    } else {
+      const float* k = known + (size_t)b * m * 3;
+      for (int i = threadIdx.x; i < tiles * KT; i += blockDim.x)
+        spts[i] = i < m ? make_float4(k[3 * i], k[3 * i + 1], k[3 * i + 2], __int_as_float(i))
+                        : make_float4(NAN, NAN, NAN, __int_as_float(-1));
+    }
+    __syncthreads();
+    pts = spts;
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n;
+  if (!__any_sync(0xffffffffu, active)) return;  // no barrier follows
+  float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+  Nearest<K> best;
+  if constexpr (kSorted) {
+    int mine = 0;
+    if (active) {
+      q = sorted_q[(size_t)b * n + i];
+      mine = own[(size_t)b * n + i];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float4 p = load4<!kStaged>(pts + mine * KT + j);
+        best.insert(g4d_sqdist(q.x - p.x, q.y - p.y, q.z - p.z), __float_as_int(p.w));
+      }
+    }
+    nearest_walk<KT, K, !kStaged>(pts, box, tiles, __shfl_sync(0xffffffffu, mine, 0), mine,
+                                  q.x, q.y, q.z, active, best);
+  } else {
+    if (active) {
+      const float* u = unknown + ((size_t)b * n + i) * 3;
+      q = make_float4(u[0], u[1], u[2], __int_as_float(i));
+    }
+    for (int t = 0; t < tiles; ++t) {
+      float d[KT];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float4 p = pts[t * KT + j];
+        d[j] = g4d_sqdist(q.x - p.x, q.y - p.y, q.z - p.z);
+      }
+#pragma unroll
+      for (int j = 0; j < KT; ++j) best.insert_ascending(d[j], t * KT + j);
+    }
+  }
+  if (!active) return;
+  const size_t o = ((size_t)b * n + __float_as_int(q.w)) * K;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    dist2[o + s] = best.d[s];
+    idx[o + s] = best.i[s];
+  }
+}
+
+// The kernels of one source's search: its pre-pass (sorting in shared
+// memory or in place) and its three query instances (staged and sorted,
+// staged and scanned, sorted and read through L1).
+using NearestSort = void (*)(const float*, const float*, int, int, int, float4*, float4*,
+                             float4*, int*);
+using NearestQuery = void (*)(const float*, const float*, int, const float4*, const float4*,
+                              const float4*, const int*, int, int, float*, int*);
+struct NearestKernels {
+  NearestSort sort_shared, sort_in_place;
+  NearestQuery staged_sorted, staged_scan, sorted_l1;
+};
+
+// The C entries' body: unknown (B, n, 3), known (B, m, 3) f32 -> dist2 and
+// idx (B, n, K); m >= K. The launch plan (ops/pointcloud.py:
+// _three_nn_plan, _nn1_plan): `tile` known points a box (kNearestTile);
+// `sort` runs the pre-pass and the culled walk (else every query scans
+// every known point in index order); blocks of `warps` warps over each
+// frame's queries; `staged` known points in shared memory (`smem` dynamic
+// bytes, which must hold them and, sorted, their boxes; else read through
+// L1, and `sort` is required). Scratch for the pre-pass: sorted_k (B, tile
+// x tiles, 4) and boxes (B, 2 tiles, 4) f32, sorted_q (B, n, 4) f32, own
+// (B, n) i32.
+static inline int launch_nearest(const NearestKernels& k, int K, const float* unknown,
+                                 const float* known, int B, int n, int m, int tile, int sort,
+                                 int warps, int staged, int smem, float4* sorted_k,
+                                 float4* boxes, float4* sorted_q, int* own, float* dist2,
+                                 int* idx, cudaStream_t stream) {
+  const int tiles = (m + kNearestTile - 1) / kNearestTile;
+  if (m < K || n < 0 || B < 0 || B > 65535 || tile != kNearestTile || warps < 1 ||
+      warps > 32 || smem < (staged ? 16 * (tile + (sort ? 2 : 0)) * tiles : 0) ||
+      (!staged && !sort) ||
+      (sort && (sorted_k == nullptr || boxes == nullptr || sorted_q == nullptr || own == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaSuccess;
+  if (sort) {
+    // the pre-pass sorts in shared memory where both sets fit beside its
+    // static counts (32 KB)
+    const long long sort_smem = 16LL * (tile * tiles + n) + 4LL * n;
+    const bool in_shared = sort_smem <= kNearestSortSmem;
+    const NearestSort sorter = in_shared ? k.sort_shared : k.sort_in_place;
+    const int bytes = in_shared ? (int)sort_smem : 0;
+    cudaError_t err = cudaFuncSetAttribute(sorter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           bytes);
+    if (err != cudaSuccess) return (int)err;
+    sorter<<<B, kNearestSortThreads, bytes, stream>>>(unknown, known, n, m, tiles, sorted_k,
+                                                      boxes, sorted_q, own);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const NearestQuery kernel = staged ? (sort ? k.staged_sorted : k.staged_scan) : k.sorted_l1;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = warps * 32;
+  kernel<<<dim3(g4d_blocks(n, threads), B), threads, smem, stream>>>(
+      unknown, known, m, sorted_k, boxes, sorted_q, own, n, tiles, dist2, idx);
+  return (int)cudaGetLastError();
+}
+
 // ---- the register tile of the CUDA-core products ----------------------------
 //
 // fused_chain.cu and gcn_stack.cu multiply an activation tile by a weight

@@ -683,14 +683,27 @@ def covered_mask(xyz: torch.Tensor, centers: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _finite_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`_sqdist` with NaN read as +inf: the nearest-neighbour searches never
+    take a NaN distance (a NaN point or query), as their kernels do not."""
+    d2 = _sqdist(a, b)
+    return torch.where(d2.isnan(), torch.inf, d2)
+
+
 def _three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
     """Squared distances and indices of the 3 nearest, by three rounds of
-    min + lowest index attaining it (no topk: its tie order is not fixed)."""
+    min + lowest index attaining it (no topk: its tie order is not fixed).
+    NaN and infinite distances are never taken: a slot that no finite
+    distance fills holds (+inf, 0), as in the kernel (`g4d::Nearest`). The
+    JAX package's paths disagree on NaN input (its XLA path skips NaN
+    points, as here)."""
     m = known.shape[1]
     iota = torch.arange(m, device=known.device)
     dists, idxs = [], []
     for q0 in range(0, unknown.shape[1], _CHUNK):
-        d2 = _sqdist(unknown[:, q0:q0 + _CHUNK, None, :], known[:, None, :, :])
+        # a round that finds no finite distance takes index 0 (every entry
+        # is +inf there), so the scatter never reads past m
+        d2 = _finite_sqdist(unknown[:, q0:q0 + _CHUNK, None, :], known[:, None, :, :])
         ds, ix = [], []
         for _ in range(3):
             best = d2.min(dim=-1, keepdim=True).values
@@ -703,17 +716,17 @@ def _three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
     return torch.cat(dists, dim=1), torch.cat(idxs, dim=1).to(torch.int32)
 
 
-# three_nn.cu: known points a box (the C entry refuses another), warps a
-# block (a query a lane),
-# and known sets of at most _THREE_NN_UNSORTED points scanned whole by each
-# query in index order, in blocks of _THREE_NN_SCAN_WARPS warps (the sort
-# pre-pass and the culls would cost more than they save); the known points
-# are staged in shared memory where two blocks' share of an SM holds them
-# (with their boxes), else read through L1
-_THREE_NN_TILE = 8
-_THREE_NN_WARPS = 8
-_THREE_NN_SCAN_WARPS = 4
-_THREE_NN_UNSORTED = 256
+# three_nn.cu and nn1.cu (common.cuh's `nearest_query`): known points a box
+# (the C entries refuse another), warps a block (a query a lane), and known
+# sets of at most _NEAREST_UNSORTED points scanned whole by each query in
+# index order, in blocks of _NEAREST_SCAN_WARPS warps (the sort pre-pass and
+# the culls would cost more than they save). 3-NN stages the known points
+# in shared memory where two blocks' share of an SM holds them (with their
+# boxes), else reads them through L1; 1-NN's rule is at `_nn1_plan`
+_NEAREST_TILE = 8
+_NEAREST_WARPS = 8
+_NEAREST_SCAN_WARPS = 4
+_NEAREST_UNSORTED = 256
 
 
 @functools.lru_cache(maxsize=64)
@@ -721,7 +734,7 @@ def _three_nn_plan(B: int, n: int, m: int) -> dict:
     """The 3-NN kernel's launch plan: `tile` known points a box, `tiles` of
     them; `sort`: the pre-pass orders the known points and the queries
     along the Morton curve and the walk culls tiles (known sets past
-    _THREE_NN_UNSORTED points; smaller ones are scanned whole); blocks of
+    _NEAREST_UNSORTED points; smaller ones are scanned whole); blocks of
     `warps` warps over each frame's queries; `staged`: the known points
     (16 x tile bytes a tile) and, sorted, their boxes (32 bytes a tile;
     `smem` in all) in shared memory when two blocks' share of an SM holds
@@ -729,27 +742,26 @@ def _three_nn_plan(B: int, n: int, m: int) -> dict:
     not take (m < 3, B past the grid's y)."""
     if m < 3 or n < 0 or not 0 <= B <= 65535:
         raise ValueError(f"three_nn: B={B}, n={n}, m={m} (m >= 3, B <= 65535)")
-    tiles = -(-m // _THREE_NN_TILE)
-    sort = m > _THREE_NN_UNSORTED
-    smem = 16 * (_THREE_NN_TILE + (2 if sort else 0)) * tiles
+    tiles = -(-m // _NEAREST_TILE)
+    sort = m > _NEAREST_UNSORTED
+    smem = 16 * (_NEAREST_TILE + (2 if sort else 0)) * tiles
     staged = smem <= _build.SMEM_TWO_BLOCKS
-    return dict(tile=_THREE_NN_TILE, tiles=tiles, sort=sort,
-                warps=_THREE_NN_WARPS if sort else _THREE_NN_SCAN_WARPS, staged=staged,
+    return dict(tile=_NEAREST_TILE, tiles=tiles, sort=sort,
+                warps=_NEAREST_WARPS if sort else _NEAREST_SCAN_WARPS, staged=staged,
                 smem=smem if staged else 0)
 
 
-def _three_nn_kernel(unknown: torch.Tensor, known: torch.Tensor):
+def _nearest_kernel(name: str, K: int, plan: dict, unknown: torch.Tensor,
+                    known: torch.Tensor):
+    """Launch `name`'s nearest-neighbour search (`three_nn.cu`, `nn1.cu`:
+    common.cuh's `launch_nearest`) under `plan`: squared distances and
+    indices of each query's K nearest, (B, n, K), or (B, n) for K = 1.
+    Counts `name`, and `name`_sort where the plan runs the pre-pass."""
     dev = unknown.device
-    _build.require(unknown, "unknown", torch.float32, 3, dev)
-    _build.require(known, "known", torch.float32, 3, dev)
     B, n, _ = unknown.shape
-    m = known.shape[1]
-    if unknown.shape[2] != 3 or known.shape[0] != B or known.shape[2] != 3 or m < 3:
-        raise ValueError(f"three_nn: unknown {tuple(unknown.shape)}, "
-                         f"known {tuple(known.shape)}")
-    plan = _three_nn_plan(B, n, m)
-    dist2 = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, n, 3), dtype=torch.int32, device=dev)
+    shape = (B, n, K) if K > 1 else (B, n)
+    dist2 = torch.empty(shape, dtype=torch.float32, device=dev)
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
     if B == 0 or n == 0:
         return dist2, idx
     sorted_k = boxes = sorted_q = own = None
@@ -763,14 +775,26 @@ def _three_nn_kernel(unknown: torch.Tensor, known: torch.Tensor):
         sorted_q = boxes + 32 * B * plan["tiles"]
         own = sorted_q + 16 * B * n
     lib = _build.library()
-    _build.launch_counts["three_nn"] += 1
+    _build.launch_counts[name] += 1
     if plan["sort"]:
-        _build.launch_counts["three_nn_sort"] += 1
-    _build.check(lib.g4d_three_nn(unknown.data_ptr(), known.data_ptr(), B, n, m, plan["tile"],
-                                  int(plan["sort"]), plan["warps"], int(plan["staged"]),
-                                  plan["smem"], sorted_k, boxes, sorted_q, own, dist2.data_ptr(),
-                                  idx.data_ptr(), _build.stream_of(unknown)), "three_nn")
+        _build.launch_counts[name + "_sort"] += 1
+    _build.check(getattr(lib, "g4d_" + name)(
+        unknown.data_ptr(), known.data_ptr(), B, n, known.shape[1], plan["tile"],
+        int(plan["sort"]), plan["warps"], int(plan["staged"]), plan["smem"], sorted_k, boxes,
+        sorted_q, own, dist2.data_ptr(), idx.data_ptr(), _build.stream_of(unknown)), name)
     return dist2, idx
+
+
+def _three_nn_kernel(unknown: torch.Tensor, known: torch.Tensor):
+    dev = unknown.device
+    _build.require(unknown, "unknown", torch.float32, 3, dev)
+    _build.require(known, "known", torch.float32, 3, dev)
+    B, n, _ = unknown.shape
+    m = known.shape[1]
+    if unknown.shape[2] != 3 or known.shape[0] != B or known.shape[2] != 3 or m < 3:
+        raise ValueError(f"three_nn: unknown {tuple(unknown.shape)}, "
+                         f"known {tuple(known.shape)}")
+    return _nearest_kernel("three_nn", 3, _three_nn_plan(B, n, m), unknown, known)
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor):
@@ -792,16 +816,60 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
 
 def _nn1_plain(query: torch.Tensor, points: torch.Tensor):
     """Squared distance to and index of the nearest point: the min, then the
-    lowest index attaining it (ties to the lower index)."""
+    lowest index attaining it (ties to the lower index). NaN and infinite
+    distances are never taken: a query with no finite distance (a NaN
+    query, or only NaN points) gets (+inf, 0), bitwise the kernel's
+    (`g4d::Nearest`). The JAX package's paths disagree there (`nn1_pallas`
+    gives NaN and an index past N, its XLA path NaN and the NaN point's
+    index)."""
     n = points.shape[1]
     iota = torch.arange(n, device=points.device)
     dists, idxs = [], []
     for q0 in range(0, query.shape[1], _CHUNK):
-        d2 = _sqdist(query[:, q0:q0 + _CHUNK, None, :], points[:, None, :, :])
+        d2 = _finite_sqdist(query[:, q0:q0 + _CHUNK, None, :], points[:, None, :, :])
         best = d2.min(dim=-1, keepdim=True).values
         dists.append(best[..., 0])
         idxs.append(torch.where(d2 <= best, iota, n).min(dim=-1).values)
     return torch.cat(dists, dim=1), torch.cat(idxs, dim=1).to(torch.int32)
+
+
+# nn1.cu stages the sorted points and boxes in shared memory where
+# _NN1_STAGE_LIMIT bytes hold them (one block an SM), with blocks wide
+# enough that B frames' blocks fit on the SMs; else they are read through
+# L1. Staging the body won on an H100 80GB HBM3 at 700 W: the posed train
+# step's (40, 2000) vs 6890 in 0.0585 ms staged against 0.0693 through L1
+# (3-NN's limit of two blocks an SM), `chip_smoke.py --time-kernels`.
+_NN1_STAGE_LIMIT = _build.SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=64)
+def _nn1_plan(B: int, M: int, N: int, sms: int) -> dict:
+    """The 1-NN kernel's launch plan on `sms` SMs: `tile` points a box,
+    `tiles` of them; `sort`: the pre-pass orders the points and the queries
+    along the Morton curve and the walk culls tiles (sets past
+    _NEAREST_UNSORTED points; smaller ones are scanned whole in index
+    order); blocks of `warps` warps over each frame's queries (staged and
+    sorted: the fewest that keep B frames' blocks on the SMs at one a SM,
+    8 at least, 32 at most); `staged`: the points (16 x tile bytes a tile)
+    and, sorted, their boxes (32 bytes a tile; `smem` in all) in shared
+    memory when _NN1_STAGE_LIMIT bytes hold them, else read through L1.
+    Takes any N >= 1, M >= 0 and B up to the grid's 65535; raises
+    ValueError for the rest."""
+    if N < 1 or M < 0 or not 0 <= B <= 65535:
+        raise ValueError(f"nn1: B={B}, M={M}, N={N} (N >= 1, B <= 65535)")
+    tiles = -(-N // _NEAREST_TILE)
+    sort = N > _NEAREST_UNSORTED
+    smem = 16 * (_NEAREST_TILE + (2 if sort else 0)) * tiles
+    staged = smem <= _NN1_STAGE_LIMIT
+    if not sort:
+        warps = _NEAREST_SCAN_WARPS
+    elif staged:  # a block a SM: as few frames' blocks as the SMs hold
+        per_frame = max(1, -(-M // 32))
+        warps = min(32, max(_NEAREST_WARPS, -(-per_frame // max(1, sms // max(B, 1)))))
+    else:
+        warps = _NEAREST_WARPS
+    return dict(tile=_NEAREST_TILE, tiles=tiles, sort=sort, warps=warps, staged=staged,
+                smem=smem if staged else 0)
 
 
 def _nn1_kernel(query: torch.Tensor, points: torch.Tensor):
@@ -813,14 +881,8 @@ def _nn1_kernel(query: torch.Tensor, points: torch.Tensor):
     N = points.shape[1]
     if query.shape[2] != 3 or points.shape[0] != B or points.shape[2] != 3 or N < 1:
         raise ValueError(f"nn1: query {tuple(query.shape)}, points {tuple(points.shape)}")
-    d2 = torch.empty((B, M), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, M), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    _build.launch_counts["nn1"] += 1
-    _build.check(lib.g4d_nn1(query.data_ptr(), points.data_ptr(), B, M, N,
-                             d2.data_ptr(), idx.data_ptr(), _build.stream_of(query)),
-                 "nn1")
-    return d2, idx
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _nearest_kernel("nn1", 1, _nn1_plan(B, M, N, sms), query, points)
 
 
 class _NN1(torch.autograd.Function):
@@ -855,7 +917,8 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, K: int = 1):
     """K nearest neighbours of `query` (B, M, 3) in `points` (B, N, 3) ->
     (dists (B, M, K) SQUARED distances ascending, idx (B, M, K) int32).
     Differentiable in the distances. K=1 is the 1-NN kernel on the card
-    (counter `nn1`; diff-form fp32, ties to the lower index, any N); K > 1
+    (counters `nn1` and, past _NEAREST_UNSORTED points, `nn1_sort`; diff-form
+    fp32, ties to the lower index, NaN distances never taken, any N); K > 1
     is plain `pairwise_sqdist` + top-k."""
     if K == 1:
         d2, idx = _NN1.apply(query, points)

@@ -14,8 +14,10 @@ its center NaN), points at exactly the radius, empty and full valid
 counts, distance ties at the k-th neighbour and zero distances, GCN frames
 that are not a multiple of the 128-vertex tile or below it, with offsets
 near V (staged window) and a band wider than the window, 1 to 8 pieces, the
-narrow last layer and widths off the column tile, 1-NN ties and
-tables around the 2048-point tile, banded products with 1 to 64 diagonals at
+narrow last layer and widths off the column tile, 1-NN ties, one to
+nine points, sets around the scan threshold and the staging limit, the
+body's size at 1 and 40 frames, 20000 points, no query, lattices of exact
+ties, NaN points and queries, banded products with 1 to 64 diagonals at
 C = 3, 5 and 128 and their transposes, PE backwards with padded S (1, 4,
 12), every slot tied, one slot winning every channel, a zero cotangent and
 tables up to 387 wide, with and without their dtable half, scatter-adds
@@ -35,8 +37,9 @@ points, 1 and 2000 centers, index order scrambled against space, 1 to 3
 radii, every instance the plan picks and bitmaps smaller than the frame;
 3-NN with three known points, all equal, a lattice of exact ties whose
 lower indices sit in later tiles, queries on (duplicated) known points,
-one query, fp1's shape at 2 and 200 frames and known points past the
-staged size; the C entries refusing plans that do not match them.
+one query, fp1's shape at 2 and 200 frames, known points past the staged
+size and NaN known points and queries; the C entries refusing plans that
+do not match them.
 Indices, masks, the 1-NN, the banded product and the scatter-add (against
 the CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
 stack and the PE backward's dcenters agree within rtol 1e-4 / atol 1e-5,
@@ -721,12 +724,14 @@ def lattice(n, seed):
 
 
 @pytest.mark.parametrize("case", ["m = 3", "all equal", "lattice ties", "on known points",
-                                  "n = 1", "m past staged"])
+                                  "n = 1", "m past staged", "NaN known points"])
 def test_three_nn_edges(dev, case):
     """Three known points; every known point equal (ties to the lowest
     indices); a lattice of exact ties, its lower indices in later tiles;
     queries on known points (zero distances) and on duplicated ones; one
-    query; known points past the staged size (read through L1)."""
+    query; known points past the staged size (read through L1); NaN known
+    points (never taken; sorted and scanned) and NaN queries ((+inf, 0) in
+    every slot)."""
     g = torch.Generator().manual_seed(31)
     if case == "m = 3":
         unknown, known = torch.rand(2, 400, 3, generator=g), torch.rand(2, 3, 3, generator=g)
@@ -740,12 +745,20 @@ def test_three_nn_edges(dev, case):
         unknown = torch.cat([known[:, 1000:], known[:, :300], torch.rand(2, 500, 3, generator=g)], 1)
     elif case == "n = 1":
         unknown, known = torch.rand(3, 1, 3, generator=g), torch.rand(3, 1024, 3, generator=g)
-    else:
+    elif case == "m past staged":
         unknown, known = torch.rand(2, 3000, 3, generator=g), torch.rand(2, 9000, 3, generator=g)
         assert not pc._three_nn_plan(2, 3000, 9000)["staged"]
+    else:
+        unknown, known = torch.rand(2, 500, 3, generator=g), torch.rand(2, 1024, 3, generator=g)
+        known[:, ::3, 0] = float("nan")
+        unknown[:, ::9, 1] = float("nan")
+        three_nn_check(unknown.to(dev), known[:, :100].to(dev))
     d, i = three_nn_check(unknown.to(dev), known.to(dev))
     if case == "all equal":
         assert (i == torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)).all()
+    if case == "NaN known points":
+        assert (i[:, 1::9] % 3 != 0).all()
+        assert (d[:, ::9] == float("inf")).all() and (i[:, ::9] == 0).all()
 
 
 @pytest.mark.parametrize("B", [2, 200])
@@ -1098,19 +1111,110 @@ def test_posed_wrappers_count_launches(dev):
 # ---- posed train-step kernels ----------------------------------------------
 
 
-@pytest.mark.parametrize("N", [1, 5, 2047, 2049, 6890])
+# the most points the 1-NN plan stages sorted (160 bytes a tile of 8)
+NN1_STAGED = pc._NN1_STAGE_LIMIT // 160 * 8
+
+
+@pytest.mark.parametrize("N", [1, 2, 7, 8, 9, 256, 257, NN1_STAGED, NN1_STAGED + 1, 6890, 20000])
 @pytest.mark.parametrize("M", [1, 300])
 def test_nn1(dev, N, M):
-    """Ties (every point duplicated, queries on points), one query, N
-    around the 2048-point tile: d^2 and idx bitwise the plain version's."""
+    """Ties (every point duplicated, queries on points), one query, one to
+    nine points (a ragged tile), N around the scan threshold and the
+    staging limit, the body's 6890 points, a set read through L1: d^2 and
+    idx bitwise the plain version's."""
     base = cloud(17, 2, (N + 1) // 2)
     points = torch.cat([base, base], 1)[:, :N].contiguous()
     query = cloud(18, 2, M)
     query[:, : min(M, N)] = points[:, : min(M, N)]
-    dk, ik = pc._nn1_kernel(query, points)
+    nn1_check(query, points)
+
+
+def nn1_check(query, points):
+    """The 1-NN kernel bitwise the plain version, squared distances and
+    indices, on the card."""
+    dk, ik = pc._nn1_kernel(query.contiguous(), points.contiguous())
     dp, ip = pc._nn1_plain(query, points)
     torch.testing.assert_close(ik, ip, rtol=0, atol=0)
-    torch.testing.assert_close(dk, dp, rtol=0, atol=0)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=0, equal_nan=False)
+    return dk, ik
+
+
+@pytest.mark.parametrize("case", ["M = 0", "B = 1", "all equal", "lattice ties", "NaN points",
+                                  "NaN queries", "no finite point", "main shape"])
+def test_nn1_edges(dev, case):
+    """No query (no launch); one frame of the body's size; every point
+    equal (index 0 wins); a lattice of exact ties, its lower indices in
+    later tiles; NaN points (never taken) and NaN queries ((+inf, 0)),
+    sorted and scanned; frames whose points are all NaN or too far for a
+    finite distance; the posed train step's shape, 40 frames of 2000
+    vertices against 6890."""
+    g = torch.Generator().manual_seed(41)
+    if case == "M = 0":
+        ops.reset_counts()
+        d, i = pc._nn1_kernel(cloud(42, 2, 0), cloud(43, 2, 6890))
+        assert d.shape == i.shape == (2, 0) and not ops.launch_counts
+        return
+    if case == "B = 1":
+        query, points = torch.rand(1, 2000, 3, generator=g), torch.rand(1, 6890, 3, generator=g)
+    elif case == "all equal":
+        query, points = torch.rand(2, 300, 3, generator=g), torch.full((2, 700, 3), 0.5)
+    elif case == "lattice ties":
+        query, points = lattice(9, 44)
+    elif case in ("NaN points", "NaN queries"):
+        points = torch.rand(2, 3000, 3, generator=g)
+        query = torch.rand(2, 400, 3, generator=g)
+        if case == "NaN points":
+            points[:, ::7, 1] = float("nan")
+            small = points[:, :200].clone()  # a scanned set too
+            nn1_check(query.to(dev), small.to(dev))
+        else:
+            query[:, ::5, 2] = float("nan")
+            nn1_check(query.to(dev), points[:, :200].to(dev))
+    elif case == "no finite point":
+        points = torch.rand(3, 500, 3, generator=g)
+        points[0] = float("nan")
+        points[1, :, 0] = 3e38
+        query = torch.rand(3, 100, 3, generator=g)
+    else:
+        points, query = cloud(45, 40, 6890, dup=300), cloud(46, 40, 2000)
+        query[:, :100] = points[:, -100:]  # on the duplicates: ties to the lower index
+    d, i = nn1_check(query.to(dev), points.to(dev))
+    if case == "all equal":
+        assert (i == 0).all()
+    if case == "NaN points":
+        assert (i % 7 != 0).all()
+    if case == "NaN queries":
+        assert (d[:, ::5] == float("inf")).all() and (i[:, ::5] == 0).all()
+    if case == "no finite point":
+        assert (d[:2] == float("inf")).all() and (i[:2] == 0).all()
+
+
+@pytest.mark.parametrize("field,value", [("tile", 16), ("smem", -16), ("warps", 0),
+                                         ("warps", 33), ("staged", False), ("N", 0)])
+def test_nn1_entry_refuses(dev, field, value):
+    """The C entry refuses a plan that does not match the kernel: another
+    tile size, shared memory short of the staged points and boxes, no or
+    too many warps, unstaged points without the pre-pass, no point."""
+    from garment4d_tpu_torch.ops import _build
+
+    query, points = cloud(47, 2, 100), cloud(48, 2, 300)
+    plan = dict(pc._nn1_plan(2, 100, 300, 132))
+    N = 0 if field == "N" else 300
+    if field == "smem":
+        plan["smem"] += value
+    elif field != "N":
+        plan[field] = value
+    if field == "staged":
+        plan["sort"] = False
+    d = torch.empty((2, 100), device=dev)
+    i = torch.empty((2, 100), dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * (4 * (8 * plan["tiles"] + 2 * plan["tiles"] + 100) + 100), device=dev)
+    p = scratch.data_ptr()
+    err = _build.library().g4d_nn1(
+        query.data_ptr(), points.data_ptr(), 2, 100, N, plan["tile"], int(plan["sort"]),
+        plan["warps"], int(plan["staged"]), plan["smem"], p, p, p, p, d.data_ptr(), i.data_ptr(),
+        _build.stream_of(query))
+    assert err != 0
 
 
 def test_knn_points_gradient(dev):

@@ -184,7 +184,8 @@ class TestPlainAgainstPallas:
     def test_three_nn_plain_matches_pallas(self, rng):
         """Duplicated known points (ties to the lower index) and queries on
         them: indices equal, squared distances to fp32 roundoff (rtol 1e-6:
-        the kernel forms its distances in another order)."""
+        the kernel forms its distances in another order). Finite inputs
+        only: the JAX package's paths disagree on NaN (`TestNearestNaN`)."""
         from jax.experimental.pallas import tpu as pltpu
         from garment4d_tpu.ops.pallas.three_nn import three_nn_pallas
 
@@ -566,7 +567,10 @@ class TestGradients:
         """The plain 1-NN against the TPU kernel (interpret mode): indices
         equal with duplicated points (ties to the lower index), squared
         distances equal to fp32 roundoff (rtol 1e-6); the query gradient
-        against jax.vjp of `nn1_pallas` (rtol 1e-5 / atol 1e-6)."""
+        against jax.vjp of `nn1_pallas` (rtol 1e-5 / atol 1e-6). Finite
+        inputs only: on NaN `nn1_pallas` gives NaN and an index past N, the
+        XLA K=1 path NaN and the NaN point's index, the K=3 path skips NaN
+        points (`TestNearestNaN` holds the port's rule)."""
         from jax.experimental.pallas import tpu as pltpu
         from garment4d_tpu.ops.pallas.nn1 import nn1_pallas
 
@@ -1381,6 +1385,54 @@ class TestKernelPlans:
         with pytest.raises(ValueError, match="three_nn"):
             tops.pointcloud._three_nn_plan(B, n, m)
 
+    @pytest.mark.parametrize("B,warps", [(40, 21), (20, 11), (1, 8)])
+    def test_nn1_plan_main_path(self, B, warps):
+        """The loss's 2000 garment vertices against the 6890 body vertices in
+        the posed train step (40 frames), the canonical train and eval steps
+        (20) and the single-frame callers: sorted into 862 8-point tiles
+        with boxes, staged (138 KB), blocks wide enough that a step's blocks
+        fit on the 132 SMs at one a SM, 8 warps at least."""
+        plan = tops.pointcloud._nn1_plan(B, 2000, 6890, 132)
+        assert plan == dict(tile=8, tiles=862, sort=True, warps=warps, staged=True,
+                            smem=16 * 10 * 862)
+        assert B * -(-2000 // (32 * warps)) <= 132
+        assert tops.pointcloud._nn1_plan(B, 2000, 6890, 66)["warps"] >= warps  # fewer SMs
+
+    @pytest.mark.parametrize("B,M,N,sort,staged", [
+        (2, 5, 1, False, True), (2, 5, 2, False, True), (2, 5, 9, False, True),
+        (2, 5, 256, False, True), (2, 5, 257, True, True), (1, 0, 6890, True, True),
+        (2, 5, 20000, True, False), (65535, 1, 1, False, True)])
+    def test_nn1_plan_edges(self, B, M, N, sort, staged):
+        """One to nine points; the largest scanned set; the smallest sorted
+        one; no query; a set past the staging limit (read through L1, no
+        shared memory); the grid's largest frame count. A few queries take
+        the narrowest blocks."""
+        plan = tops.pointcloud._nn1_plan(B, M, N, 132)
+        assert (plan["sort"], plan["staged"], plan["tiles"]) == (sort, staged, -(-N // 8))
+        assert plan["smem"] == (16 * (8 + (2 if sort else 0)) * plan["tiles"] if staged else 0)
+        assert plan["warps"] == (8 if sort else 4)
+
+    def test_nn1_plan_staging_limit(self, monkeypatch):
+        """The sorted points and boxes are staged up to the plan's limit (160
+        bytes a tile) and read through L1 past it; 3-NN's limit (two blocks
+        an SM) would read the body through L1, in 8-warp blocks."""
+        pc = tops.pointcloud
+        edge = pc._NN1_STAGE_LIMIT // 160 * 8
+        assert pc._nn1_plan(4, 100, edge, 132)["staged"]
+        assert not pc._nn1_plan(4, 100, edge + 1, 132)["staged"]
+        monkeypatch.setattr(pc, "_NN1_STAGE_LIMIT", _build.SMEM_TWO_BLOCKS)
+        pc._nn1_plan.cache_clear()
+        try:
+            plan = pc._nn1_plan(40, 2000, 6890, 132)
+        finally:
+            pc._nn1_plan.cache_clear()
+        assert (plan["staged"], plan["smem"], plan["warps"]) == (False, 0, 8)
+
+    @pytest.mark.parametrize("B,M,N", [(1, 5, 0), (65536, 5, 5), (1, -1, 5), (-1, 5, 5)])
+    def test_nn1_plan_refuses(self, B, M, N):
+        with pytest.raises(ValueError, match="nn1"):
+            tops.pointcloud._nn1_plan(B, M, N, 132)
+
     def test_knn_float64_witness(self, rng):
         """The float64 K-NN transfer that the card's checks hold the kernel
         to (`chip_smoke.knn_float64`), over the plain version's fp32
@@ -1523,13 +1575,13 @@ class TestFlatAndThreeNNWork:
     @given(seed=st.integers(0, 2 ** 16), n=st.integers(1, 300), m=st.integers(257, 600),
            lattice=st.booleans())
     def test_three_nn_work_keeps_the_three_nearest(self, seed, n, m, lattice):
-        from chip_smoke import three_nn_kept, three_nn_work
+        from chip_smoke import nearest_kept, three_nn_work
 
         known = _tied_cloud(seed, 2, m, lattice)
         unknown = _tied_cloud(seed + 1, 2, n, lattice)
         unknown[:, : n // 2] = known[:, : n // 2]  # queries on known points
         d2, idx = tops.pointcloud._three_nn_plain(unknown, known)
-        order_k, order_q, need = three_nn_kept(unknown, known, d2, 8)
+        order_k, order_q, need = nearest_kept(unknown, known, d2, 8)
         tile_of = torch.empty_like(order_k)
         tile_of.scatter_(1, order_k, torch.arange(m).expand(2, m) // 8)
         rank_q = torch.empty_like(order_q)
@@ -1549,6 +1601,100 @@ class TestFlatAndThreeNNWork:
         unknown, known = _t(_cloud(rng, 3, 50)), _t(_cloud(rng, 3, 100))
         d2, _ = tops.pointcloud._three_nn_plain(unknown, known)
         assert three_nn_work(unknown, known, d2) == (3 * 50 * 104, 0)
+
+
+    @settings(max_examples=12, deadline=None, derandomize=True, database=None)
+    @given(seed=st.integers(0, 2 ** 16), n=st.integers(1, 300), m=st.integers(257, 600),
+           lattice=st.booleans())
+    def test_nn1_work_keeps_the_nearest(self, seed, n, m, lattice):
+        """The 1-NN's model (`nn1_work`, the same code as the 3-NN's under
+        `_nn1_plan`) keeps the tile of each query's nearest point (ties to
+        the lower index) for it, on lattices of exact ties."""
+        from chip_smoke import nearest_kept, nn1_work
+
+        points = _tied_cloud(seed, 2, m, lattice)
+        query = _tied_cloud(seed + 1, 2, n, lattice)
+        query[:, : n // 2] = points[:, : n // 2]  # queries on points
+        d2, idx = tops.pointcloud._nn1_plain(query, points)
+        order_p, order_q, need = nearest_kept(query, points, d2[..., None], 8)
+        tile_of = torch.empty_like(order_p)
+        tile_of.scatter_(1, order_p, torch.arange(m).expand(2, m) // 8)
+        rank_q = torch.empty_like(order_q)
+        rank_q.scatter_(1, order_q, torch.arange(n).expand(2, n))
+        need_q = torch.gather(need, 1, rank_q[..., None].expand_as(need))
+        nearest_tile = torch.gather(tile_of, 1, idx.long())
+        assert bool(torch.gather(need_q, 2, nearest_tile[..., None]).all())
+        tests, boxes = nn1_work(query, points, d2)
+        tiles = -(-m // 8)
+        assert 8 * int(need_q.any(-1).sum()) <= tests <= 2 * n * 8 * tiles + 2 * 31 * 8 * tiles
+        assert boxes >= 2 * -(-n // 32) * tiles
+
+    def test_nn1_work_scan(self, rng):
+        """A set of at most 256 points is scanned whole by every query."""
+        from chip_smoke import nn1_work
+
+        query, points = _t(_cloud(rng, 3, 50)), _t(_cloud(rng, 3, 100))
+        d2, _ = tops.pointcloud._nn1_plain(query, points)
+        assert nn1_work(query, points, d2) == (3 * 50 * 104, 0)
+
+
+class TestNearestNaN:
+    """The plain nearest-neighbour searches' rule for NaN input, which their
+    kernels follow bitwise (CUDA edge tests): a NaN distance (a NaN point or
+    query) is never taken, nor an infinite one, and a slot that no finite
+    distance fills holds (+inf, 0). The JAX package's paths disagree among
+    themselves there (`nn1_pallas`: NaN and an index past N; XLA's K=1
+    path: NaN and the NaN point's index; its K=3 path skips NaN points), so
+    the tests against JAX stay on finite inputs."""
+
+    def _nan_cloud(self, rng, B, N, nan):
+        pts = _t(_cloud(rng, B, N))
+        pts[:, nan] = float("nan")
+        return pts
+
+    def test_nn1_skips_nan_points(self, rng):
+        """A search with NaN points gives what the search over the other
+        points gives, indices mapped back."""
+        nan = [0, 3, 4, 50]
+        points, query = self._nan_cloud(rng, 2, 60, nan), _t(_cloud(rng, 2, 40))
+        keep = [i for i in range(60) if i not in nan]
+        d2, idx = tops.pointcloud._nn1_plain(query, points)
+        want_d2, want = tops.pointcloud._nn1_plain(query, points[:, keep])
+        assert torch.equal(d2, want_d2)
+        assert torch.equal(idx, torch.tensor(keep, dtype=torch.int32)[want.long()])
+
+    def test_nn1_nan_query_and_no_finite_point(self, rng):
+        """A NaN query, and queries whose points are all NaN or all too far
+        for a finite fp32 distance, get (+inf, 0)."""
+        points, query = _t(_cloud(rng, 3, 30)), _t(_cloud(rng, 3, 10))
+        query[0, 2, 1] = float("nan")
+        points[1] = float("nan")
+        points[2, :, 0] = 3e38
+        d2, idx = tops.pointcloud._nn1_plain(query, points)
+        assert d2[0, 2] == float("inf") and idx[0, 2] == 0
+        assert (d2[1:] == float("inf")).all() and (idx[1:] == 0).all()
+        assert torch.isfinite(torch.cat([d2[0, :2], d2[0, 3:]])).all()
+
+    def test_three_nn_skips_nan_points(self, rng):
+        """A NaN known point no longer raises; the search gives what the
+        search over the other points gives, indices mapped back."""
+        nan = [1, 2, 30]
+        known, unknown = self._nan_cloud(rng, 2, 40, nan), _t(_cloud(rng, 2, 25))
+        keep = [i for i in range(40) if i not in nan]
+        d2, idx = tops.pointcloud._three_nn_plain(unknown, known)
+        want_d2, want = tops.pointcloud._three_nn_plain(unknown, known[:, keep])
+        assert torch.equal(d2, want_d2)
+        assert torch.equal(idx, torch.tensor(keep, dtype=torch.int32)[want.long()])
+
+    def test_three_nn_open_slots(self, rng):
+        """Fewer finite known points than three: the open slots hold (+inf,
+        0); a NaN query holds them all."""
+        known, unknown = self._nan_cloud(rng, 1, 4, [0, 2]), _t(_cloud(rng, 1, 6))
+        unknown[0, 5] = float("nan")
+        d2, idx = tops.pointcloud._three_nn_plain(unknown, known)
+        assert (idx[0, :5, :2].sort(-1).values == torch.tensor([1, 3], dtype=torch.int32)).all()
+        assert (d2[0, :5, 2] == float("inf")).all() and (idx[0, :5, 2] == 0).all()
+        assert (d2[0, 5] == float("inf")).all() and (idx[0, 5] == 0).all()
 
 
 class TestCoverageBound:
