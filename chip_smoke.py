@@ -12,7 +12,7 @@ then:
 2. kernels: calls each kernel's wrapper at the shapes of the posed forward
    (80 frames: B=8 sequences x T=10) and holds it against its plain torch
    version on the same inputs on the card. Canonical-stage kernels: FPS,
-   ball-query and 3-NN indices and gathered rows equal, 3-NN squared
+   ball-query and 3-NN indices and gathered rows bitwise equal, 3-NN squared
    distances equal, the fused SA chain within rtol 1e-4 / atol 1e-5.
    Posed-stage kernels, on inputs captured from one posed forward: every
    FPS, coverage, flat and grouped ball-query and 3-NN launch of the
@@ -37,8 +37,11 @@ then:
    within rtol 1e-4 / atol 1e-5 on `out` and `hidden`. Then every chain
    and GCN-stack launch of one posed forward is recorded with its inputs
    (28 chain launches, 3 stacks of 4 layer launches): each launch's bound
-   and the summed bounds printed (the 14 row gathers' too, beside their
-   device ms in phase 4), and at each distinct shape the kernel
+   and the summed bounds printed; each of the 14 row-gather launches held
+   bitwise (int32 views, NaN rows included) to the plain version as it
+   runs, each distinct case timed beside its bound and the flattened
+   `index_select` (`record_gathers`), the summed bounds beside the
+   profiler's device ms in phase 4; and at each distinct shape the kernel
    within rtol 1e-4 / atol 1e-5 of its plain version and of the plain
    version in float64, two launches bitwise equal. Each is timed with
    CUDA events beside its plain version, its bound (the larger of the bytes
@@ -129,7 +132,9 @@ then:
    timed beside its bound (bytes), its plain version and one `index_add_`;
    the step's FPS, flat (its 10 single-radius queries), 3-NN (200 frames)
    and 1-NN cases bitwise their plain versions and timed as in phase 2 and
-   5; the profiler's device ms of its 1-NN and its 20 row gathers beside
+   5; its 20 row-gather launches each held bitwise to the plain version
+   and each case timed as the posed forward's (the posed train step's 20
+   too); the profiler's device ms of its 1-NN and its 20 row gathers beside
    their summed bounds. The eval step (fused SA path, the eval-tail mask)
    once, its 1-NN held and timed as the train step's;
    the same train
@@ -180,7 +185,11 @@ each distinct 1-NN case of the posed train step and the canonical train
 and eval steps beside `cdist_min`, their sum over the
 posed train step (`nn1_ms_sum`, `nn1_bound_ms_sum`) and the 1-NN
 pre-pass's device ms a posed train step; the device ms a call of each
-path of the row gather and the banded product too;
+path of the row gather and the banded product too; every row-gather case
+of the posed forward and both train steps (`time_gathers`: ms, bound,
+`index_select`) and their sums per path; the scatter-add's cases of the
+gathers' backward also timed without the wrap of negative indices
+(`ms_nowrap`);
 each path's profiled launches a call; the ptxas lines of the chain, GCN,
 K-NN, ball-query, 3-NN, FPS and coverage kernels; one JSON line. The FPS,
 coverage, flat, 3-NN and 1-NN bounds come from this checkout's launch
@@ -454,6 +463,65 @@ def gather_bound(args, _kwargs, out) -> float:
     """A row gather's bound (ms): the table and the indices read, the rows
     written (`bound` of its bytes; a recording's `keep`)."""
     return bound(nbytes(*args, out), 0)[0]
+
+
+def same_bits(a, b) -> bool:
+    """Two float32 tensors bitwise equal, NaN patterns included."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def gather_keep(args, kwargs, out) -> dict:
+    """A recording's `keep` for the row gather: the launch held bitwise to
+    the plain version on its own inputs as it runs; its case (table shape x
+    rows a frame), bound (`gather_bound`) and inputs."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    row = gather_args(args, kwargs, out)
+    require(same_bits(out, pc._gather_rows_plain(*args)),
+            f"gather {row['case']}: differs from the plain version")
+    return row
+
+
+def gather_args(args, kwargs, out) -> dict:
+    """A recording's `keep` for the row gather: the launch's case (table
+    shape x rows a frame), bound (`gather_bound`) and inputs (detached: a
+    train step's tables require grad, which the kernel refuses outside its
+    autograd Function)."""
+    table, idx = args
+    return dict(case=f"{tuple(table.shape)} x {idx.shape[1]}",
+                bound_ms=gather_bound(args, kwargs, out), args=(table.detach(), idx))
+
+
+def index_select_of(table, idx):
+    """The row gather's library yardstick: one `index_select` on the
+    flattened (B*N, C) table (indices clamped into range), as a call."""
+    Bt, Nt, C = table.shape
+    flat = table.reshape(Bt * Nt, C)
+    flat_idx = (idx.long().clamp(0, max(Nt - 1, 0))
+                + Nt * torch.arange(Bt, device=idx.device)[:, None]).reshape(-1)
+    return lambda: flat.index_select(0, flat_idx)
+
+
+def gather_record(res, case, table, idx, **extra):
+    """A row gather timed on its inputs: kernel ms (queued, `kernel_ms`),
+    plain ms, bound (bytes) and `index_select_of`'s ms."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    res.record("gather_rows", case, 0, lambda: pc._gather_rows_kernel(table, idx),
+               lambda: pc._gather_rows_plain(table, idx),
+               nbytes(table, idx) + 4 * idx.numel() * table.shape[2], 0,
+               library=index_select_of(table, idx), queued=True, **extra)
+
+
+def record_gathers(label, rows, res, path):
+    """The row-gather launches of one call of a path (`gather_keep` rows,
+    each already held bitwise): each distinct case timed (`gather_record`)
+    with its launch count; prints the bounds and returns their sum (ms)."""
+    for case, (row, count) in by_case(rows).items():
+        gather_record(res, f"{label} {case} x{count}", *row["args"], path=path,
+                      launches=count)
+    return print_launch_bounds("gather_rows", rows, per=label)
 
 
 def banded_bound(args, _kwargs, out) -> float:
@@ -1047,15 +1115,9 @@ def check_kernels(recon, pcd, res: Results):
 
     def gather_case(case, table, idx):
         out = pc._gather_rows_kernel(table, idx)
-        require(torch.equal(out, pc._gather_rows_plain(table, idx)),
+        require(same_bits(out, pc._gather_rows_plain(table, idx)),
                 f"gather {case} differs from the plain version")
-        # library: one index_select on the flattened (B*N, C) table
-        Bt, Nt, C = table.shape
-        flat = table.reshape(Bt * Nt, C)
-        flat_idx = (idx.long() + Nt * torch.arange(Bt, device=idx.device)[:, None]).reshape(-1)
-        res.record("gather_rows", case, 0, lambda: pc._gather_rows_kernel(table, idx),
-                   lambda: pc._gather_rows_plain(table, idx), nbytes(table, idx, out), 0,
-                   library=lambda: flat.index_select(0, flat_idx))
+        gather_record(res, case, table, idx)
         return out
 
     centers = gather_case(f"sa1 centers ({F}, {N}, 3) x 1024", xyz0, k)
@@ -1513,17 +1575,15 @@ def check_posed_kernels(recon, pcd, body_in, res: Results):
             recording(pc, "_ball_query_kernel") as bcalls, \
             recording(pc, "_ball_query_grouped_kernel") as gcalls, \
             recording(pc, "_three_nn_kernel") as tcalls, \
-            recording(pc, "_gather_rows_kernel", keep=gather_bound) as gather_bounds:
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gather_calls:
         got, handles = capture_inputs(recon.model, ["garment_pe2"])
         recon.posed(pcd, body_in)
         for h in handles:
             h.remove()
     torch.cuda.synchronize()
     sums = check_forward_queries(fcalls, bcalls, gcalls, tcalls, ccalls, res)
-    sums["gather_rows"] = sum(gather_bounds)
-    print(f"gather_rows: {len(gather_bounds)} launches per posed forward, summed bound "
-          f"{sums['gather_rows']:.4f} ms", flush=True)
-    del fcalls[:], bcalls[:], gcalls[:], tcalls[:], ccalls[:]
+    sums["gather_rows"] = record_gathers("posed forward", gather_calls, res, path="posed")
+    del fcalls[:], bcalls[:], gcalls[:], tcalls[:], ccalls[:], gather_calls[:]
 
     # grouped ball query over the compacted table of iteration 0 (the body
     # (80, 6890) x the 2000 garment vertices, coverage at r = 0.4)
@@ -1976,6 +2036,7 @@ def train_phase(assets, body, weights, res: Results):
             recording(pc, "_fps_kernel") as fps_calls, \
             recording(pc, "_ball_query_kernel") as bq_calls, \
             recording(pc, "_three_nn_kernel") as tn_calls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gather_calls, \
             recording(model, "refine") as steps:
         losses, launches = counted("train", lambda: train_step(state, batch), POSED_TRAIN_KERNELS)
     for name, n in TRAIN_LAUNCHES.items():
@@ -1999,13 +2060,15 @@ def train_phase(assets, body, weights, res: Results):
     failed = check_train_kernels(dict(banded=banded_calls, pe_bwd=pe_calls), res)
     bounds = dict(nn1=print_launch_bounds("nn1", check_nn1("posed train step", nn1_calls, res),
                                           per="posed train step"),
-                  banded=sum(banded_bound(*c) for c in banded_calls))
+                  banded=sum(banded_bound(*c) for c in banded_calls),
+                  gather_rows=record_gathers("posed train step", gather_calls, res,
+                                             path="train"))
     check_knn("posed train step", knn_calls[0][0], res, path="train")
     check_fps("posed train step", fps_calls, res, path="train")
     check_flat("posed train step", bq_calls, res, path="train")
     check_three_nn("posed train step", tn_calls, res, path="train")
     del nn1_calls[:], banded_calls[:], pe_calls[:], knn_calls[:], fps_calls[:], bq_calls[:]
-    del tn_calls[:]
+    del tn_calls[:], gather_calls[:]
 
     # the plain path from the same weights and batch, its backward included
     ops.reset_counts()
@@ -2047,33 +2110,35 @@ def train_phase(assets, body, weights, res: Results):
 
 
 @torch.no_grad()
-def scatter_case(case, grads, idx, n, out, res: Results, path=None):
-    """One scatter-add call and its result `out`: against its plain version
-    on the card (`index_add_`, atomics: rtol 1e-5 / atol 1e-6), bitwise
-    against the ascending-order sum on the CPU (the plain version there),
-    two launches bitwise equal; timed beside its bound (bytes), its plain
-    version and one `index_add_` call on the flattened rows. `path`: where
-    the call comes from, if not the kernel's main path."""
+def scatter_case(case, grads, idx, n, out, res: Results, path=None, wrap=False):
+    """One scatter-add call (`wrap` as the call had it) and its result
+    `out`: against its plain version on the card (`index_add_`, atomics:
+    rtol 1e-5 / atol 1e-6), bitwise against the ascending-order sum on the
+    CPU (the plain version there), two launches bitwise equal; timed beside
+    its bound (bytes), its plain version and one `index_add_` call on the
+    flattened rows. `path`: where the call comes from, if not the kernel's
+    main path."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     Bs, R, C = grads.shape
-    plain = pc._scatter_add_rows_plain(grads, idx, n)
+    plain = pc._scatter_add_rows_plain(grads, idx, n, wrap)
     err = float((out - plain).abs().max())
     require(torch.allclose(out, plain, rtol=1e-5, atol=1e-6),
             f"scatter_add {case}: max abs err {err} against index_add_")
-    require(torch.equal(out, pc._scatter_add_rows_kernel(grads, idx, n)),
+    require(torch.equal(out, pc._scatter_add_rows_kernel(grads, idx, n, wrap)),
             f"scatter_add {case}: two launches differ")
-    cpu = pc._scatter_add_rows_plain(grads.cpu(), idx.cpu(), n)
+    cpu = pc._scatter_add_rows_plain(grads.cpu(), idx.cpu(), n, wrap)
     require(torch.equal(out.cpu(), cpu),
             f"scatter_add {case}: not bitwise the CPU's ascending-order sum")
     del plain, cpu
-    # the rows the function reads: those of indices in [0, n)
-    valid = (idx >= 0) & (idx < n)
-    flat = torch.where(valid, idx.long() + n * torch.arange(Bs, device=idx.device)[:, None],
+    # the rows the function reads: those of indices in [0, n), after the wrap
+    into = torch.where(idx < 0, idx + n, idx) if wrap else idx
+    valid = (into >= 0) & (into < n)
+    flat = torch.where(valid, into.long() + n * torch.arange(Bs, device=idx.device)[:, None],
                        Bs * n).reshape(-1)
     rows, lib_out = grads.reshape(-1, C), torch.zeros(Bs * n + 1, C, device=grads.device)
-    res.record("scatter_add", case, err, lambda: pc._scatter_add_rows_kernel(grads, idx, n),
-               lambda: pc._scatter_add_rows_plain(grads, idx, n),
+    res.record("scatter_add", case, err, lambda: pc._scatter_add_rows_kernel(grads, idx, n, wrap),
+               lambda: pc._scatter_add_rows_plain(grads, idx, n, wrap),
                int(valid.sum()) * C * 4 + nbytes(idx, out), float(valid.sum()) * C, reps_k=10,
                library=lambda: lib_out.index_add_(0, flat, rows), path=path,
                bitwise_cpu=True, bitwise_repeat=True)
@@ -2082,9 +2147,9 @@ def scatter_case(case, grads, idx, n, out, res: Results, path=None):
 def check_scatter_add(calls, res: Results):
     """The scatter-add at each of its shapes in the canonical train step, on
     the inputs recorded from the step (`scatter_case`)."""
-    for (grads, idx, n), _, out in calls:
+    for (grads, idx, n, wrap), _, out in calls:
         scatter_case(f"({grads.shape[0]}, {grads.shape[1]}, {grads.shape[2]}) into {n} rows",
-                     grads, idx, n, out, res)
+                     grads, idx, n, out, res, wrap=wrap)
 
 
 @contextlib.contextmanager
@@ -2177,7 +2242,7 @@ def canonical_train_phase(assets, body, weights, res: Results):
             recording(pc, "_ball_query_kernel") as bq_calls, \
             recording(pc, "_three_nn_kernel") as tn_calls, \
             recording(pc, "_nn1_kernel") as nn1_calls, \
-            recording(pc, "_gather_rows_kernel", keep=gather_bound) as gather_bounds:
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gather_calls:
         losses, launches = counted("canonical train", lambda: train_step(state, batch, generator()),
                                    CANON_TRAIN_KERNELS)
     peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2205,8 +2270,10 @@ def canonical_train_phase(assets, body, weights, res: Results):
     bounds = dict(nn1=print_launch_bounds("nn1", check_nn1("canonical train step", nn1_calls, res,
                                                            path="canonical_train"),
                                           per="canonical train step"),
-                  gather_rows=sum(gather_bounds))
+                  gather_rows=record_gathers("canonical train step", gather_calls, res,
+                                             path="canonical_train"))
     del scatter_calls[:], fps_calls[:], bq_calls[:], tn_calls[:], nn1_calls[:], before
+    del gather_calls[:]
 
     # the eval step: inference mode, the fused eval-mode SA path, the mask
     valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
@@ -2490,6 +2557,23 @@ def time_nn1(label, calls, bounds: bool) -> list:
     return out
 
 
+@torch.inference_mode()
+def time_gathers(label, calls) -> list:
+    """Each distinct row-gather case of a path's recorded launches
+    (`gather_args` rows): ms (as `time_flat`), its launches, its bound
+    (bytes) and one `index_select` on the flattened table (CUDA events,
+    mean of 5)."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    out = []
+    for case, (first, count) in by_case(calls).items():
+        table, idx = first["args"]
+        out.append(dict(case=f"{label} {case}", calls=count, bound_ms=first["bound_ms"],
+                        ms=kernel_ms(lambda: pc._gather_rows_kernel(table, idx), 20),
+                        library_ms=cuda_ms(index_select_of(table, idx), 5)))
+    return out
+
+
 def case_sums(rows, prefix, key) -> dict:
     """The sums over a path's launches (a row's `calls` each) of the rows'
     ms and, where present, their bounds: {f"{key}_ms_sum": ...}."""
@@ -2602,9 +2686,12 @@ def time_kernels(root: Path) -> int:
             recording(pc, "_ball_query_grouped_kernel") as gcalls, \
             recording(pc, "_three_nn_kernel") as tcalls, \
             recording(pc, "_fps_kernel") as fcalls, \
-            recording(pc, "_covered_mask_kernel") as ccalls:
+            recording(pc, "_covered_mask_kernel") as ccalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_args) as rcalls:
         recon.posed(pcd, body_in)
     torch.cuda.synchronize()
+    out["gather_rows"] = time_gathers("posed forward", rcalls)
+    out.update(case_sums(out["gather_rows"], "posed forward", "gather_posed"))
     out.update(time_grouped(gcalls))
     out["ball_query"] = time_flat("posed forward", bcalls, own)
     out["three_nn"] = time_three_nn("posed forward", tcalls, own)
@@ -2617,7 +2704,7 @@ def time_kernels(root: Path) -> int:
     if own:
         out["coverage_bound_ms_sum"] = sum(c["bound_ms"] for c in out["coverage"])
         out["coverage_scan_bound_ms_sum"] = sum(c["scan_bound_ms"] for c in out["coverage"])
-    del kcalls, bcalls, gcalls, tcalls, fcalls, ccalls
+    del kcalls, bcalls, gcalls, tcalls, fcalls, ccalls, rcalls
     out["ptxas"] = ptxas_lines(("fused_chain", "gcn_", "knn_transfer", "ball_query", "fps_",
                                 "coverage_kernel", "three_nn", "flat_sort"))
     del recon, batch, pcd, body_in
@@ -2632,7 +2719,8 @@ def time_kernels(root: Path) -> int:
             recording(pc, "_fps_kernel") as fcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
             recording(pc, "_three_nn_kernel") as tcalls, \
-            recording(pc, "_nn1_kernel") as ncalls:
+            recording(pc, "_nn1_kernel") as ncalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_args) as rcalls:
         train_step(state, batch)
     step_s = wall_s(lambda: train_step(state, batch), runs=5, warmup=2)
     rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
@@ -2648,7 +2736,9 @@ def time_kernels(root: Path) -> int:
     out["three_nn"] += time_three_nn("posed train step", tcalls, own)
     out["nn1"] = time_nn1("posed train step", ncalls, own)
     out.update(case_sums(out["nn1"], "posed train step", "nn1"))
-    del kcalls, fcalls, bcalls, tcalls, ncalls
+    out["gather_rows"] += time_gathers("posed train step", rcalls)
+    out.update(case_sums(out["gather_rows"], "posed train step", "gather_posed_train"))
+    del kcalls, fcalls, bcalls, tcalls, ncalls, rcalls
     shapes = {}
     for a, _, _ in calls:
         shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
@@ -2680,7 +2770,8 @@ def time_kernels(root: Path) -> int:
             recording(pc, "_fps_kernel") as fcalls, \
             recording(pc, "_ball_query_kernel") as bcalls, \
             recording(pc, "_three_nn_kernel") as tcalls, \
-            recording(pc, "_nn1_kernel") as ncalls:
+            recording(pc, "_nn1_kernel") as ncalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_args) as rcalls:
         step()
     valid = (torch.arange(CANON_B, device=dev) < CANON_B - 2).float()
     with recording(pc, "_nn1_kernel") as ecalls:
@@ -2700,17 +2791,23 @@ def time_kernels(root: Path) -> int:
     out["three_nn"] += time_three_nn("canonical train step", tcalls, own)
     out["nn1"] += time_nn1("canonical train step", ncalls, own)
     out["nn1"] += time_nn1("canonical eval step", ecalls, own)
-    del fcalls, bcalls, tcalls, ncalls, ecalls
+    out["gather_rows"] += time_gathers("canonical train step", rcalls)
+    out.update(case_sums(out["gather_rows"], "canonical train step", "gather_canonical_train"))
+    del fcalls, bcalls, tcalls, ncalls, ecalls, rcalls
     out["scatter_add"] = []
     torch.set_grad_enabled(False)
-    for (grads, idx, n), _, _ in calls:
+    for args, _, _ in calls:
+        grads, idx, n = args[:3]
         Bs, R, C = grads.shape
         flat = (idx.long() + n * torch.arange(Bs, device=dev)[:, None]).reshape(-1)
         lib_out = torch.zeros(Bs * n, C, device=dev)
-        out["scatter_add"].append(dict(
-            case=f"({Bs}, {R}, {C}) into {n} rows",
-            ms=cuda_ms(lambda: pc._scatter_add_rows_kernel(grads, idx, n), 10),
-            library_ms=cuda_ms(lambda: lib_out.index_add_(0, flat, grads.reshape(-1, C)), 10)))
+        row = dict(case=f"({Bs}, {R}, {C}) into {n} rows",
+                   ms=cuda_ms(lambda: pc._scatter_add_rows_kernel(*args), 10),
+                   library_ms=cuda_ms(lambda: lib_out.index_add_(0, flat, grads.reshape(-1, C)),
+                                      10))
+        if len(args) > 3:  # the gathers' backward with the wrap: the same call without it
+            row["ms_nowrap"] = cuda_ms(lambda: pc._scatter_add_rows_kernel(grads, idx, n), 10)
+        out["scatter_add"].append(row)
         del lib_out, flat
     print(json.dumps(out), flush=True)
     return 0
@@ -2756,19 +2853,25 @@ def ab(parent: Path) -> int:
                 lab: mean(lab, lambda r: r[f"{path}_device_ms_by_kernel"][k])
                 for lab in ("parent", "change")}
     for key in ("ball_query_grouped_ms_sum", "ball_query_ms_sum", "three_nn_ms_sum",
-                "coverage_ms_sum", "canonical_train_fps_device_ms", "nn1_ms_sum"):
+                "coverage_ms_sum", "canonical_train_fps_device_ms", "nn1_ms_sum",
+                "gather_posed_ms_sum", "gather_posed_train_ms_sum",
+                "gather_canonical_train_ms_sum"):
         summary[key] = {lab: mean(lab, lambda r: r[key]) for lab in ("parent", "change")}
     for key in ("chain_bound_ms_sum", "gcn_bound_ms_sum", "ball_query_grouped_bound_ms_sum",
                 "ball_query_bound_ms_sum", "ball_query_scan_bound_ms_sum",
                 "three_nn_bound_ms_sum", "three_nn_scan_bound_ms_sum", "coverage_bound_ms_sum",
-                "coverage_scan_bound_ms_sum", "nn1_bound_ms_sum", "nn1_scan_bound_ms_sum"):
+                "coverage_scan_bound_ms_sum", "nn1_bound_ms_sum", "nn1_scan_bound_ms_sum",
+                "gather_posed_bound_ms_sum", "gather_posed_train_bound_ms_sum",
+                "gather_canonical_train_bound_ms_sum"):
         summary[key] = {"bound": runs[1][1][key]}
     for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
-                   "ball_query", "three_nn", "fps", "coverage", "nn1"):
+                   "ball_query", "three_nn", "fps", "coverage", "nn1", "gather_rows"):
         for i, case in enumerate(runs[0][1][kernel]):
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
-                   for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms")
-                   if field in case for lab in ("parent", "change")}
+                   for field in ("ms", "ms_nowrap", "err_float64", "gather_ms", "plain_ms",
+                                 "library_ms")
+                   for lab in ("parent", "change")
+                   if field in next(r for lb, r in runs if lb == lab)[kernel][i]}
             # the bounds of this checkout's plans, from a run of the change
             row.update({k: v for k, v in runs[1][1][kernel][i].items()
                         if k in ("bound_ms", "scan_bound_ms")})

@@ -46,13 +46,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _IP = ctypes.POINTER(ctypes.c_int)     # host array of ints
 # C signatures of the entry points (all return int = cudaError_t)
 _SIGNATURES = {
     "g4d_fps": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    "g4d_gather_rows": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "g4d_gather_rows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I, _U, _I, _P, _P),
     "g4d_ball_query": (_P, _P, _I, _I, _I, _I, _F, _I, _P, _F, _I, _P, _F, _I, _P,
                        _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "g4d_ball_query_grouped": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _F,
@@ -68,7 +69,7 @@ _SIGNATURES = {
                    _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "g4d_banded": (_P, _IP, _I, _P, _I, _I, _I, _P, _P),
     "g4d_nn1": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    "g4d_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "g4d_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 # shared memory, in bytes, that one block may use on the H100, and that

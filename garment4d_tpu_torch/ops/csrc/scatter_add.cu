@@ -2,7 +2,9 @@
 //   out[b, i, :] = sum over r with idx[b, r] == i of g[b, r, :],
 // each output row summed in ascending r from 0.0, so the result is bitwise
 // the sequential sum (the CPU's `index_add_`) on every run. An index
-// outside [0, n) is dropped.
+// outside [0, n) is dropped; with `wrap` (the row gather's backward, the
+// JAX package's rule) an index in [-n, 0) adds into row idx + n first, in
+// the sort's index test, at no memory traffic.
 //
 // Replaces garment4d_tpu/ops/pallas/scatter.py:scatter_add_rows_pallas
 // (pallas_call at :102). The TPU kernel built a one-hot matrix per 128-row
@@ -45,10 +47,18 @@ constexpr int kWarps = 16;  // warps of a sort block, each owning a range of r
 constexpr int kAhead = 8;   // slots whose payload reads are in flight together
 constexpr int kLoads = 8;   // rounds of 32 indices a sort warp loads ahead
 
+// index r of a frame's indices ix, hi its range's end: -1 (dropped) past
+// hi, an index in [-n, 0) wrapped to idx + n with `wrap`
+__device__ __forceinline__ int sort_index(const int* ix, int r, int hi, int n, bool wrap) {
+  if (r >= hi) return -1;
+  const int i = __ldg(ix + r);
+  return wrap && i < 0 ? i + n : i;
+}
+
 // per-frame stable counting sort of idx (B, R) by value into order (B, R),
 // start (B, n + 1); hist: n * kWarps ints, shared (null) or scratch
 __global__ void __launch_bounds__(kWarps * 32)
-scatter_sort_kernel(const int* __restrict__ idx, int R, int n,
+scatter_sort_kernel(const int* __restrict__ idx, int R, int n, bool wrap,
                     int* __restrict__ hist_scratch, int* __restrict__ order,
                     int* __restrict__ start) {
   extern __shared__ int smem[];
@@ -69,10 +79,7 @@ scatter_sort_kernel(const int* __restrict__ idx, int R, int n,
   for (int r0 = lo; r0 < hi; r0 += 32 * kLoads) {  // warp-uniform
     int iv[kLoads];
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int r = r0 + u * 32 + lane;
-      iv[u] = r < hi ? __ldg(ix + r) : -1;
-    }
+    for (int u = 0; u < kLoads; ++u) iv[u] = sort_index(ix, r0 + u * 32 + lane, hi, n, wrap);
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = iv[u];
@@ -127,10 +134,7 @@ scatter_sort_kernel(const int* __restrict__ idx, int R, int n,
   for (int r0 = lo; r0 < hi; r0 += 32 * kLoads) {
     int iv[kLoads];
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int r = r0 + u * 32 + lane;
-      iv[u] = r < hi ? __ldg(ix + r) : -1;
-    }
+    for (int u = 0; u < kLoads; ++u) iv[u] = sort_index(ix, r0 + u * 32 + lane, hi, n, wrap);
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = iv[u];
@@ -230,14 +234,15 @@ cudaError_t launch_sum(const float* g, const int* order, const int* start, int B
 
 }  // namespace
 
-// g (B, R, C) f32, idx (B, R) i32 -> out (B, n, C) f32. Scratch: order
+// g (B, R, C) f32, idx (B, R) i32 -> out (B, n, C) f32; `wrap` != 0: an
+// index in [-n, 0) counts as idx + n. Scratch: order
 // (B, R) i32, start (B, n + 1) i32, and hist (B, n * 16) i32 or null to
 // keep the counts in shared memory (n * 64 bytes, at most the card's 227
 // KB less 1 KB). The sum: V = 4 (C % 4 == 0, g and out 16-byte aligned) or 1, J in
 // {1, 2} (V = 4) or {1, 2, 4, 8} (V = 1), `lanes` in {1, 2, ..., 32} per
 // output row. The wrapper's `_scatter_plan` picks them.
 extern "C" int g4d_scatter_add(const float* g, const int* idx, int B, int R,
-                               int C, int n, int V, int J, int lanes,
+                               int C, int n, int wrap, int V, int J, int lanes,
                                int* order, int* start, int* hist, float* out,
                                cudaStream_t stream) {
   if (B < 0 || R < 0 || C < 0 || C > 1024 || n < 0 || lanes < 1 || lanes > 32 ||
@@ -249,7 +254,8 @@ extern "C" int g4d_scatter_add(const float* g, const int* idx, int B, int R,
   cudaError_t err = cudaFuncSetAttribute(
       scatter_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  scatter_sort_kernel<<<B, kWarps * 32, smem, stream>>>(idx, R, n, hist, order, start);
+  scatter_sort_kernel<<<B, kWarps * 32, smem, stream>>>(idx, R, n, wrap != 0, hist, order,
+                                                        start);
   err = cudaGetLastError();
   if (err != cudaSuccess || C == 0) return (int)err;
   if (V == 4) {

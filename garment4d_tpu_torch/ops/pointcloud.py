@@ -180,12 +180,65 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def _gather_rows_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    C = points.shape[-1]
-    ix = idx.long()[..., None].expand(*idx.shape, C)
-    return torch.gather(points, 1, ix)
+    """The row gather in torch, with the JAX package's out-of-range rule
+    (`gather_points`): the gather of the wrapped index clamped into range,
+    its invalid rows then filled with NaN."""
+    B, N, C = points.shape
+    ix = idx.long()
+    ix = torch.where(ix < 0, ix + N, ix)
+    valid = (ix >= 0) & (ix < N)
+    if N == 0:
+        return torch.full((*idx.shape, C), float("nan"), dtype=points.dtype,
+                          device=points.device)
+    out = torch.gather(points, 1, torch.where(valid, ix, 0)[..., None].expand(*idx.shape, C))
+    return out.masked_fill_(~valid[..., None], float("nan"))
+
+
+_GATHER_THREADS = 256  # gather.cu: kThreads
+# slots a thread (gather.cu's instances): 4 float4s; 8 floats of rows of at
+# least _GATHER_NARROW floats, 4 of narrower rows (measured best, PERF.md)
+_GATHER_NARROW = 32
+_GRID_MAX = 2 ** 31 - 1  # blocks of a 1-D grid
+
+
+def _divider(d: int) -> tuple:
+    """(magic, shift) with x // d == x * magic >> shift for 0 <= x < 2^31
+    and 1 <= d <= 2^31 (gather.cu: `divide`): shift = 31 + ceil(log2 d),
+    magic = ceil(2^shift / d), below 2^32. The rounding error of magic
+    adds less than x / 2^shift < 1 / d to x / d, which never reaches the
+    next integer."""
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
+
+
+@functools.lru_cache(maxsize=256)
+def _gather_plan(R: int, C: int, aligned: bool) -> dict:
+    """The row gather's launch plan for frames of R rows of C floats: V
+    floats a slot (4 where C % 4 == 0 and the table and the output are
+    16-byte aligned, else 1), `CV` = C / V slots a row, U slots a thread
+    (`_GATHER_THREADS` apart: 8 floats of rows of `_GATHER_NARROW` floats
+    or more, else 4), `tile` consecutive slots of one frame a block
+    and `blocks_per_frame` blocks; slot s is (row s // CV, vector s % CV)
+    by the divider (magic, shift), a block's frame by (frame_magic,
+    frame_shift) (`_divider`). Raises ValueError for C < 1 or a frame of
+    2^31 - tile slots or more."""
+    if R < 0 or C < 1:
+        raise ValueError(f"gather: R={R}, C={C} (R >= 0, C >= 1)")
+    V = 4 if C % 4 == 0 and aligned else 1
+    U = 8 if V == 1 and C >= _GATHER_NARROW else 4
+    CV, tile = C // V, _GATHER_THREADS * U
+    if R * CV + tile > 2 ** 31:
+        raise ValueError(f"gather: {R} rows of {C} floats a frame, past the kernel's "
+                         f"{2 ** 31 - tile} slots of {V} floats")
+    bpf = -(-R * CV // tile)
+    (magic, shift), (frame_magic, frame_shift) = _divider(CV), _divider(max(bpf, 1))
+    return dict(V=V, U=U, CV=CV, tile=tile, blocks_per_frame=bpf, magic=magic, shift=shift,
+                frame_magic=frame_magic, frame_shift=frame_shift)
 
 
 def _gather_rows_kernel(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather kernel (`csrc/gather.cu`) on CUDA tensors, with
+    `gather_points`' out-of-range rule; forward-only."""
     _build.refuse_grad("gather_rows", points)
     dev = points.device
     _build.require(points, "points", torch.float32, 3, dev)
@@ -195,11 +248,18 @@ def _gather_rows_kernel(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
         raise ValueError(f"gather: batch mismatch {tuple(points.shape)} vs {tuple(idx.shape)}")
     R = idx.shape[1]
     out = torch.empty((B, R, C), dtype=torch.float32, device=dev)
+    if B == 0 or R == 0 or C == 0:
+        return out
+    plan = _gather_plan(R, C, points.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    if B * plan["blocks_per_frame"] > _GRID_MAX:
+        raise ValueError(f"gather: {B} frames of {plan['blocks_per_frame']} blocks, past "
+                         f"a grid's {_GRID_MAX}")
     lib = _build.library()
     _build.launch_counts["gather_rows"] += 1
-    _build.check(lib.g4d_gather_rows(points.data_ptr(), idx.data_ptr(), B, N,
-                                     C, R, out.data_ptr(),
-                                     _build.stream_of(points)), "gather_rows")
+    _build.check(lib.g4d_gather_rows(
+        points.data_ptr(), idx.data_ptr(), B, N, C, R, plan["V"], plan["U"],
+        plan["blocks_per_frame"], plan["magic"], plan["shift"], plan["frame_magic"],
+        plan["frame_shift"], out.data_ptr(), _build.stream_of(points)), "gather_rows")
     return out
 
 
@@ -233,11 +293,14 @@ def _scatter_hist_in_shared(n: int) -> bool:
 
 
 def _scatter_add_rows_plain(grads: torch.Tensor, idx: torch.Tensor,
-                            n: int) -> torch.Tensor:
-    """`index_add_` on the flattened rows; indices outside [0, n) go to a
-    spare row that is dropped. On the CPU it adds in index order, from 0.0,
-    the order the kernel keeps; on the card it uses atomics."""
+                            n: int, wrap: bool = False) -> torch.Tensor:
+    """`index_add_` on the flattened rows; indices outside [0, n) (after
+    `wrap` adds n to the negative ones) go to a spare row that is dropped.
+    On the CPU it adds in index order, from 0.0, the order the kernel keeps;
+    on the card it uses atomics."""
     B, R, C = grads.shape
+    if wrap:
+        idx = torch.where(idx < 0, idx + n, idx)
     flat = idx.long() + n * torch.arange(B, device=idx.device)[:, None]
     valid = (idx >= 0) & (idx < n)
     flat = torch.where(valid, flat, torch.full_like(flat, B * n))
@@ -247,7 +310,7 @@ def _scatter_add_rows_plain(grads: torch.Tensor, idx: torch.Tensor,
 
 
 def _scatter_add_rows_kernel(grads: torch.Tensor, idx: torch.Tensor,
-                             n: int) -> torch.Tensor:
+                             n: int, wrap: bool = False) -> torch.Tensor:
     _build.refuse_grad("scatter_add", grads)
     dev = grads.device
     _build.require(grads, "grads", torch.float32, 3, dev)
@@ -267,22 +330,25 @@ def _scatter_add_rows_kernel(grads: torch.Tensor, idx: torch.Tensor,
     lib = _build.library()
     _build.launch_counts["scatter_add"] += 1
     _build.check(lib.g4d_scatter_add(
-        grads.data_ptr(), idx.data_ptr(), B, R, C, n, V, J, lanes, order.data_ptr(),
+        grads.data_ptr(), idx.data_ptr(), B, R, C, n, int(wrap), V, J, lanes, order.data_ptr(),
         start.data_ptr(), None if hist is None else hist.data_ptr(), out.data_ptr(),
         _build.stream_of(grads)), "scatter_add")
     return out
 
 
-def scatter_add_rows(grads: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+def scatter_add_rows(grads: torch.Tensor, idx: torch.Tensor, n: int,
+                     wrap: bool = False) -> torch.Tensor:
     """grads (B, R, C), idx (B, R) int -> (B, n, C): out[b, i] = the sum of
     grads[b, r] over the r with idx[b, r] == i, in ascending r from 0.0;
-    indices outside [0, n) are dropped (the backward of a row gather, as
-    JAX's `_gather_rows` VJP). The kernel is bitwise the CPU's sum and
-    repeats bitwise; the plain version on the card (atomics) does not."""
+    indices outside [0, n) are dropped, as the Pallas scatter-add drops
+    them. With `wrap` an index in [-n, 0) adds into row idx + n first: the
+    backward of a row gather, as JAX's `_gather_rows` VJP. The kernel is
+    bitwise the CPU's sum and repeats bitwise; the plain version on the
+    card (atomics) does not."""
     if use_kernel(grads):
         return _scatter_add_rows_kernel(grads.contiguous(),
-                                        idx.to(torch.int32).contiguous(), int(n))
-    return _scatter_add_rows_plain(grads, idx, int(n))
+                                        idx.to(torch.int32).contiguous(), int(n), wrap)
+    return _scatter_add_rows_plain(grads, idx, int(n), wrap)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -306,18 +372,24 @@ class _GatherRows(torch.autograd.Function):
             return None, None
         idx, = ctx.saved_tensors
         with dispatch_as(ctx.kernel):
-            return scatter_add_rows(g, idx, ctx.n), None
+            return scatter_add_rows(g, idx, ctx.n, wrap=True), None
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, M) int -> (B, M, C): out[b, m] =
-    points[b, idx[b, m]]. Differentiable in `points`: the backward is
-    `scatter_add_rows`, the deterministic scatter-add kernel on the card."""
+    points[b, idx[b, m]]. Out of range, the JAX package's `_gather_rows`
+    rule on every path: an index in [-N, 0) reads row idx + N, any other
+    index outside [0, N) gives a row of NaN (the Pallas kernel promises
+    [0, N) and gives zero rows outside it). Differentiable in `points`: the
+    backward is `scatter_add_rows` with `wrap` (the deterministic
+    scatter-add kernel on the card), which sends a wrapped index's
+    cotangent to row idx + N and drops the others, as JAX's VJP."""
     return _GatherRows.apply(points, idx)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """points (B, N, C), idx (B, M, S) int -> (B, M, S, C)."""
+    """points (B, N, C), idx (B, M, S) int -> (B, M, S, C), as
+    `gather_points` (its out-of-range rule included)."""
     B, M, S = idx.shape
     flat = gather_points(points, idx.reshape(B, M * S))
     return flat.reshape(B, M, S, points.shape[-1])

@@ -172,17 +172,110 @@ def test_three_nn(dev, n, m):
     torch.testing.assert_close(dk, dp, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("C,offset", [(1, 0), (5, 0), (128, 0), (128, 1), (130, 0)])
+def bits(t):
+    """A float tensor's bit patterns (NaN rows compare equal)."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 67, 99, 128, 130, 195, 384])
 def test_gather_rows(dev, C, offset):
-    """Narrow, float4-wide, misaligned (storage offset 4 bytes) and ragged rows."""
+    """Each width the models gather (3, 6 x 2, 67, 99, 128, 195, 256 x 1.5,
+    384) and its neighbours, the table aligned and misaligned (storage
+    offset 4 bytes: the float path for every width), R odd so that the
+    output is no whole number of float4s for odd C: bitwise the plain
+    version, indices from [-N-3, N+3) with -N, -1, N and N+1 among them (an
+    index in [-N, 0) reads row idx + N, the others outside [0, N) NaN rows,
+    0x7fc00000)."""
     g = torch.Generator().manual_seed(4)
     flat = torch.randn(offset + 3 * 50 * C, generator=g).to(dev)
     table = flat[offset:].view(3, 50, C)
     idx = torch.randint(0, 50, (3, 77), generator=g, dtype=torch.int32).to(dev)
     got = pc._gather_rows_kernel(table, idx)
-    torch.testing.assert_close(got, pc._gather_rows_plain(table, idx), rtol=0, atol=0)
-    idx[0, 0] = 50  # out of range -> NaN row, never a stray read
-    assert torch.isnan(pc._gather_rows_kernel(table, idx)[0, 0]).all()
+    assert torch.equal(bits(got), bits(pc._gather_rows_plain(table, idx)))
+    idx = torch.randint(-53, 53, (3, 77), generator=g, dtype=torch.int32)
+    idx[:, :4] = torch.tensor([-50, -1, 50, 51], dtype=torch.int32)
+    idx = idx.to(dev)
+    got = pc._gather_rows_kernel(table, idx)
+    want = pc._gather_rows_plain(table, idx)
+    assert torch.equal(bits(got), bits(want))
+    assert torch.equal(bits(want.cpu()), bits(pc._gather_rows_plain(table.cpu(), idx.cpu())))
+    assert torch.equal(got[:, 0], table[:, 0]) and torch.equal(got[:, 1], table[:, 49])
+    assert (bits(got[:, 2:4]) == 0x7fc00000).all()
+
+
+@pytest.mark.parametrize("B,N,R,C", [(1, 7, 33, 3), (2, 9, 0, 5), (3, 1, 41, 67), (2, 0, 9, 4),
+                                     (1, 6890, 4992, 6), (200, 1024, 2067, 128),
+                                     (4, 1722, 16384, 67)])
+def test_gather_rows_shapes(dev, B, N, R, C):
+    """One frame, no rows (no launch), a one-row table (every index 0, -1
+    or out of range), an empty table (every row NaN), a frame of many
+    blocks, more frames than SMs, a float4 and a float width over many
+    blocks a frame: bitwise the plain version."""
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn(B, N, C, generator=g).to(dev)
+    idx = torch.randint(-N - 2, N + 2, (B, R), generator=g, dtype=torch.int32).to(dev)
+    ops.reset_counts()
+    got = pc._gather_rows_kernel(table, idx)
+    assert ops.launch_counts["gather_rows"] == int(R > 0)
+    assert got.shape == (B, R, C)
+    assert torch.equal(bits(got), bits(pc._gather_rows_plain(table, idx)))
+
+
+@pytest.mark.parametrize("case", ["V=4 off width", "V=2", "U=2", "float4 U=8", "blocks",
+                                  "magic", "shift", "frame magic", "frame shift",
+                                  "misaligned", "rows"])
+def test_gather_entry_refuses(dev, case):
+    """The C entry refuses a plan that does not match the kernel: float4
+    slots for a width off 4 or a misaligned table, another slot width, an
+    unroll the kernel has no instance of (2, or 8 float4s), a wrong block
+    count or divider (of the slots or the frames), a frame of 2^31 slots."""
+    from garment4d_tpu_torch.ops import _build
+
+    B, N, R, C = 2, 10, 600, 5
+    flat = torch.randn(B * N * C + 4, device=dev)
+    table, aligned = flat[:-4], False
+    if case == "misaligned":
+        C, table, aligned = 4, flat[1:1 + B * N * 4], True
+    if case == "float4 U=8":
+        C, table, aligned = 4, flat[:B * N * 4], True
+    idx = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    out = torch.empty((B, R, C), device=dev)
+    plan = dict(pc._gather_plan(R, C, aligned))
+    if case == "rows":
+        R = 2 ** 31 // plan["CV"]
+        plan["blocks_per_frame"] = -(-R * plan["CV"] // plan["tile"])
+    plan.update({"V=4 off width": dict(V=4, U=4), "V=2": dict(V=2), "U=2": dict(U=2),
+                 "float4 U=8": dict(U=8),
+                 "blocks": dict(blocks_per_frame=plan["blocks_per_frame"] + 1),
+                 "magic": dict(magic=plan["magic"] + 1),
+                 "shift": dict(shift=plan["shift"] + 1),
+                 "frame magic": dict(frame_magic=plan["frame_magic"] + 1),
+                 "frame shift": dict(frame_shift=plan["frame_shift"] + 1)}.get(case, {}))
+    err = _build.library().g4d_gather_rows(
+        table.data_ptr(), idx.data_ptr(), B, N, C, R, plan["V"], plan["U"],
+        plan["blocks_per_frame"], plan["magic"], plan["shift"], plan["frame_magic"],
+        plan["frame_shift"], out.data_ptr(), _build.stream_of(table))
+    assert err != 0
+
+
+def test_gather_scatter_wrap(dev):
+    """The gather's backward through the scatter-add kernel's `wrap`: a
+    wrapped index's cotangent into row idx + N, the others outside [0, N)
+    dropped, bitwise the CPU's ascending-order sum; without `wrap` the
+    scatter-add drops every negative index, as before."""
+    g = torch.Generator().manual_seed(6)
+    B, N, R, C = 3, 40, 900, 7
+    grads = torch.randn(B, R, C, generator=g)
+    idx = torch.randint(-N - 5, N + 5, (B, R), generator=g, dtype=torch.int32)
+    for wrap in (False, True):
+        got = pc._scatter_add_rows_kernel(grads.to(dev), idx.to(dev), N, wrap)
+        assert torch.equal(got.cpu(), pc._scatter_add_rows_plain(grads, idx, N, wrap))
+    table = torch.randn(B, N, C, device=dev, requires_grad=True)
+    out = ops.gather_points(table, idx.to(dev))
+    (dt,) = torch.autograd.grad((out.nan_to_num() * grads.to(dev)).sum(), table)
+    wrapped = torch.where(idx < 0, idx + N, idx)
+    assert torch.equal(dt.cpu(), pc._scatter_add_rows_plain(grads, wrapped, N))
 
 
 def _chain_inputs(seed, B, N, M, S, C, widths, device="cuda"):

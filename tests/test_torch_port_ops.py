@@ -148,6 +148,37 @@ class TestIndexOps:
             _np(tops.group_points(_t(pts), _t(gidx))),
             np.asarray(jops.group_points(jnp.asarray(pts), jnp.asarray(gidx))))
 
+    @pytest.mark.parametrize("op", ["gather_points", "group_points"])
+    def test_gather_out_of_range_matches_jax(self, rng, op):
+        """The JAX package's out-of-range rule (`_gather_rows`,
+        take_along_axis on the CPU): indices drawn from [-N-3, N+3) with
+        -N, -1, N and N+1 among them; an index in [-N, 0) reads row idx + N,
+        any other index outside [0, N) a NaN row. Forward bitwise (NaN rows
+        equal), the table's gradient within rtol 1e-6 / atol 1e-6 of
+        jax.vjp (a wrapped index's cotangent into row idx + N, the others
+        dropped)."""
+        B, N, C = 2, 20, 5
+        table = rng.randn(B, N, C).astype(np.float32)
+        shape = (B, 60) if op == "gather_points" else (B, 12, 5)
+        idx = rng.randint(-N - 3, N + 3, shape).astype(np.int32)
+        idx.reshape(B, -1)[:, :4] = (-N, -1, N, N + 1)
+        jout, vjp = jax.vjp(lambda t: getattr(jops, op)(t, jnp.asarray(idx)),
+                            jnp.asarray(table))
+        tt = _t(table).requires_grad_(True)
+        out = getattr(tops, op)(tt, _t(idx))
+        np.testing.assert_array_equal(_np(out), np.asarray(jout))  # NaN rows compare equal
+        assert np.isnan(_np(out)).any() and (_np(out).view(np.int32) == 0x7fc00000).any()
+        cot = rng.randn(*jout.shape).astype(np.float32)
+        (want,) = vjp(jnp.asarray(cot))
+        (got,) = torch.autograd.grad((out * _t(cot)).sum(), tt)
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+    def test_gather_plain_empty_table(self):
+        """A table of no rows: every index is out of range, every row NaN."""
+        out = tops.pointcloud._gather_rows_plain(torch.zeros(2, 0, 3),
+                                                 torch.tensor([[0, -1], [1, 2]]))
+        assert out.shape == (2, 2, 3) and bool(out.isnan().all())
+
     def test_three_interpolate(self, rng):
         feats = rng.randn(2, 50, 6).astype(np.float32)
         unknown, known = _cloud(rng, 2, 120), _cloud(rng, 2, 50)
@@ -931,6 +962,24 @@ class TestDispatch:
         assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _replay_gather(plan, B, R, frames=None):
+    """`gather.cu`'s index arithmetic for `plan`, block by block: (frame,
+    slot, row, vector) int64 arrays of the slots written, per unrolled
+    step of each frame's threads (`frames`: these frames only)."""
+    T, U, CV = tops.pointcloud._GATHER_THREADS, plan["U"], plan["CV"]
+    bpf = plan["blocks_per_frame"]
+    for f in range(B) if frames is None else frames:
+        block = f * bpf + np.arange(bpf, dtype=np.int64)
+        b = (block * plan["frame_magic"]) >> plan["frame_shift"]
+        assert (b == f).all()
+        s0 = ((block - b * bpf)[:, None] * plan["tile"] + np.arange(T, dtype=np.int64)).ravel()
+        for u in range(U):
+            slot = s0 + u * T
+            r = (slot * plan["magic"]) >> plan["shift"]
+            keep = slot < R * CV
+            yield np.int64(f), slot[keep], r[keep], (slot - r * CV)[keep]
+
+
 # the scatter-adds of the canonical train step at the recipe's shape (B=20,
 # T=10: 200 frames), (R, C, n) in launch order, and the PE backward's dtable
 # scatter at garment pe0 unsplit (40 frames x 2000 centers x 32 slots)
@@ -961,6 +1010,57 @@ class TestKernelPlans:
     """The host-side planning of the scatter-add, PE-backward, chain and
     GCN-layer wrappers: every shape of the main paths is planned, not
     refused, so that a ValueError shows here and not first on the card."""
+
+    @settings(max_examples=80, deadline=None, derandomize=True, database=None)
+    @given(C=st.integers(1, 1024), aligned=st.booleans(), R=st.integers(0, 300),
+           B=st.integers(1, 3))
+    def test_gather_plan_covers_once(self, C, aligned, R, B):
+        """`gather.cu`'s slots replayed from `_gather_plan`: every output
+        float written exactly once, from the row and channel it belongs
+        to, the division by C / V exact; offsets in 64 bits (the last frame
+        of 2^24 frames lies past 2^32 floats)."""
+        plan = tops.pointcloud._gather_plan(R, C, aligned)
+        V = plan["V"]
+        assert V == (4 if C % 4 == 0 and aligned else 1) and plan["CV"] * V == C
+        assert plan["U"] == (8 if V == 1 and C >= 32 else 4)
+        assert plan["tile"] == tops.pointcloud._GATHER_THREADS * plan["U"]
+        written = []
+        for b, slot, r, c in _replay_gather(plan, B, R):
+            assert (r == slot // plan["CV"]).all() and (c == slot % plan["CV"]).all()
+            written.append(((b * R + r) * C + c * V)[:, None] + np.arange(V))
+        flat = np.concatenate(written).ravel() if written else np.zeros(0, np.int64)
+        np.testing.assert_array_equal(np.sort(flat), np.arange(B * R * C))
+        far = 2 ** 24 - 1
+        offsets = np.concatenate([(b * R + r) * C + c * V for b, _, r, c in
+                                  _replay_gather(plan, 2 ** 24, R, frames=[far])])
+        assert offsets.dtype == np.int64
+        np.testing.assert_array_equal(np.sort(offsets), far * R * C + np.arange(0, R * C, V))
+
+    @pytest.mark.parametrize("aligned", [False, True])
+    def test_gather_plan_divider(self, aligned):
+        """For every C up to 1024, at the largest frame the plan takes: the
+        magic-number division exact at the frame's last slots and the
+        block's padding past them (every slot a block computes a row of),
+        and one row more refused."""
+        for C in range(1, 1025):
+            empty = tops.pointcloud._gather_plan(0, C, aligned)
+            CV, tile = empty["CV"], empty["tile"]
+            R = (2 ** 31 - tile) // CV
+            plan = tops.pointcloud._gather_plan(R, C, aligned)
+            top = plan["blocks_per_frame"] * tile
+            assert top <= 2 ** 31 and plan["magic"] < 2 ** 32
+            for s in (0, CV - 1, CV, R * CV - 1, top - tile, top - 1):
+                assert (s * plan["magic"]) >> plan["shift"] == s // CV, (C, s)
+            bpf = plan["blocks_per_frame"]
+            for block in (0, bpf - 1, bpf, (2 ** 31 - 1) // bpf * bpf - 1, 2 ** 31 - 1):
+                assert (block * plan["frame_magic"]) >> plan["frame_shift"] == block // bpf
+            with pytest.raises(ValueError, match="past the kernel"):
+                tops.pointcloud._gather_plan(R + 1, C, aligned)
+
+    def test_gather_plan_refuses(self):
+        for R, C in ((-1, 3), (5, 0)):
+            with pytest.raises(ValueError):
+                tops.pointcloud._gather_plan(R, C, True)
 
     @pytest.mark.parametrize("C,S,widths,M", POSED_CHAINS)
     def test_chain_plan_main_path(self, C, S, widths, M):
