@@ -187,9 +187,7 @@ posed train step (`nn1_ms_sum`, `nn1_bound_ms_sum`) and the 1-NN
 pre-pass's device ms a posed train step; the device ms a call of each
 path of the row gather and the banded product too; every row-gather case
 of the posed forward and both train steps (`time_gathers`: ms, bound,
-`index_select`) and their sums per path; the scatter-add's cases of the
-gathers' backward also timed without the wrap of negative indices
-(`ms_nowrap`);
+`index_select`) and their sums per path;
 each path's profiled launches a call; the ptxas lines of the chain, GCN,
 K-NN, ball-query, 3-NN, FPS and coverage kernels; one JSON line. The FPS,
 coverage, flat, 3-NN and 1-NN bounds come from this checkout's launch
@@ -459,10 +457,27 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def gather_bytes(table, idx) -> int:
+    """The bytes a row gather must move on this run's data: each 32-byte
+    sector of the table that the rows it reads touch (indices in [-N, N),
+    wrapped as the kernel wraps them; a NaN row reads nothing), read once;
+    the indices read; the rows written."""
+    Bt, Nt, C = table.shape
+    i = idx.long()
+    i = torch.where(i < 0, i + Nt, i)
+    rows = (i + Nt * torch.arange(Bt, device=i.device)[:, None])[(i >= 0) & (i < Nt)].unique()
+    start = table.data_ptr() % 32 + rows * (C * table.element_size())
+    first, last = start // 32, (start + C * table.element_size() - 1) // 32
+    # rows sorted: a row's sectors past those of the rows before it
+    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+    sectors = int((last - torch.maximum(first - 1, prev)).clamp_min(0).sum()) if C else 0
+    return 32 * sectors + nbytes(idx) + idx.numel() * C * table.element_size()
+
+
 def gather_bound(args, _kwargs, out) -> float:
-    """A row gather's bound (ms): the table and the indices read, the rows
-    written (`bound` of its bytes; a recording's `keep`)."""
-    return bound(nbytes(*args, out), 0)[0]
+    """A row gather's bound (ms): `bound` of its `gather_bytes` (a
+    recording's `keep`)."""
+    return bound(gather_bytes(*args), 0)[0]
 
 
 def same_bits(a, b) -> bool:
@@ -472,9 +487,8 @@ def same_bits(a, b) -> bool:
 
 
 def gather_keep(args, kwargs, out) -> dict:
-    """A recording's `keep` for the row gather: the launch held bitwise to
-    the plain version on its own inputs as it runs; its case (table shape x
-    rows a frame), bound (`gather_bound`) and inputs."""
+    """`gather_args`, after holding the launch bitwise to the plain version
+    on its own inputs as it runs."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     row = gather_args(args, kwargs, out)
@@ -505,12 +519,11 @@ def index_select_of(table, idx):
 
 def gather_record(res, case, table, idx, **extra):
     """A row gather timed on its inputs: kernel ms (queued, `kernel_ms`),
-    plain ms, bound (bytes) and `index_select_of`'s ms."""
+    plain ms, bound (`gather_bytes`) and `index_select_of`'s ms."""
     from garment4d_tpu_torch.ops import pointcloud as pc
 
     res.record("gather_rows", case, 0, lambda: pc._gather_rows_kernel(table, idx),
-               lambda: pc._gather_rows_plain(table, idx),
-               nbytes(table, idx) + 4 * idx.numel() * table.shape[2], 0,
+               lambda: pc._gather_rows_plain(table, idx), gather_bytes(table, idx), 0,
                library=index_select_of(table, idx), queued=True, **extra)
 
 
@@ -2796,18 +2809,14 @@ def time_kernels(root: Path) -> int:
     del fcalls, bcalls, tcalls, ncalls, ecalls, rcalls
     out["scatter_add"] = []
     torch.set_grad_enabled(False)
-    for args, _, _ in calls:
-        grads, idx, n = args[:3]
+    for (grads, idx, n, *wrap), _, _ in calls:
         Bs, R, C = grads.shape
         flat = (idx.long() + n * torch.arange(Bs, device=dev)[:, None]).reshape(-1)
         lib_out = torch.zeros(Bs * n, C, device=dev)
-        row = dict(case=f"({Bs}, {R}, {C}) into {n} rows",
-                   ms=cuda_ms(lambda: pc._scatter_add_rows_kernel(*args), 10),
-                   library_ms=cuda_ms(lambda: lib_out.index_add_(0, flat, grads.reshape(-1, C)),
-                                      10))
-        if len(args) > 3:  # the gathers' backward with the wrap: the same call without it
-            row["ms_nowrap"] = cuda_ms(lambda: pc._scatter_add_rows_kernel(grads, idx, n), 10)
-        out["scatter_add"].append(row)
+        out["scatter_add"].append(dict(
+            case=f"({Bs}, {R}, {C}) into {n} rows",
+            ms=cuda_ms(lambda: pc._scatter_add_rows_kernel(grads, idx, n, *wrap), 10),
+            library_ms=cuda_ms(lambda: lib_out.index_add_(0, flat, grads.reshape(-1, C)), 10)))
         del lib_out, flat
     print(json.dumps(out), flush=True)
     return 0
@@ -2868,7 +2877,7 @@ def ab(parent: Path) -> int:
                    "ball_query", "three_nn", "fps", "coverage", "nn1", "gather_rows"):
         for i, case in enumerate(runs[0][1][kernel]):
             row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
-                   for field in ("ms", "ms_nowrap", "err_float64", "gather_ms", "plain_ms",
+                   for field in ("ms", "err_float64", "gather_ms", "plain_ms",
                                  "library_ms")
                    for lab in ("parent", "change")
                    if field in next(r for lb, r in runs if lb == lab)[kernel][i]}

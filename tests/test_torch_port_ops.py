@@ -1613,6 +1613,30 @@ class TestWorkModels:
         assert far == (0, 2 * 700 * 3)  # every tile culled for every point
         assert coverage_tests(xyz + 10.0, centers, r) == 2 * 700 * 90
 
+    @pytest.mark.parametrize("N,C,R,offset", [(50, 3, 40, 0), (50, 3, 40, 1), (9, 1, 30, 0),
+                                              (20, 67, 12, 1), (16, 8, 64, 0), (7, 5, 0, 0)])
+    def test_gather_bytes(self, rng, N, C, R, offset):
+        """The row gather's bytes (`chip_smoke.gather_bytes`): the distinct
+        32-byte sectors of the table that the rows read touch (wrapped
+        negatives read, NaN rows not; duplicates and rows sharing a sector
+        counted once), counted here by a walk over every index; plus the
+        indices read and the rows written."""
+        from chip_smoke import gather_bytes
+
+        B = 2
+        table = torch.from_numpy(rng.randn(B * N * C + offset).astype(np.float32))
+        table = table[offset:].view(B, N, C)
+        idx = torch.from_numpy(rng.randint(-N - 3, N + 3, size=(B, R)).astype(np.int32))
+        sectors = set()
+        for b in range(B):
+            for i in idx[b].tolist():
+                i = i + N if i < 0 else i
+                if 0 <= i < N:
+                    start = table.data_ptr() + 4 * (b * N + i) * C
+                    sectors.update(range(start // 32, (start + 4 * C - 1) // 32 + 1))
+        assert gather_bytes(table, idx) == 32 * len(sectors) + 4 * B * R + 4 * B * R * C
+        assert gather_bytes(table, torch.full((B, R), N, dtype=torch.int32)) == 4 * B * R * (1 + C)
+
 
 def _tied_cloud(draw_seed, B, N, lattice):
     """Points for the work models' tests: uniform, or (lattice) on an integer
