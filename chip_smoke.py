@@ -148,7 +148,31 @@ then:
    3x the plain version's own run-to-run difference. Train frames/s (200 /
    median of 5 steps after 2 warm-ups), the plain path's (1 step), a
    profile of one step and the peak memory;
-7. prints a JSON line of the kernels (each row read from the costliest
+7. the training entry point, `garment4d_tpu_torch.train_temporal.main`, as
+   the recipe runs it (`scripts/train/train_skirt_{canonical,posed}.sh`) on
+   a mini-CLOTH3D tree (`data/fixture.py`: 14 sequences of 20 frames, 8192
+   garment points a frame, the Vg=2000 ring template and its PCA pickle,
+   6890-vertex synthetic bodies as SMPL npz files, a config over
+   `cfgs/skirt.yaml` at NPOINTS 6890, LBSK 256, ITERATION 3, PCADIM 64):
+   the canonical stage (B=20, T=10, 2 epochs, --lr_sche), the posed stage
+   from its checkpoint (B=4, --fix_PCA 1, --GarmentPCA_pretrain, 2
+   epochs), the posed run again (an auto-resume), and --only_eval of the
+   posed checkpoint. Each run with the launch counters at 0 before it: the
+   canonical run launches fps, ball_query, gather_rows, three_nn, nn1,
+   scatter_add and (eval) fused_chain, each posed run the thirteen kernels
+   of phase 5, --only_eval the ten forward kernels and nn1. Every loss
+   finite; the canonical stage bitwise its checkpoint in both posed
+   checkpoints; the auto-resume's restored state bitwise the file
+   (weights, statistics, Adam's moments and steps, step, lr_scale) and its
+   step count continued; the --only_eval means within 1e-5 relative of the
+   eval logged for the epoch the checkpoint holds; one `finalize_batch` of
+   four windows on the card within 1e-5 (relative beyond 1) of the same raw
+   batch on the CPU, indices and labels equal. Prints each stage's train
+   frames/s over its epochs' wall time beside phases 5-6's step alone,
+   the data path alone (loader, collate, `finalize_batch`, no step) at
+   `--num_workers` 0, 1 and 8, and the loader alone (`raw_item` and
+   `collate`) at the same widths;
+8. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -204,6 +228,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -481,9 +507,14 @@ def gather_bound(args, _kwargs, out) -> float:
 
 
 def same_bits(a, b) -> bool:
-    """Two float32 tensors bitwise equal, NaN patterns included."""
-    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
-                                              b.contiguous().view(torch.int32))
+    """Two tensors of one dtype and shape bitwise equal, NaN patterns
+    included."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+    return torch.equal(a, b)
 
 
 def gather_keep(args, kwargs, out) -> dict:
@@ -2354,6 +2385,304 @@ def canonical_train_phase(assets, body, weights, res: Results):
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, peak_step_gib=peak_step)
 
 
+# the entry point's phase: a mini-CLOTH3D tree at the recipe's widths
+ENTRY_SEQS, ENTRY_FRAMES, ENTRY_POINTS = 14, 20, 8192  # 8192 garment points > N: subsampled
+ENTRY_EPOCHS = 2
+ENTRY_TOL = 1e-5  # finalize_batch card vs CPU; --only_eval vs the logged eval, relative
+ENTRY_WORKERS = (0, 1, 8)  # loader widths of the data path's own passes (8: the default)
+
+
+def write_entry_tree(root: Path, assets) -> dict:
+    """The CLOTH3D tree (`write_fixture`), the registered template and PCA
+    pickle (as tests/test_cli.py writes them), SMPL_{MALE,FEMALE}.npz of two
+    6890-vertex synthetic bodies, and a config at full widths over them."""
+    import pickle
+
+    import numpy as np
+
+    from garment4d_tpu_torch.data.fixture import write_fixture
+    from garment4d_tpu_torch.data.obj_io import write_obj
+    from garment4d_tpu_torch.smpl import synthetic_smpl
+
+    lists = write_fixture(str(root), assets, num_seqs=ENTRY_SEQS, frames_per_seq=ENTRY_FRAMES,
+                          garment_points=ENTRY_POINTS)
+    reg = root / "Skirt_reg"
+    write_obj(str(reg / "Skirt_template.obj"), assets.template_v, [list(f) for f in assets.faces])
+    with open(reg / "PCABase_SS.pkl", "wb") as f:
+        pickle.dump({"components": assets.pca_components, "mean": assets.pca_mean,
+                     "explained": assets.pca_explained, "ss_scale": assets.pca_scale}, f)
+    smpl_dir = root / "smpl_models"
+    smpl_dir.mkdir()
+    for s, gender in enumerate(("male", "female")):
+        m = synthetic_smpl(num_verts=N, seed=s, device="cpu")
+        np.savez(smpl_dir / f"SMPL_{gender.upper()}.npz", parents=m.parents, faces=m.faces,
+                 **{k: getattr(m, k).numpy() for k in ("v_template", "shapedirs", "posedirs",
+                                                       "J_regressor", "lbs_weights")})
+    cfg = root / "entry.yaml"
+    cfg.write_text(f"""_BASE_CONFIG_: {REPO / "cfgs" / "skirt.yaml"}
+GARMENT:
+  PCADIM: 64
+NETWORK:
+  LBSK: 256
+  ITERATION: 3
+  NPOINTS: {N}
+DATASET:
+  ROOT_FOLDER: {root}
+  TRAIN_F_LIST: {lists["train"]}
+  EVAL_F_LIST: {lists["eval"]}
+  EXCLUDE_SEQ_LIST: ""
+""")
+    return dict(cfg=str(cfg), smpl_dir=str(smpl_dir), lists=lists)
+
+
+@contextlib.contextmanager
+def timed_epochs():
+    """Time every train and eval epoch of `fit` (`train/loop.py`; its last
+    step reads its losses back, so the epoch ends synchronised) and count
+    its frames: {"train": [(frames, s)], "eval": [...]}."""
+    from garment4d_tpu_torch.train import loop
+
+    got = {"train": [], "eval": []}
+    originals = {"train": loop.train_one_epoch, "eval": loop.eval_one_epoch}
+
+    def timed(split):
+        def wrapper(state, batches, *args, **kwargs):
+            frames = [0]
+
+            def counting():
+                for batch in batches:
+                    frames[0] += batch["pcd"].shape[0] * batch["pcd"].shape[1]
+                    yield batch
+
+            t0 = time.perf_counter()
+            out = originals[split](state, counting(), *args, **kwargs)
+            torch.cuda.synchronize()
+            got[split].append((frames[0], time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    loop.train_one_epoch, loop.eval_one_epoch = timed("train"), timed("eval")
+    try:
+        yield got
+    finally:
+        loop.train_one_epoch, loop.eval_one_epoch = originals["train"], originals["eval"]
+
+
+def restored_matches_file(args, _kwargs, result) -> bool:
+    """`restore_checkpoint`'s state against its file, bitwise: weights,
+    BatchNorm statistics, Adam's moments and steps, `step`, `lr_scale`."""
+    path = args[0]
+    state, _, _ = result
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    model = state.model.state_dict()
+    ok = list(model) == list(saved["model_state"]) and all(
+        same_bits(model[k].cpu(), v) for k, v in saved["model_state"].items())
+    opt, want = state.optimizer.state_dict()["state"], saved["optimizer_state"]["state"]
+    ok = ok and sorted(opt) == sorted(want) and all(
+        same_bits(opt[i][k].cpu(), v) for i, s in want.items() for k, v in s.items())
+    other = saved["other_state"]
+    return ok and state.step == other["step"] and state.lr_scale == other["lr_scale"]
+
+
+def entry_point_phase(step_fps: dict) -> dict:
+    """The port's training entry point (`garment4d_tpu_torch.train_temporal`)
+    at the recipe (`scripts/train/train_skirt_{canonical,posed}.sh`) on a
+    mini-CLOTH3D tree: the canonical stage, then the posed stage from its
+    checkpoint with the canonical stage frozen, the posed run again (an
+    auto-resume), then one evaluation of the posed checkpoint."""
+    import tempfile
+
+    from garment4d_tpu_torch import ops, train_temporal
+    from garment4d_tpu_torch.data.cloth3d import Cloth3dDataset, Cloth3dPaths, finalize_batch
+    from garment4d_tpu_torch.models import GarmentAssets
+    from garment4d_tpu_torch.smpl import load_smpl
+    from garment4d_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="g4d_entry_") as tmp:
+        root = Path(tmp)
+        tree = write_entry_tree(root, GarmentAssets.synthetic(num_rings=RINGS,
+                                                              ring_size=RING_SIZE))
+        setup_s = time.perf_counter() - t_phase
+
+        def args(out, *extra):
+            return ["--config", tree["cfg"], "--smpl_model_dir", tree["smpl_dir"], "--T", str(T),
+                    "--lr", str(TRAIN_LR), "--output_dir", str(root / out), *extra]
+
+        canon_ckpt = str(root / "canonical" / "ckpt" / "model.ckpt")
+        posed_ckpt = str(root / "posed" / "ckpt" / "model.ckpt")
+        posed_args = args("posed", "--GarmentPCALBS", "1", "--fix_PCA", "1",
+                          "--GarmentPCA_pretrain", canon_ckpt, "--batch_size", str(TRAIN_B),
+                          "--epoch_num", str(ENTRY_EPOCHS), "--lr_sche")
+        runs = {
+            "canonical": (args("canonical", "--GarmentPCA", "1", "--batch_size", str(CANON_B),
+                               "--epoch_num", str(ENTRY_EPOCHS), "--lr_sche"),
+                          CANON_TRAIN_KERNELS + ["fused_chain"]),
+            "posed": (posed_args, POSED_TRAIN_KERNELS),
+            "posed_resumed": (posed_args, POSED_TRAIN_KERNELS),
+            "only_eval": (args("eval", "--GarmentPCALBS", "1", "--only_eval", "1",
+                               "--batch_size", str(TRAIN_B), "--pretrained_model", posed_ckpt),
+                          FORWARD_KERNELS + ["nn1"]),
+        }
+        out, launches, epochs, snapshots, restores = {}, {}, {}, {}, []
+        for label, (argv, names) in runs.items():
+            with timed_epochs() as times, \
+                    recording(checkpoint, "restore_checkpoint", keep=restored_matches_file) as rs:
+                t0 = time.perf_counter()
+                out[label], launches[label] = counted(
+                    f"entry point {label}", lambda: train_temporal.main(argv), names)
+                wall = time.perf_counter() - t0
+            restores.extend((label, ok) for ok in rs)
+            epochs[label] = times
+            snapshots[label] = torch.load(posed_ckpt if label.startswith("posed") else canon_ckpt,
+                                          map_location="cpu", weights_only=True) \
+                if label != "only_eval" else None
+            print(f"entry point {label}: {wall:.2f} s, train epochs (frames, s) {times['train']}, "
+                  f"eval epochs {times['eval']}", flush=True)
+
+        # every loss finite
+        for label, result in out.items():
+            for row in ([result] if label == "only_eval" else
+                        [r[s] for r in result for s in ("train", "eval")]):
+                require(row and all(math.isfinite(v) for v in row.values()),
+                        f"entry point {label}: non-finite or missing losses {row}")
+        # the canonical stage bitwise its bootstrap through both posed runs
+        canon = snapshots["canonical"]["model_state"]
+        for label in ("posed", "posed_resumed"):
+            state = snapshots[label]["model_state"]
+            require(all(same_bits(state[f"canonical.{k}"], v) for k, v in canon.items()),
+                    f"entry point {label}: the frozen canonical stage changed")
+        # the auto-resume restored exactly the saved state, once
+        require(restores == [("posed_resumed", True)],
+                f"entry point: restores {restores}, one bitwise restore expected")
+        per_epoch = epochs["posed_resumed"]["train"][0][0] // (TRAIN_B * T)
+        require(snapshots["posed_resumed"]["other_state"]["step"]
+                == snapshots["posed"]["other_state"]["step"]
+                + (snapshots["posed_resumed"]["epoch"] + 1) * per_epoch,
+                "entry point: the resumed run did not continue the saved step count")
+        # --only_eval against the eval logged for the epoch the checkpoint holds
+        held = out["posed_resumed"][snapshots["posed_resumed"]["epoch"]]["eval"]
+        only = out["only_eval"]
+        eval_err = max(abs(only[k] - v) / max(abs(v), 1e-12) for k, v in held.items())
+        print(f"entry point --only_eval vs the logged eval of epoch "
+              f"{snapshots['posed_resumed']['epoch']}: largest relative difference "
+              f"{eval_err:.3e}", flush=True)
+        require(sorted(only) == sorted(held) and eval_err <= ENTRY_TOL,
+                f"entry point --only_eval: relative difference {eval_err} > {ENTRY_TOL}")
+
+        # one finalize_batch on the card against the same raw batch on the CPU
+        from garment4d_tpu_torch.utils.config import load_config
+
+        cfg = load_config(tree["cfg"])
+        ds = Cloth3dDataset(Cloth3dPaths(root=str(root), template_prefix=str(
+            root / "CLOTH3D_template")), tree["lists"]["eval"], "Skirt", T=T,
+            npoints=cfg.NETWORK.NPOINTS, is_train=False, body_verts=N)
+        raw = ds.collate([ds.raw_item(i) for i in (0, 4, 8, 12)])
+        smpl_paths = {g: str(Path(tree["smpl_dir"]) / f"SMPL_{g.upper()}.npz")
+                      for g in ("male", "female")}
+        got = finalize_batch(raw, {g: load_smpl(p, "cuda") for g, p in smpl_paths.items()})
+        want = finalize_batch(raw, {g: load_smpl(p, "cpu") for g, p in smpl_paths.items()})
+        fin_err = 0.0
+        for k, w in want.items():
+            g = got[k].cpu()
+            if w.dtype.is_floating_point:
+                fin_err = max(fin_err, ((g - w).abs() / (1 + w.abs())).max().item())
+            else:
+                require(torch.equal(g, w), f"finalize_batch {k}: card and CPU differ")
+        print(f"finalize_batch (B={raw['pose'].shape[0]}, T={T}, N={cfg.NETWORK.NPOINTS}) card "
+              f"vs CPU: largest difference {fin_err:.3e} (relative beyond 1); indices and "
+              f"labels equal", flush=True)
+        require(fin_err <= ENTRY_TOL, f"finalize_batch card vs CPU {fin_err} > {ENTRY_TOL}")
+
+        # the data path alone, per stage and loader width (`--num_workers`
+        # 0, 1 and 8): one train epoch's batches read by the loader and
+        # completed on the card with no step between them (two passes; the
+        # first reads each sequence's files cold), and one batch's
+        # `finalize_batch` by itself
+        from garment4d_tpu_torch.data.pipeline import ParallelItemLoader
+        from garment4d_tpu_torch.utils.config import parse_args
+
+        data_path = {}
+        bodies = {g: load_smpl(p, "cuda") for g, p in smpl_paths.items()}
+        for label, argv in (("canonical", runs["canonical"][0]), ("posed", posed_args)):
+            widths = {}
+            for workers in ENTRY_WORKERS:
+                run_args, run_cfg = parse_args([*argv, "--num_workers", str(workers)])
+                loaders = []
+                try:
+                    train_batches, _ = train_temporal.cloth3d_batches(
+                        run_args, run_cfg, run_cfg.NETWORK.NPOINTS, bodies,
+                        torch.device("cuda"), logging.getLogger("chip_smoke"), loaders)
+                    passes = []
+                    for _ in range(2):
+                        t0, frames = time.perf_counter(), 0
+                        for batch in train_batches(1):
+                            frames += batch["pcd"].shape[0] * batch["pcd"].shape[1]
+                        torch.cuda.synchronize()
+                        passes.append(frames / (time.perf_counter() - t0))
+                finally:
+                    for loader in loaders:
+                        loader.close()
+                widths[workers] = dict(cold_frames_per_sec=passes[0], frames_per_sec=passes[1])
+                print(f"entry point {label} data path alone (B={run_args.batch_size}, "
+                      f"--num_workers {workers}): {passes[1]:.2f} frames/s (cold pass "
+                      f"{passes[0]:.2f})", flush=True)
+            raw = ds.collate([ds.raw_item(i % len(ds)) for i in range(run_args.batch_size)])
+            fin_ms = wall_s(lambda: finalize_batch(raw, bodies)) * 1e3
+            data_path[label] = dict(by_workers=widths, finalize_ms=fin_ms,
+                                    batch=run_args.batch_size)
+            print(f"entry point {label} finalize_batch (B={run_args.batch_size}): {fin_ms:.2f} "
+                  f"ms a batch", flush=True)
+
+        # the loader alone (`raw_item` and `collate` on the host, nothing on
+        # the card) over the canonical stage's train windows, their
+        # sequences' files read once before
+        train_ds = Cloth3dDataset(Cloth3dPaths(root=str(root), template_prefix=str(
+            root / "CLOTH3D_template")), tree["lists"]["train"], "Skirt", T=T,
+            npoints=cfg.NETWORK.NPOINTS, is_train=True, body_verts=N)
+        index_batches = [list(range(i, i + CANON_B))
+                         for i in range(0, len(train_ds) - CANON_B + 1, CANON_B)]
+        for idxs in index_batches:
+            train_ds.collate([train_ds.raw_item(i) for i in idxs])
+        loader_alone = {}
+        for workers in ENTRY_WORKERS:
+            loader = ParallelItemLoader(train_ds.raw_item, num_workers=workers)
+            try:
+                t0 = time.perf_counter()
+                for items in loader.map_batches(index_batches):
+                    train_ds.collate(items)
+                secs = time.perf_counter() - t0
+            finally:
+                loader.close()
+            windows = sum(len(b) for b in index_batches)
+            loader_alone[workers] = dict(frames_per_sec=windows * T / secs,
+                                         ms_per_window=secs / windows * 1e3)
+            print(f"entry point loader alone (--num_workers {workers}, {windows} windows of "
+                  f"{T} frames): {windows * T / secs:.2f} frames/s, "
+                  f"{secs / windows * 1e3:.2f} ms a window", flush=True)
+    torch.cuda.synchronize()
+
+    fps = {}
+    for label, key in (("canonical", "canonical_train"), ("posed", "posed_train")):
+        frames = sum(f for f, _ in epochs[label]["train"])
+        secs = sum(s for _, s in epochs[label]["train"])
+        last = epochs[label]["train"][-1]
+        fps[label] = dict(frames_per_sec=frames / secs, last_epoch_frames_per_sec=last[0] / last[1],
+                          step_alone_frames_per_sec=step_fps[key],
+                          eval_frames_per_sec=sum(f for f, _ in epochs[label]["eval"])
+                          / sum(s for _, s in epochs[label]["eval"]),
+                          data_path_alone=data_path[label])
+        print(f"entry point {label} stage: {fps[label]['frames_per_sec']:.2f} train frames/s over "
+              f"{len(epochs[label]['train'])} epochs ({frames} frames, {secs:.2f} s; last epoch "
+              f"{fps[label]['last_epoch_frames_per_sec']:.2f}); the train step alone "
+              f"{step_fps[key]:.2f} frames/s; eval {fps[label]['eval_frames_per_sec']:.2f} "
+              f"frames/s", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"entry point phase: {phase_s:.1f} s (tree written in {setup_s:.1f} s)", flush=True)
+    return dict(launches=launches, frames_per_sec=fps, loader_alone=loader_alone,
+                only_eval_rel_err=eval_err, finalize_err=fin_err, phase_s=phase_s)
+
+
 def counted(label, fn, names):
     """Run the main path `fn` once with the launch counters at 0 before it;
     require each kernel in `names` to have launched."""
@@ -3079,7 +3408,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     canon_train = canonical_train_phase(assets, body, weights, res)
 
-    # ---- 7. results --------------------------------------------------------
+    # ---- 7. the training entry point -----------------------------------------
+    torch.cuda.empty_cache()
+    entry = entry_point_phase({"canonical_train": canon_train["frames_per_sec"],
+                               "posed_train": train["frames_per_sec"]})
+
+    # ---- 8. results --------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -3134,6 +3468,12 @@ def main() -> int:
         "canonical_train_forced_grads": canon_train["forced"],
         "canonical_train_path_grad_rel_l2": canon_train["path_grad_rel_l2"],
         "canonical_train_path_grad_plain_spread": canon_train["path_grad_plain_spread"],
+        "entry_point_launches": entry["launches"],
+        "entry_point_frames_per_sec": entry["frames_per_sec"],
+        "entry_point_loader_alone": entry["loader_alone"],
+        "entry_point_only_eval_rel_err": entry["only_eval_rel_err"],
+        "entry_point_finalize_err": entry["finalize_err"],
+        "entry_point_phase_s": entry["phase_s"],
         "build_s": build_s,
         "total_s": time.perf_counter() - t_start}))
     print(card)

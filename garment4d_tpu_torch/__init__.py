@@ -9,9 +9,14 @@ the reference. The layout mirrors it module for module:
   smpl/    - SMPL body model and linear blend skinning
   models/  - garment assets, segmentation backbone, canonical (PCA) model,
              interpolated LBS, posed (PCA + LBS + GCN) model
-  data/    - synthetic batches
-  train/   - Flax-checkpoint conversion, batch -> model inputs
+  data/    - synthetic batches; the CLOTH3D dataset, its file readers,
+             loader threads and fixture writer
+  train/   - train and eval steps, the epoch loop, checkpoints,
+             Flax-checkpoint conversion
+  utils/   - the YAML config and the command line
   api.py   - GarmentReconstructor (on the card unless asked for the CPU)
+  train_temporal.py - the training entry point
+             (`python -m garment4d_tpu_torch.train_temporal`)
 
 This package imports torch and numpy only, never JAX.
 

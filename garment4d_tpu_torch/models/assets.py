@@ -1,18 +1,20 @@
 """Garment template assets: mesh, PCA basis, graph operators (numpy).
 
 Counterpart of `garment4d_tpu/models/assets.py`. `synthetic` draws the same
-`RandomState` numbers in the same order, so it gives bit-identical arrays.
-Loading templates from the reference's OBJ/pickle files (`from_files`) and
-vertex re-indexing (`permuted`) wait for a later slice.
+`RandomState` numbers in the same order, so it gives bit-identical arrays;
+`from_files` loads the reference's template OBJ and PCA pickle, and
+`permuted` re-indexes the vertices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Sequence
 
 import numpy as np
 
+from garment4d_tpu_torch.data.obj_io import read_obj
 from garment4d_tpu_torch.ops.graph import (
     build_mesh_adjacency,
     gcn_adjacency,
@@ -95,6 +97,67 @@ class GarmentAssets:
             gcn_adj=gcn_adjacency(adj),
             lap_adj=laplacian_adjacency(adj),
             smooth_op=smoothing_operator(adj),
+        )
+
+    @classmethod
+    def from_files(cls, name: str, template_obj: str, pca_pickle: str,
+                   pca_dim: int = 64) -> "GarmentAssets":
+        """Load from the reference's on-disk format: template OBJ (quads kept)
+        + PCABase_SS.pkl {components, mean, explained, ss_scale}
+        (reference `mesh_encoder.py:89-99`)."""
+        verts, faces, _, _ = read_obj(template_obj)
+        with open(pca_pickle, "rb") as f:
+            pca = pickle.load(f)
+        return cls.build(
+            name=name,
+            template_v=verts,
+            faces=faces,
+            pca_components=pca["components"][:pca_dim],
+            pca_mean=pca["mean"],
+            pca_explained=pca["explained"][:pca_dim],
+            pca_scale=pca["ss_scale"].astype(np.float32),
+        )
+
+    def permuted(self, perm: np.ndarray) -> "GarmentAssets":
+        """The same garment with vertices re-indexed: new vertex i is old
+        vertex perm[i]. Faces, the per-vertex blocks of the PCA basis /
+        mean / scale, AND the graph operators are remapped consistently, so
+        the permuted assets describe the IDENTICAL mesh and compute the
+        identical GCN/smoothing math - used by tests to model real
+        templates whose OBJ vertex order is not grid-coherent.
+
+        The graph operators are relabelled directly (op[perm][:, perm])
+        rather than rebuilt from the permuted faces: `build_mesh_adjacency`
+        reproduces the reference's tri-face quirk of inserting a spurious
+        (0, 0) entry at the LITERAL index 0, which would re-anchor at the
+        new vertex 0 on a rebuild instead of following the permutation -
+        the relabelled matrix keeps it at (inv[0], inv[0]), i.e. the same
+        mesh vertex (this matches the production band-reorder path in
+        models/posed.py, which also relabels the built matrix)."""
+        perm = np.asarray(perm, np.int64)
+        V = self.num_verts
+        inv = np.argsort(perm)
+        comp = self.pca_components.reshape(-1, V, 3)[:, perm].reshape(
+            self.pca_components.shape[0], -1)
+        mean = self.pca_mean.reshape(V, 3)[perm].reshape(-1)
+        scale = self.pca_scale
+        if scale.ndim and scale.size == V * 3:
+            scale = scale.reshape(V, 3)[perm].reshape(-1)
+        faces = [[int(inv[i]) for i in f] for f in self.faces]
+        built = GarmentAssets.build(
+            name=self.name,
+            template_v=self.template_v[perm],
+            faces=faces,
+            pca_components=comp,
+            pca_mean=mean,
+            pca_explained=self.pca_explained,
+            pca_scale=scale,
+        )
+        return dataclasses.replace(
+            built,
+            gcn_adj=np.ascontiguousarray(self.gcn_adj[perm][:, perm]),
+            lap_adj=np.ascontiguousarray(self.lap_adj[perm][:, perm]),
+            smooth_op=np.ascontiguousarray(self.smooth_op[perm][:, perm]),
         )
 
     @classmethod

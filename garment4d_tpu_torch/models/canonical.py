@@ -62,17 +62,18 @@ class CanonicalGarmentModel(nn.Module):
         self.garment_label = assets.label
         self.only_seg = only_seg
         self.pointnet = PointNet2SegBackbone()
-        # garment encoder widths per reference `mesh_encoder.py:54-78`
-        self.garment_sa1 = SAModuleMSG(512, (0.05, 0.1), (16, 32),
-                                       ((32, 32), (64, 64)), 64)
-        self.garment_sa2 = SAModuleMSG(64, (0.2, 0.4), (32, 64),
-                                       ((128, 128), (256, 256)), 96)
-        self.garment_summarize = SAModuleMSG(None, (None,), (None,),
-                                             ((512, 512),), 384)
-        # the reference's raw Conv1d keeps its bias under the BatchNorm
-        self.pca_head0 = ConvBNRelu(512, 128, bn=True, bias=True)
-        self.pca_head1 = ConvBNRelu(128, 64, bn=True, bias=True)
-        self.pca_head2 = ConvBNRelu(64, assets.pca_dim, bn=False, relu=False)
+        if not only_seg:  # unused there, so absent, as in the Flax model
+            # garment encoder widths per reference `mesh_encoder.py:54-78`
+            self.garment_sa1 = SAModuleMSG(512, (0.05, 0.1), (16, 32),
+                                           ((32, 32), (64, 64)), 64)
+            self.garment_sa2 = SAModuleMSG(64, (0.2, 0.4), (32, 64),
+                                           ((128, 128), (256, 256)), 96)
+            self.garment_summarize = SAModuleMSG(None, (None,), (None,),
+                                                 ((512, 512),), 384)
+            # the reference's raw Conv1d keeps its bias under the BatchNorm
+            self.pca_head0 = ConvBNRelu(512, 128, bn=True, bias=True)
+            self.pca_head1 = ConvBNRelu(128, 64, bn=True, bias=True)
+            self.pca_head2 = ConvBNRelu(64, assets.pca_dim, bn=False, relu=False)
         # constants, not state: the checkpoint carries weights only
         self.register_buffer("pca_components",
                              torch.from_numpy(assets.pca_components.copy()),

@@ -2,7 +2,7 @@
 
 Counterpart of `garment4d_tpu/models/posed.py` (reference
 `modules/mesh_encoder.py:172-487`): the frozen canonical stage, interpolated
-LBS of the canonical garment to every frame, then `ITERATIONS` rounds of
+LBS of the canonical garment to every frame, then `iterations` rounds of
 GCN refinement fed by multi-radius query-group PE blocks over the body
 surface (xyz + vertex normals) and over the stage-1 garment point levels,
 with single-head temporal attention across frames from iteration 2 on.
@@ -34,7 +34,7 @@ from garment4d_tpu_torch.models.skinning import LbsResult, lbs_garment_interpola
 _SMPL_PARENTS = np.array(
     [0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
      18, 19, 20, 21], np.int64)
-ITERATIONS = 3     # GCN refinement rounds
+ITERATIONS = 3     # GCN refinement rounds (cfg.NETWORK.ITERATION)
 FEAT_NUM = 32      # width of each PE block
 HIDDEN_DIM = 128   # width of the GCN hidden layers and the temporal mix
 
@@ -102,10 +102,11 @@ class PosedGarmentModel(nn.Module):
     """Stage 2: point-cloud sequence + body -> posed garment sequence."""
 
     def __init__(self, assets: GarmentAssets, body_faces: np.ndarray,
-                 lbs_k: int = 256):
+                 lbs_k: int = 256, iterations: int = ITERATIONS):
         super().__init__()
         self.assets = assets
         self.lbs_k = lbs_k
+        self.iterations = iterations
         self.canonical = CanonicalGarmentModel(assets)
         r = self.radii
         self.body_radius, self.body_nsample = r["body_radius"], r["body_nsample"]
@@ -116,11 +117,11 @@ class PosedGarmentModel(nn.Module):
             self.add_module(f"garment_pe{i}", SplitQueryGroupPE(
                 3 + width, r["garment_radius"][i],
                 r["garment_nsample"][i]))
-        for i in range(ITERATIONS - 1):
+        for i in range(iterations - 1):
             self.add_module(f"temporal_qkv{i}",
                             nn.Linear(HIDDEN_DIM, 3 * HIDDEN_DIM, bias=False))
         pe_width = 3 + 6 * FEAT_NUM
-        for it in range(ITERATIONS):
+        for it in range(iterations):
             widths = (pe_width + (HIDDEN_DIM if it > 0 else 0), HIDDEN_DIM,
                       HIDDEN_DIM, HIDDEN_DIM, 3)
             for layer in range(4):
@@ -226,7 +227,7 @@ class PosedGarmentModel(nn.Module):
         if self.band_reordered:
             cur = cur[:, self.band_perm]
         iter_results, hidden = [], None
-        for it in range(ITERATIONS):
+        for it in range(self.iterations):
             h, hidden = self.refine(it, cur, hidden, canonical.garment_xyz,
                                     canonical.garment_features, body_v, body_vn, B, T)
             cur = cur + h

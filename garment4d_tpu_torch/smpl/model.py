@@ -2,12 +2,16 @@
 
 Counterpart of `garment4d_tpu/smpl/model.py`. `synthetic_smpl` draws the
 same `RandomState` numbers as the JAX package, so both build the same body.
-The SMPL pickle/npz loaders wait for a later slice.
+`load_smpl` reads a released SMPL_{GENDER}.pkl (without chumpy) or an npz
+with the same buffers. `forward_rotmats` is not ported yet (ROADMAP Queue 1
+item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
+import pickle
 
 import numpy as np
 import torch
@@ -43,6 +47,90 @@ class SmplModel:
         return _lbs(betas, pose, self.v_template, self.shapedirs,
                     self.posedirs, self.J_regressor, self.parents,
                     self.lbs_weights)
+
+
+class _ChumpyUnpickler(pickle.Unpickler):
+    """Unpickle SMPL .pkl files without chumpy installed.
+
+    The released SMPL pickles store chumpy `Ch` arrays; the class maps to a
+    shim whose __setstate__ keeps only the ndarray payload.
+    """
+
+    class _ChShim:
+        def __setstate__(self, state):
+            self.__dict__.update(state)
+
+        def __array__(self, dtype=None):
+            for key in ("x", "a", "_data"):
+                if key in self.__dict__:
+                    return np.asarray(self.__dict__[key], dtype=dtype)
+            raise ValueError("unrecognised chumpy payload")
+
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyUnpickler._ChShim
+        if module == "scipy.sparse.csc" and name == "csc_matrix":
+            import scipy.sparse
+
+            return scipy.sparse.csc_matrix
+        return super().find_class(module, name)
+
+
+def _to_np(x) -> np.ndarray:
+    if hasattr(x, "toarray"):  # scipy sparse
+        return np.asarray(x.toarray(), dtype=np.float64)
+    return np.asarray(x)
+
+
+def _on_device(device, v_template, shapedirs, posedirs, J_regressor,
+               lbs_weights, parents, faces) -> SmplModel:
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    return SmplModel(v_template=t(v_template), shapedirs=t(shapedirs),
+                     posedirs=t(posedirs), J_regressor=t(J_regressor),
+                     lbs_weights=t(lbs_weights),
+                     parents=np.asarray(parents, np.int64),
+                     faces=np.asarray(faces, np.int32))
+
+
+def load_smpl_pickle(path: str, device=_device.DEFAULT) -> SmplModel:
+    """Load a released SMPL_{GENDER}.pkl (latin1 pickle, chumpy buffers) onto
+    `device`: posedirs (V, 3, P) -> (P, V*3), kintree_table[0] -> parents
+    with the root's -1 set to 0 (never indexed), shapedirs cut to 10 betas
+    (reference `body_models.py:214-250`)."""
+    device = _device.resolve(device)
+    with open(path, "rb") as f:
+        data = _ChumpyUnpickler(io.BytesIO(f.read()), encoding="latin1").load()
+    posedirs_raw = _to_np(data["posedirs"]).astype(np.float32)
+    parents = _to_np(data["kintree_table"])[0].astype(np.int64)
+    parents[0] = 0
+    return _on_device(
+        device,
+        v_template=_to_np(data["v_template"]).astype(np.float32),
+        shapedirs=_to_np(data["shapedirs"]).astype(np.float32)[:, :, :NUM_BETAS],
+        posedirs=posedirs_raw.reshape(-1, posedirs_raw.shape[-1]).T,
+        J_regressor=_to_np(data["J_regressor"]).astype(np.float32),
+        lbs_weights=_to_np(data["weights"]).astype(np.float32),
+        parents=parents,
+        faces=_to_np(data["f"]).astype(np.int32))
+
+
+def load_smpl_npz(path: str, device=_device.DEFAULT) -> SmplModel:
+    """Load from an .npz with the same keys as the model's fields (test
+    fixtures, converted models) onto `device`."""
+    device = _device.resolve(device)
+    with np.load(path) as data:
+        return _on_device(device, **{k: data[k] for k in (
+            "v_template", "shapedirs", "posedirs", "J_regressor",
+            "lbs_weights", "parents", "faces")})
+
+
+def load_smpl(path: str, device=_device.DEFAULT) -> SmplModel:
+    """`load_smpl_npz` for an .npz path, else `load_smpl_pickle`."""
+    if path.endswith(".npz"):
+        return load_smpl_npz(path, device)
+    return load_smpl_pickle(path, device)
 
 
 def synthetic_smpl(num_verts: int = 400, seed: int = 0,

@@ -1,5 +1,6 @@
 """Training: Flax checkpoint conversion, the train and eval steps of both
-stages, optimizer state and the plateau schedule."""
+stages, optimizer state and the plateau schedule; the epoch loop
+(`train/loop.py`) and checkpoints (`train/checkpoint.py`)."""
 
 from garment4d_tpu_torch.train.convert import flax_to_torch, load_npz, load_npz_subtree
 from garment4d_tpu_torch.train.state import PlateauScheduler, TrainState, make_optimizer

@@ -1,0 +1,116 @@
+"""Checkpoint save/restore and pretrained-weight loads.
+
+Counterpart of `garment4d_tpu/train/checkpoint.py` (reference
+`utils/train_utils.py:94-211`): full resume (weights, BatchNorm running
+statistics, optimizer state, epoch and other state), pretrained weights
+only, and the stage-1 -> stage-2 bootstrap (`--GarmentPCA_pretrain`).
+
+A checkpoint is one `torch.save` file in the reference's layout,
+`{epoch, model_state, optimizer_state, other_state}`; the train state's
+`step` and `lr_scale` travel in `other_state`. Loading the reference's own
+`.ckpt` files needs a map from its key names onto the port's (ROADMAP
+Queue 1 item 2); until then they match no tensor and `load_pretrained`
+raises.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from garment4d_tpu_torch.train.convert import load_npz
+from garment4d_tpu_torch.train.state import TrainState
+
+
+def save_checkpoint(path: str, state: TrainState, epoch: int,
+                    other_state: Optional[Dict[str, Any]] = None) -> None:
+    """Write `path` (its directory made as needed) atomically: a temporary
+    file beside it, then a rename."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = {
+        "epoch": int(epoch),
+        "model_state": state.model.state_dict(),
+        "optimizer_state": state.optimizer.state_dict(),
+        "other_state": {**(other_state or {}), "step": int(state.step),
+                        "lr_scale": float(state.lr_scale)},
+    }
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _read(path: str, device) -> dict:
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def restore_checkpoint(path: str, state: TrainState):
+    """Full resume into `state` (built as the saved one was): returns
+    (state, epoch, other_state without `step` and `lr_scale`)."""
+    device = next(iter(state.model.state_dict().values())).device
+    payload = _read(path, device)
+    state.model.load_state_dict(payload["model_state"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer_state"])
+    other = dict(payload["other_state"])
+    state.step = int(other.pop("step"))
+    state.lr_scale = float(other.pop("lr_scale"))
+    return state, int(payload["epoch"]), other
+
+
+def _strip_module(key: str) -> str:
+    return key[len("module."):] if key.startswith("module.") else key
+
+
+def _weights(path: str) -> dict:
+    """The tensors of a port checkpoint, a bare state_dict or a Flax
+    variables npz (through `train/convert.py`), keys as the file has them."""
+    if path.endswith(".npz"):
+        return load_npz(path)
+    payload = _read(path, "cpu")
+    return payload.get("model_state", payload)
+
+
+def load_pretrained(path: str, model: torch.nn.Module) -> Dict[str, list]:
+    """Load only the weights (and BatchNorm statistics) of `path` into
+    `model`: a port checkpoint, a bare state_dict, or a Flax variables npz.
+    Keys may carry a `module.` prefix; a tensor loads where the model has
+    its key with its shape. Returns {"loaded": keys, "skipped": keys of the
+    file not loaded}; raises KeyError when no tensor matches."""
+    state_dict = _weights(path)
+    own = model.state_dict()
+    matched, skipped = {}, []
+    for key, value in state_dict.items():
+        name = _strip_module(key)
+        if (name in own and isinstance(value, torch.Tensor)
+                and tuple(own[name].shape) == tuple(value.shape)):
+            matched[name] = value
+        else:
+            skipped.append(key)
+    if not matched:
+        raise KeyError(f"{path}: none of its {len(state_dict)} tensors matches a "
+                       f"key and shape of {type(model).__name__}")
+    model.load_state_dict(matched, strict=False)
+    return {"loaded": sorted(matched), "skipped": skipped}
+
+
+def bootstrap_canonical(path: str, posed_model: torch.nn.Module) -> Dict[str, list]:
+    """Stage-1 -> stage-2 bootstrap: the canonical-stage weights of `path`
+    into the posed model's `canonical` submodule (reference
+    `--GarmentPCA_pretrain`, `train_temporal.py:162-178`). The whole
+    submodule is replaced, as the JAX package replaces its `canonical`
+    subtree: every tensor must come from the file with its shape (keys may
+    carry a `module.` prefix), else KeyError names the missing, unexpected
+    and mismatched keys (a checkpoint of another PCADIM, or one trained
+    with `--only_seg`, which has no PCA head)."""
+    state_dict = {_strip_module(k): v for k, v in _weights(path).items()}
+    own = posed_model.canonical.state_dict()
+    missing = sorted(set(own) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(own))
+    mismatched = sorted(k for k in set(own) & set(state_dict)
+                        if tuple(own[k].shape) != tuple(state_dict[k].shape))
+    if missing or unexpected or mismatched:
+        raise KeyError(f"{path} is not a canonical stage of this posed model: missing "
+                       f"{missing}, unexpected {unexpected}, shapes differ {mismatched}")
+    posed_model.canonical.load_state_dict(state_dict, strict=True)
+    return {"loaded": sorted(own), "skipped": []}

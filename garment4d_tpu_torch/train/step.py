@@ -75,9 +75,12 @@ def make_canonical_steps(model, assets, body_faces: np.ndarray,
 def make_posed_steps(model, assets, body_faces: np.ndarray,
                      weights: Optional[L.LossWeights] = None
                      ) -> Tuple[Callable, Callable]:
-    """-> (train_step(state, batch), eval_step(state, batch)), each
-    returning the loss dict (detached). The loss-side constants live on the
-    device of the model's buffers when this is called."""
+    """-> (train_step(state, batch, generator=None), eval_step(state,
+    batch)), each returning the loss dict (detached). The train step takes
+    the canonical stage's `generator` argument and ignores it (the posed
+    stage draws no random numbers), so a loop calls both stages alike. The
+    loss-side constants live on the device of the model's buffers when this
+    is called."""
     weights = weights or L.LossWeights()
     device = model.gcn_adj.device
     lap_adj = np.asarray(assets.lap_adj)
@@ -95,7 +98,8 @@ def make_posed_steps(model, assets, body_faces: np.ndarray,
         return L.posed_stage_loss(out, batch, lap, faces, weights, valid=valid,
                                   lap_offsets=lap_offsets, lap_perm=lap_perm)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
         state.model.train()
         out = state.model(batch["pcd"], body_inputs_from_batch(batch))
         losses = loss_dict(out, batch)

@@ -28,6 +28,7 @@ from garment4d_tpu_torch.models import CanonicalGarmentModel
 from garment4d_tpu_torch.models import GarmentAssets as TAssets
 from garment4d_tpu_torch.models import select_garment_points
 from garment4d_tpu_torch.train.convert import flax_to_torch, load_npz_subtree
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, N = 1, 2, 2048
 

@@ -57,6 +57,7 @@ from garment4d_tpu_torch.models import GarmentAssets as TAssets
 from garment4d_tpu_torch.nn import BatchNorm, Dropout
 from garment4d_tpu_torch.train import make_canonical_steps, make_state_for
 from garment4d_tpu_torch.train.convert import flax_to_torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, N, NB = 3, 1, 2048, 200
 LR = 1e-3

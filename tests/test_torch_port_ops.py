@@ -32,6 +32,7 @@ from garment4d_tpu_torch import ops as tops
 from garment4d_tpu_torch.nn import FPModule, SAModuleMSG, SharedMLP
 from garment4d_tpu_torch.ops import _build
 from garment4d_tpu_torch.train.convert import flax_to_torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 

@@ -37,6 +37,7 @@ from garment4d_tpu_torch.models import GarmentAssets as TAssets
 from garment4d_tpu_torch.models.skinning import lbs_garment_interpolation as tlbs
 from garment4d_tpu_torch.train.convert import flax_to_torch, load_npz
 from garment4d_tpu_torch.train.step import body_inputs_from_batch as tbody_inputs
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, N = 1, 2, 512
 NB = 1100  # body vertices

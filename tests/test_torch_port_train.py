@@ -38,6 +38,7 @@ from garment4d_tpu_torch.train import PlateauScheduler, make_posed_steps, make_s
 from garment4d_tpu_torch.train.convert import flax_to_torch
 
 from test_torch_port_posed import _port_assets, _random_variables, _t
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, N, NB, LBS_K = 2, 3, 512, 200, 16
 
