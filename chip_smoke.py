@@ -156,13 +156,18 @@ then:
    `cfgs/skirt.yaml` at NPOINTS 6890, LBSK 256, ITERATION 3, PCADIM 64):
    the canonical stage (B=20, T=10, 2 epochs, --lr_sche), the posed stage
    from its checkpoint (B=4, --fix_PCA 1, --GarmentPCA_pretrain, 2
-   epochs), the posed run again (an auto-resume), and --only_eval of the
-   posed checkpoint. Each run with the launch counters at 0 before it: the
-   canonical run launches fps, ball_query, gather_rows, three_nn, nn1,
-   scatter_add and (eval) fused_chain, each posed run the thirteen kernels
-   of phase 5, --only_eval the ten forward kernels and nn1. Every loss
-   finite; the canonical stage bitwise its checkpoint in both posed
-   checkpoints; the auto-resume's restored state bitwise the file
+   epochs), the posed run again (an auto-resume), --only_eval of the
+   posed checkpoint, and the MGN variant (B=4, --MGN 1 --fix_PCA 1, 1
+   epoch) bootstrapped by --GarmentPCA_pretrain from a file in the
+   reference's checkpoint layout (`tests/torch_ref_mirror.py`'s
+   PCAGarmentEncoderSeg, seeded weights). Each run with the launch
+   counters at 0 before it: the canonical run launches fps, ball_query,
+   gather_rows, three_nn, nn1, scatter_add and (eval) fused_chain, each
+   posed run the thirteen kernels of phase 5, --only_eval the ten forward
+   kernels and nn1, the MGN run fps, ball_query, fused_chain, three_nn,
+   gather_rows, nn1 (and its pre-pass) and banded. Every loss finite; the
+   canonical stage bitwise its checkpoint in both posed checkpoints and
+   bitwise the reference file's (after the key map) in the MGN one; the auto-resume's restored state bitwise the file
    (weights, statistics, Adam's moments and steps, step, lr_scale) and its
    step count continued; the --only_eval means within 1e-5 relative of the
    eval logged for the epoch the checkpoint holds; one `finalize_batch` of
@@ -172,7 +177,34 @@ then:
    the data path alone (loader, collate, `finalize_batch`, no step) at
    `--num_workers` 0, 1 and 8, and the loader alone (`raw_item` and
    `collate`) at the same widths;
-8. prints a JSON line of the kernels (each row read from the costliest
+8. the MGN variant (`--MGN 1`: the canonical stage, a displacement MLP,
+   single-nearest-neighbour LBS) and the reference's checkpoint files.
+   The MGN forward at B=8, T=10 (the canonical stage from
+   `posed_synth.npz`, the displacement MLP at torch's init from seed 0):
+   the launch counters (fps, ball_query, fused_chain, three_nn,
+   gather_rows, nn1 once and its pre-pass), every 1-NN launch ((80, 2000)
+   vs 6890) and every row gather (both 16-float gathers of (80, 6890, 16)
+   tables among them) bitwise their plain versions, each new case timed
+   beside its bound (`nn1_work`, `gather_bytes`) and `cdist_min` or the
+   flattened `index_select`; the LBS teacher-forced: the CPU's plain LBS of
+   sequence 0 fed the card's garments and body, indices equal, vertices
+   within 1e-5; frames/s (median of 5 after a warm-up), the profiler's
+   device ms by kernel and the idle share. One MGN train step at B=4,
+   T=10 (the canonical stage trainable, reached by no gradient): nn1
+   twice, banded launched, every 1-NN and row gather bitwise plain and the
+   new cases timed; finite losses, every displacement tensor moved, the
+   canonical stage bitwise unchanged; the plain step launching no kernel,
+   its losses within 1e-3; the kernel and plain backwards of one shared
+   forward within 1e-4 relative L2; train frames/s and a profile. The
+   reference's posed (lbs_k 256) and MGN networks
+   (`tests/torch_ref_mirror.py`, built with seeded weights at full width,
+   never run) saved in the reference's
+   layout with `module.` prefixes and loaded on the card through
+   `GarmentReconstructor.from_assets(checkpoint=)` and `load_pretrained`:
+   every key but `num_batches_tracked` loaded, none skipped, each of the
+   port's tensors bitwise the file's after the map's reshape, one finite
+   forward of each; the whole run's seconds printed;
+9. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -292,6 +324,18 @@ TRAIN_LAUNCHES = {"pe_bwd": 18, "nn1": 3, "banded": 30}
 # launches per posed forward at this shape: the flat query's 5 SA stages and
 # 3 iterations x 3 garment PE blocks, the 3-NN's 3 FP stages
 POSED_LAUNCHES = {"ball_query": 14, "three_nn": 3}
+# the MGN variant (`--MGN 1`): its eval-mode canonical stage and the
+# single-NN LBS (one 1-NN and two 16-float row gathers a forward); its train
+# step adds the loss's 1-NN and banded Laplacian
+MGN_KERNELS = ["fps", "ball_query", "fused_chain", "three_nn", "gather_rows", "nn1", "nn1_sort"]
+MGN_TRAIN_KERNELS = MGN_KERNELS + ["banded"]
+MGN_LAUNCHES = {"nn1": 1}
+MGN_TRAIN_LAUNCHES = {"nn1": 2}
+# repeats of an exact `cdist` yardstick (0.3-1.4 s a call at the main
+# paths' 3-NN and 1-NN shapes), after one warm-up
+CDIST_REPS = 3
+MGN_RUNS = 5  # timed forwards (median) of the MGN phase, after one warm-up
+MGN_TRAIN_RUNS = 3  # timed train steps of the MGN phase, after one warm-up
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1114,16 +1158,19 @@ class Results:
         self.cases = {k: [] for k in KERNELS}
 
     def record(self, kernel, case, err, fn_k, fn_p, n_bytes, n_ops,
-               reps_k=20, reps_p=3, library=None, queued=False, path=None, **extra):
+               reps_k=20, reps_p=3, library=None, queued=False, path=None, reps_l=None,
+               **extra):
         """`queued`: the kernel's ms by `kernel_ms` (for launches shorter
         than their host work), else by `cuda_ms`. `path`: the main path
         whose inputs the case takes, where it is not the kernel's own
-        (`KERNELS`); the kernels line reads a case of the kernel's own."""
+        (`KERNELS`); the kernels line reads a case of the kernel's own.
+        `reps_l`: the library call's repeats (default `reps_k`; fewer for
+        an exact `cdist` yardstick of a second or more)."""
         b_ms, b_by = bound(n_bytes, n_ops)
         ms = kernel_ms(fn_k, reps_k) if queued else cuda_ms(fn_k, reps_k)
         row = dict(case=case, max_abs_err=float(err), ms=ms,
                    plain_ms=cuda_ms(fn_p, reps_p), bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None if library is None else cuda_ms(library, reps_k),
+                   library_ms=None if library is None else cuda_ms(library, reps_l or reps_k),
                    **extra)
         if path is not None:
             row["path"] = path
@@ -1189,7 +1236,7 @@ def check_kernels(recon, pcd, res: Results):
                lambda: pc._three_nn_kernel(unknown, known),
                lambda: pc._three_nn_plain(unknown, known),
                nbytes(unknown, known, dk, ik), three_nn_ops(unknown, known, dk), queued=True,
-               library=lambda: cdist_top3(unknown, known),
+               library=lambda: cdist_top3(unknown, known), reps_l=CDIST_REPS,
                scan_bound_ms=bound(nbytes(unknown, known, dk, ik),
                                    9.0 * F * N * known.shape[1])[0])
 
@@ -1458,6 +1505,7 @@ def check_three_nn(label, tcalls, res: Results, path=None):
                    lambda: pc._three_nn_kernel(unknown, known),
                    lambda: pc._three_nn_plain(unknown, known), row["nbytes"], row["ops"],
                    reps_p=1, queued=True, path=path, library=lambda: cdist_top3(unknown, known),
+                   reps_l=CDIST_REPS,
                    launches_per_call=count, scan_bound_ms=row["scan_bound_ms"])
     return rows
 
@@ -1484,7 +1532,8 @@ def check_nn1(label, calls, res: Results, path=None):
         res.record("nn1", f"{label} {case} x{count}", 0,
                    lambda: pc._nn1_kernel(query, points), lambda: pc._nn1_plain(query, points),
                    row["nbytes"], row["ops"], reps_p=1, queued=True, path=path,
-                   library=lambda: cdist_min(query, points), launches_per_call=count,
+                   library=lambda: cdist_min(query, points), reps_l=CDIST_REPS,
+                   launches_per_call=count,
                    scan_bound_ms=row["scan_bound_ms"])
     return rows
 
@@ -2501,8 +2550,14 @@ def entry_point_phase(step_fps: dict) -> dict:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="g4d_entry_") as tmp:
         root = Path(tmp)
-        tree = write_entry_tree(root, GarmentAssets.synthetic(num_rings=RINGS,
-                                                              ring_size=RING_SIZE))
+        assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
+        tree = write_entry_tree(root, assets)
+        # the reference's canonical stage (seeded weights) in its own
+        # checkpoint layout, for the MGN run's --GarmentPCA_pretrain
+        reference_canon = str(root / "reference_canonical.ckpt")
+        reference_sd = save_reference(reference_canon, seeded_reference(
+            reference_mirror().PCAGarmentEncoderSeg(
+                "Skirt", assets.pca_components, assets.pca_mean, assets.pca_scale), seed=3))
         setup_s = time.perf_counter() - t_phase
 
         def args(out, *extra):
@@ -2523,7 +2578,12 @@ def entry_point_phase(step_fps: dict) -> dict:
             "only_eval": (args("eval", "--GarmentPCALBS", "1", "--only_eval", "1",
                                "--batch_size", str(TRAIN_B), "--pretrained_model", posed_ckpt),
                           FORWARD_KERNELS + ["nn1"]),
+            "mgn": (args("mgn", "--GarmentPCALBS", "1", "--MGN", "1", "--fix_PCA", "1",
+                         "--GarmentPCA_pretrain", reference_canon, "--batch_size", str(TRAIN_B),
+                         "--epoch_num", "1"), MGN_TRAIN_KERNELS),
         }
+        saved = {"canonical": canon_ckpt, "posed": posed_ckpt, "posed_resumed": posed_ckpt,
+                 "mgn": str(root / "mgn" / "ckpt" / "model.ckpt")}
         out, launches, epochs, snapshots, restores = {}, {}, {}, {}, []
         for label, (argv, names) in runs.items():
             with timed_epochs() as times, \
@@ -2534,9 +2594,8 @@ def entry_point_phase(step_fps: dict) -> dict:
                 wall = time.perf_counter() - t0
             restores.extend((label, ok) for ok in rs)
             epochs[label] = times
-            snapshots[label] = torch.load(posed_ckpt if label.startswith("posed") else canon_ckpt,
-                                          map_location="cpu", weights_only=True) \
-                if label != "only_eval" else None
+            snapshots[label] = torch.load(saved[label], map_location="cpu",
+                                          weights_only=True) if label in saved else None
             print(f"entry point {label}: {wall:.2f} s, train epochs (frames, s) {times['train']}, "
                   f"eval epochs {times['eval']}", flush=True)
 
@@ -2552,6 +2611,18 @@ def entry_point_phase(step_fps: dict) -> dict:
             state = snapshots[label]["model_state"]
             require(all(same_bits(state[f"canonical.{k}"], v) for k, v in canon.items()),
                     f"entry point {label}: the frozen canonical stage changed")
+        # the MGN run's frozen canonical stage bitwise the reference file's
+        from garment4d_tpu_torch.train.torch_import import map_reference_state_dict
+
+        state = snapshots["mgn"]["model_state"]
+        want = map_reference_state_dict(reference_sd)
+        require(sorted(f"canonical.{k}" for k in want) == sorted(
+            k for k in state if k.startswith("canonical.")
+            and not k.endswith("num_batches_tracked")) and all(
+            same_bits(state[f"canonical.{k}"], v) for k, v in want.items()),
+            "entry point mgn: the canonical stage differs from the reference file")
+        print(f"entry point mgn: the canonical stage ({len(want)} tensors) bitwise the "
+              f"reference file's after its epoch", flush=True)
         # the auto-resume restored exactly the saved state, once
         require(restores == [("posed_resumed", True)],
                 f"entry point: restores {restores}, one bitwise restore expected")
@@ -2681,6 +2752,285 @@ def entry_point_phase(step_fps: dict) -> dict:
     print(f"entry point phase: {phase_s:.1f} s (tree written in {setup_s:.1f} s)", flush=True)
     return dict(launches=launches, frames_per_sec=fps, loader_alone=loader_alone,
                 only_eval_rel_err=eval_err, finalize_err=fin_err, phase_s=phase_s)
+
+
+# ---- phase 8: the MGN variant and the reference's checkpoint files --------
+
+
+def reference_mirror():
+    """`tests/torch_ref_mirror.py` of this checkout: the reference's networks
+    class for class, with the key names of its released checkpoints (only
+    constructed here; nothing of it runs)."""
+    tests = str(REPO / "tests")
+    sys.path.insert(0, tests)
+    try:
+        import torch_ref_mirror
+    finally:
+        sys.path.remove(tests)
+    return torch_ref_mirror
+
+
+def seeded_reference(model, seed: int):
+    """Every parameter 0.1 N(0, 1) and every BatchNorm's running statistics
+    off their init (mean 0.05 N(0, 1), var 0.5 + U(0, 1)), from a seeded
+    CPU generator."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.05)
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+    return model.eval()
+
+
+def save_reference(path, model) -> dict:
+    """`model`'s state_dict in the reference's checkpoint layout
+    (`utils/train_utils.py:100-112`), keys with DDP's `module.` prefix;
+    returns the file's state_dict."""
+    sd = {f"module.{k}": v for k, v in model.state_dict().items()}
+    torch.save({"epoch": 0, "model_state": sd, "optimizer_state": {}, "other_state": {}}, path)
+    return sd
+
+
+def reference_loaded(label, model, sd, report) -> int:
+    """A reference file's load: every key of the file but
+    `num_batches_tracked` loaded and none skipped, each of the port's
+    tensors (but `num_batches_tracked`) bitwise the file's after the map's
+    reshape; returns the count."""
+    from garment4d_tpu_torch.train.torch_import import map_reference_state_dict
+
+    mappable = [k for k in sd if not k.endswith("num_batches_tracked")]
+    require(report["loaded"] == mappable and report["skipped"] == [],
+            f"{label}: loaded {len(report['loaded'])} of {len(mappable)} tensors, skipped "
+            f"{report['skipped'][:5]}")
+    own = model.state_dict()
+    want = map_reference_state_dict(sd)
+    require(set(want) == {k for k in own if not k.endswith("num_batches_tracked")},
+            f"{label}: the file fills {len(want)} tensors of the model's {len(own)}")
+    for k, v in want.items():
+        require(same_bits(own[k].cpu(), v), f"{label}: {k} differs from the file")
+    print(f"{label}: {len(mappable)} tensors loaded, none skipped, each bitwise the file's",
+          flush=True)
+    return len(mappable)
+
+
+def mgn_model(assets, body, canonical_sd, device):
+    """The MGN model: the canonical stage from `canonical_sd`, the
+    displacement MLP at torch's init from seed 0 (no trained MGN weights
+    are in the repo), in eval mode on `device`."""
+    from garment4d_tpu_torch.models import MgnGarmentModel
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = MgnGarmentModel(assets, body.faces)
+    model.canonical.load_state_dict(canonical_sd, strict=True)
+    return model.to(device).eval()
+
+
+def mgn_forward_phase(assets, body, pcd, body_in, canonical_sd, res: Results) -> dict:
+    """The MGN forward at B=8, T=10 (80 frames of 2000 garment vertices
+    against the 6890-vertex body): the launch counters, every 1-NN launch
+    and both 16-float row gathers bitwise their plain versions, each new
+    case timed; the LBS teacher-forced against the CPU's plain LBS on one
+    sequence; frames/s and a profile."""
+    from garment4d_tpu_torch.models import mgn, skinning
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    model = mgn_model(assets, body, canonical_sd, torch.device("cuda"))
+
+    def forward():
+        with torch.inference_mode():
+            return model(pcd, body_in)
+
+    with recording(pc, "_nn1_kernel") as nn1_calls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gather_calls, \
+            recording(mgn, "lbs_garment_single_nn") as lbs_calls:
+        out, launches = counted("mgn", forward, MGN_KERNELS)
+    for name, n in MGN_LAUNCHES.items():
+        require(launches.get(name, 0) == n, f"{name}: {launches.get(name, 0)} launches in an "
+                f"MGN forward, {n} expected")
+    posed = out.iter_garment_v[-1]
+    require(len(out.iter_garment_v) == 1 and tuple(posed.shape) == (B, T, VG, 3),
+            f"MGN output {[tuple(v.shape) for v in out.iter_garment_v]}")
+    require(bool(torch.isfinite(posed).all()), "non-finite MGN garment")
+    nn1_rows = check_nn1("mgn forward", nn1_calls, res, path="mgn")
+    lbs_gathers = [r for r in gather_calls if r["args"][0].shape[-1] == 16]
+    require(len(lbs_gathers) == 2 and all(r["args"][0].shape == (F, N, 16) and
+                                          r["args"][1].shape == (F, VG) for r in lbs_gathers),
+            f"MGN forward: 16-float row gathers {[r['case'] for r in lbs_gathers]}, two of "
+            f"({F}, {N}, 16) x {VG} expected")
+    bounds = dict(nn1=print_launch_bounds("nn1", nn1_rows, per="MGN forward"),
+                  gather_rows=print_launch_bounds("gather_rows", gather_calls, per="MGN forward"))
+    for case, (row, count) in by_case(lbs_gathers).items():
+        gather_record(res, f"mgn forward {case} x{count}", *row["args"], path="mgn",
+                      launches=count)
+    print(f"MGN forward: {len(gather_calls)} row gathers ({len(lbs_gathers)} of 16-float "
+          f"rows) and {len(nn1_rows)} 1-NN launch bitwise their plain versions", flush=True)
+
+    # teacher-forced: the CPU's plain LBS of sequence 0 fed the card's inputs
+    args, kwargs, got = lbs_calls[0]
+    want = skinning.lbs_garment_single_nn(*[a[:1].cpu() for a in args], **kwargs)
+    require(torch.equal(want.nn_idx, got.nn_idx[:T].cpu()),
+            "MGN LBS: nearest body vertices differ between the card and the CPU")
+    forced = dict(posed_max_abs=max_abs(want.posed_garment, got.posed_garment[:1].cpu()),
+                  unposed_max_abs=max_abs(want.unposed_garment, got.unposed_garment[:1].cpu()))
+    print(f"MGN LBS teacher-forced, card vs CPU plain, seq 0: indices equal, posed max abs diff "
+          f"{forced['posed_max_abs']:.3e}, unposed {forced['unposed_max_abs']:.3e}", flush=True)
+    for key, err in forced.items():
+        require(err <= FORCED_TOL, f"MGN LBS teacher-forced: {key} {err} > {FORCED_TOL}")
+    del nn1_calls[:], gather_calls[:], lbs_calls[:], out
+
+    secs = wall_s(forward, runs=MGN_RUNS)
+    print(f"MGN forward, kernel path: {F / secs:.2f} frames/s ({secs * 1e3:.2f} ms per {F} "
+          f"frames)", flush=True)
+    rows, dev_ms = profile_device(forward, runs=2)
+    idle = print_profile("mgn", rows, dev_ms, secs * 1e3, top=12)
+    kernel_ms_ = {k: device_ms_of(rows, AB_KERNEL_NAMES[k]) for k in TIMED_KERNELS
+                  if launches.get(k, 0)}
+    for k, b in bounds.items():
+        print(f"MGN forward device ms per forward: {k} {kernel_ms_[k]:.4f} in "
+              f"{launches.get(k, 0)} launches (summed bound {b:.4f})", flush=True)
+    return dict(launches=launches, frames_per_sec=F / secs, device_ms_per_forward=dev_ms,
+                idle_share=idle, kernel_device_ms=kernel_ms_, summed_bound_ms=bounds,
+                forced=forced)
+
+
+def mgn_train_phase(assets, body, canonical_sd, res: Results) -> dict:
+    """One MGN train step at B=4, T=10 (the canonical stage trainable but
+    reached by no gradient): the launch counters, every 1-NN and row-gather
+    launch bitwise its plain version, finite losses, every displacement
+    tensor moved, the canonical stage bitwise unchanged; the plain step
+    launching no kernel and its losses within 1e-3; the kernel and plain
+    backwards of one shared forward within 1e-4 relative L2; frames/s."""
+    from garment4d_tpu_torch import losses as L
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.ops import pointcloud as pc
+    from garment4d_tpu_torch.train import make_posed_steps, make_state_for
+    from garment4d_tpu_torch.train.step import body_inputs_from_batch
+
+    dev = torch.device("cuda")
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    state, state_plain = (make_state_for(mgn_model(assets, body, canonical_sd, dev), lr=TRAIN_LR)
+                          for _ in range(2))
+    model = state.model
+    train_step, _ = make_posed_steps(model, assets, body.faces)
+    train_plain, _ = make_posed_steps(state_plain.model, assets, body.faces)
+    canonical = {k: v.clone() for k, v in model.canonical.state_dict().items()}
+    before = {k: p.detach().clone() for k, p in model.displacement.named_parameters()}
+
+    with recording(pc, "_nn1_kernel") as nn1_calls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gather_calls, \
+            recording(L, "posed_stage_loss", keep=lambda a, kw, r: (a[2:], kw)) as loss_calls:
+        losses, launches = counted("mgn train", lambda: train_step(state, batch),
+                                   MGN_TRAIN_KERNELS)
+    for name, n in MGN_TRAIN_LAUNCHES.items():
+        require(launches.get(name, 0) == n, f"{name}: {launches.get(name, 0)} launches in an "
+                f"MGN train step, {n} expected")
+    for k, v in losses.items():
+        require(bool(torch.isfinite(v).all()), f"MGN train step: loss {k} is not finite")
+    for k, p in model.displacement.named_parameters():
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"MGN displacement.{k}: no finite gradient")
+        require(not torch.equal(p.detach(), before[k]), f"MGN displacement.{k}: not moved")
+    require(all(p.grad is None for p in model.canonical.parameters()),
+            "MGN train step: a gradient reached the canonical stage")
+    for k, v in model.canonical.state_dict().items():
+        require(torch.equal(v, canonical[k]), f"MGN train step: canonical {k} changed")
+    print(f"MGN train step: losses finite ({losses['total_loss'].item():.6g} total), "
+          f"{len(before)} displacement tensors moved, {len(canonical)} canonical tensors "
+          f"bitwise unchanged; {len(gather_calls)} row gathers bitwise plain", flush=True)
+    check_nn1("mgn train step", nn1_calls, res, path="mgn_train")
+    lbs_gathers = [r for r in gather_calls if r["args"][0].shape[-1] == 16]
+    for case, (row, count) in by_case(lbs_gathers).items():
+        gather_record(res, f"mgn train step {case} x{count}", *row["args"], path="mgn_train",
+                      launches=count)
+    del nn1_calls[:], gather_calls[:]
+
+    ops.reset_counts()
+    with ops.plain_ops():
+        losses_plain = train_plain(state_plain, batch)
+    torch.cuda.synchronize()
+    require(not any(ops.launch_counts.values()),
+            f"the plain MGN train step launched kernels: {dict(ops.launch_counts)}")
+    loss_err = {k: float(((losses[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                for k, v in losses_plain.items()}
+    worst = max(loss_err, key=loss_err.get)
+    print(f"MGN train step losses, kernel vs plain path: largest relative difference "
+          f"{loss_err[worst]:.3e} ({worst})", flush=True)
+    require(loss_err[worst] <= LOSS_TOL, f"MGN loss {worst}: relative {loss_err[worst]} > "
+            f"{LOSS_TOL}")
+
+    # the kernel and the plain backwards of one kernel-path forward
+    loss_args, loss_kwargs = loss_calls[0]
+    model.train()
+    out = model(batch["pcd"], body_inputs_from_batch(batch))
+    total = L.posed_stage_loss(out, batch, *loss_args, **loss_kwargs)["total_loss"]
+    names, params = zip(*model.displacement.named_parameters())
+    g_kernel = torch.autograd.grad(total, params, retain_graph=True)
+    with plain_backward():
+        g_plain = torch.autograd.grad(total, params)
+    grad_err = {n: rel_l2(a, b) for n, a, b in zip(names, g_kernel, g_plain)}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"MGN backward on one forward, kernels vs plain versions: largest relative L2 "
+          f"{grad_err[worst]:.3e} ({worst})", flush=True)
+    require(grad_err[worst] <= GRAD_TOL, f"MGN backward {worst}: relative L2 "
+            f"{grad_err[worst]} > {GRAD_TOL}")
+    del out, total, loss_calls[:]
+
+    secs = wall_s(lambda: train_step(state, batch), runs=MGN_TRAIN_RUNS)
+    print(f"MGN train step, kernel path: {TRAIN_F / secs:.2f} frames/s ({secs * 1e3:.2f} ms "
+          f"per step of {TRAIN_F} frames)", flush=True)
+    rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
+    idle = print_profile("mgn train", rows, dev_ms, secs * 1e3, top=12)
+    return dict(launches=launches, frames_per_sec=TRAIN_F / secs, loss_rel_err=loss_err,
+                grad_rel_l2=grad_err, device_ms_per_step=dev_ms, idle_share=idle)
+
+
+def reference_files_phase(assets, body, pcd, body_in) -> dict:
+    """The reference's posed (lbs_k 256) and MGN networks at full width with
+    seeded weights, saved in the reference's checkpoint layout, loaded on
+    the card through `GarmentReconstructor.from_assets(checkpoint=)` and
+    `load_pretrained`: every tensor loaded and bitwise, one finite forward
+    of each."""
+    import tempfile
+
+    from garment4d_tpu_torch import api
+    from garment4d_tpu_torch.models import MgnGarmentModel
+    from garment4d_tpu_torch.train.checkpoint import load_pretrained
+
+    dev = torch.device("cuda")
+    mirror = reference_mirror()
+    pca = (assets.pca_components, assets.pca_mean, assets.pca_scale)
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="g4d_reference_") as tmp:
+        posed_path, mgn_path = f"{tmp}/posed.ckpt", f"{tmp}/mgn.ckpt"
+        posed_sd = save_reference(posed_path, seeded_reference(
+            mirror.PCALBSGarmentUseSegEncoderSeg(
+                "Skirt", *pca, garment_faces=assets.faces, body_faces_tri=body.faces,
+                parents=body.parents, lbs_k=256), seed=1))
+        mgn_sd = save_reference(mgn_path, seeded_reference(
+            mirror.PCALBSGarmentUseSegEncoderSegMGN(
+                "Skirt", *pca, garment_faces=assets.faces, parents=body.parents), seed=2))
+        with recording(api, "load_pretrained") as reports:
+            recon = api.GarmentReconstructor.from_assets(assets, body, device=dev,
+                                                         checkpoint=posed_path)
+        counts["posed"] = reference_loaded("reference posed file", recon.model, posed_sd,
+                                           reports[0][2])
+        model = MgnGarmentModel(assets, body.faces).to(dev).eval()
+        counts["mgn"] = reference_loaded("reference MGN file", model, mgn_sd,
+                                         load_pretrained(mgn_path, model))
+    posed = recon.posed(pcd, body_in)
+    with torch.inference_mode():
+        mgn_out = model(pcd, body_in).iter_garment_v[-1]
+    for label, v in (("posed", posed), ("MGN", mgn_out)):
+        require(tuple(v.shape) == (B, T, VG, 3) and bool(torch.isfinite(v).all()),
+                f"reference {label} file: forward not finite")
+    print("reference files: the posed and MGN forwards of the loaded weights finite",
+          flush=True)
+    return counts
 
 
 def counted(label, fn, names):
@@ -3413,7 +3763,20 @@ def main() -> int:
     entry = entry_point_phase({"canonical_train": canon_train["frames_per_sec"],
                                "posed_train": train["frames_per_sec"]})
 
-    # ---- 8. results --------------------------------------------------------
+    # ---- 8. the MGN variant and the reference's checkpoint files ------------
+    from garment4d_tpu_torch.train.convert import load_npz_subtree
+
+    torch.cuda.empty_cache()
+    canonical_sd = load_npz_subtree(weights, "canonical")
+    mgn = mgn_forward_phase(assets, body, pcd, body_in, canonical_sd, res)
+    torch.cuda.empty_cache()
+    mgn_train = mgn_train_phase(assets, body, canonical_sd, res)
+    torch.cuda.empty_cache()
+    reference = reference_files_phase(assets, body, pcd, body_in)
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
+
+    # ---- 9. results --------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -3428,6 +3791,8 @@ def main() -> int:
             launches_canonical=canon_launches.get(name, 0),
             launches_train_step=train["launches"].get(name, 0),
             launches_canonical_train_step=canon_train["launches"].get(name, 0),
+            launches_mgn=mgn["launches"].get(name, 0),
+            launches_mgn_train_step=mgn_train["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -3474,8 +3839,21 @@ def main() -> int:
         "entry_point_only_eval_rel_err": entry["only_eval_rel_err"],
         "entry_point_finalize_err": entry["finalize_err"],
         "entry_point_phase_s": entry["phase_s"],
+        "mgn_frames_per_sec": mgn["frames_per_sec"],
+        "mgn_device_ms_per_forward": mgn["device_ms_per_forward"],
+        "mgn_idle_share": mgn["idle_share"],
+        "mgn_kernel_device_ms": mgn["kernel_device_ms"],
+        "mgn_summed_bound_ms": mgn["summed_bound_ms"],
+        "mgn_launches": mgn["launches"], "mgn_lbs_forced": mgn["forced"],
+        "mgn_train_frames_per_sec": mgn_train["frames_per_sec"],
+        "mgn_train_device_ms_per_step": mgn_train["device_ms_per_step"],
+        "mgn_train_idle_share": mgn_train["idle_share"],
+        "mgn_train_launches": mgn_train["launches"],
+        "mgn_train_loss_rel_err_kernel_vs_plain": mgn_train["loss_rel_err"],
+        "mgn_train_grad_rel_l2": mgn_train["grad_rel_l2"],
+        "reference_files_tensors_loaded": reference,
         "build_s": build_s,
-        "total_s": time.perf_counter() - t_start}))
+        "total_s": total_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,6 +5,8 @@ the posed-stage model (the flagship):
 
     recon = GarmentReconstructor.from_npz(assets, body_model,
                                           "ckpt_synth/posed_synth.npz")
+    recon = GarmentReconstructor.from_assets(assets, body_model,
+                                             checkpoint="pretrain/skirt.ckpt")
     posed = recon.posed(pcd, body)   # (B, T, Vg, 3) per-frame garment
     garment = recon.canonical(pcd)   # (B, Vg, 3) T-pose garment
     labels = recon.segment(pcd)      # (B, T, N) 0-based classes
@@ -16,6 +18,7 @@ on the CPU; without a card, the default raises.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import torch
@@ -30,6 +33,7 @@ from garment4d_tpu_torch.models import (
     PosedOutput,
 )
 from garment4d_tpu_torch.smpl import SmplModel
+from garment4d_tpu_torch.train.checkpoint import load_pretrained
 from garment4d_tpu_torch.train.convert import load_npz
 
 
@@ -42,13 +46,22 @@ class GarmentReconstructor:
     @classmethod
     def from_assets(cls, assets: GarmentAssets, body_model: SmplModel,
                     device=_device.DEFAULT, state_dict: Optional[dict] = None,
-                    lbs_k: int = 256) -> "GarmentReconstructor":
+                    lbs_k: int = 256, checkpoint: Optional[str] = None
+                    ) -> "GarmentReconstructor":
         """An eval-mode posed model on `device`, with `state_dict` loaded
-        strictly when given (random init otherwise)."""
+        strictly when given, then the weights of `checkpoint` (any file
+        `train.checkpoint.load_pretrained` takes: a port checkpoint, a Flax
+        npz or a reference `.ckpt`) loaded tolerantly, the count of its
+        skipped tensors logged; random init otherwise."""
         device = _device.resolve(device)
         model = PosedGarmentModel(assets, body_model.faces, lbs_k=lbs_k)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
+        if checkpoint:
+            report = load_pretrained(checkpoint, model)
+            if report["skipped"]:
+                logging.getLogger("garment4d_tpu_torch").warning(
+                    "checkpoint: %d tensors skipped", len(report["skipped"]))
         return cls(assets=assets, model=model.to(device).eval(), device=device)
 
     @classmethod

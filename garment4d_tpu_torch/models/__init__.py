@@ -7,12 +7,17 @@ from garment4d_tpu_torch.models.canonical import (
     CanonicalOutput,
     select_garment_points,
 )
+from garment4d_tpu_torch.models.mgn import MgnGarmentModel
 from garment4d_tpu_torch.models.posed import BodyInputs, PosedGarmentModel, PosedOutput
-from garment4d_tpu_torch.models.skinning import LbsResult, lbs_garment_interpolation
+from garment4d_tpu_torch.models.skinning import (
+    LbsResult,
+    lbs_garment_interpolation,
+    lbs_garment_single_nn,
+)
 
 __all__ = [
     "BackboneOutput", "BodyInputs", "CLASS_NUM", "CanonicalGarmentModel",
-    "CanonicalOutput", "GarmentAssets", "LABEL_DICT", "LbsResult",
+    "CanonicalOutput", "GarmentAssets", "LABEL_DICT", "LbsResult", "MgnGarmentModel",
     "PointNet2SegBackbone", "PosedGarmentModel", "PosedOutput",
-    "lbs_garment_interpolation", "select_garment_points",
+    "lbs_garment_interpolation", "lbs_garment_single_nn", "select_garment_points",
 ]

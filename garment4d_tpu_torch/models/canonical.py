@@ -120,3 +120,24 @@ class CanonicalGarmentModel(nn.Module):
             pca_coeff=coeff,
             tpose_garment=self.pca_inverse_transform(coeff),
         )
+
+
+class FrozenCanonicalStage(nn.Module):
+    """Base of the posed-stage models (`PosedGarmentModel`,
+    `MgnGarmentModel`), whose `canonical` submodule is the frozen stage 1:
+    it stays in eval mode when the model trains and runs under no_grad in
+    their forwards."""
+
+    canonical: CanonicalGarmentModel
+
+    def train(self, mode: bool = True):
+        """The canonical stage stays frozen in eval mode."""
+        super().train(mode)
+        self.canonical.eval()
+        return self
+
+    def freeze_canonical(self) -> None:
+        """No gradient and no update for the canonical stage's parameters
+        (it already runs under no_grad in eval mode in `forward`)."""
+        for p in self.canonical.parameters():
+            p.requires_grad_(False)

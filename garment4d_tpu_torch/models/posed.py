@@ -27,8 +27,13 @@ from torch import nn
 
 from garment4d_tpu_torch import ops
 from garment4d_tpu_torch.models.assets import GarmentAssets
-from garment4d_tpu_torch.models.canonical import CanonicalGarmentModel, CanonicalOutput
+from garment4d_tpu_torch.models.canonical import (
+    CanonicalGarmentModel,
+    CanonicalOutput,
+    FrozenCanonicalStage,
+)
 from garment4d_tpu_torch.models.skinning import LbsResult, lbs_garment_interpolation
+from garment4d_tpu_torch.nn import GraphConvolution
 
 # SMPL kinematic tree (smplx kintree_table[0])
 _SMPL_PARENTS = np.array(
@@ -87,18 +92,7 @@ class SplitQueryGroupPE(PEParams):
         return ops.group_pe_max_split_frozen(xyz, features, idx, new_xyz, *self.kb())
 
 
-class GCNParams(nn.Module):
-    """One graph-convolution layer's parameters: weight (in, out), bias
-    (out,), both U(-1/sqrt(out), 1/sqrt(out)) at init."""
-
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        stdv = 1.0 / features ** 0.5
-        self.weight = nn.Parameter(torch.empty(in_features, features).uniform_(-stdv, stdv))
-        self.bias = nn.Parameter(torch.empty(features).uniform_(-stdv, stdv))
-
-
-class PosedGarmentModel(nn.Module):
+class PosedGarmentModel(FrozenCanonicalStage):
     """Stage 2: point-cloud sequence + body -> posed garment sequence."""
 
     def __init__(self, assets: GarmentAssets, body_faces: np.ndarray,
@@ -126,7 +120,7 @@ class PosedGarmentModel(nn.Module):
                       HIDDEN_DIM, HIDDEN_DIM, 3)
             for layer in range(4):
                 self.add_module(f"gcn{it}_{layer}",
-                                GCNParams(widths[layer], widths[layer + 1]))
+                                GraphConvolution(widths[layer], widths[layer + 1]))
 
         # constants (not state): body faces, smoothing operator, adjacency.
         # A template whose native order is not cyclic-banded runs the
@@ -159,18 +153,6 @@ class PosedGarmentModel(nn.Module):
                         body_radius=(0.1, 0.2, 0.4), body_nsample=(8, 16, 32))
         return dict(garment_radius=(0.1, 0.2, 0.4), garment_nsample=(32, 16, 8),
                     body_radius=(0.1, 0.2, 0.4), body_nsample=(8, 16, 32))
-
-    def train(self, mode: bool = True):
-        """The canonical stage stays frozen in eval mode."""
-        super().train(mode)
-        self.canonical.eval()
-        return self
-
-    def freeze_canonical(self) -> None:
-        """No gradient and no update for the canonical stage's parameters
-        (it already runs under no_grad in eval mode in `forward`)."""
-        for p in self.canonical.parameters():
-            p.requires_grad_(False)
 
     def _temporal_mix(self, it: int, hidden: torch.Tensor, B: int, T: int) -> torch.Tensor:
         """Single-head attention over the T frames of each sequence, on the

@@ -13,6 +13,10 @@ The K-NN weight transfer is one op: a CUDA tensor launches the kernel
 `ops.plain_ops()`) runs `_knn_transfer_plain`, the JAX package's XLA
 formulation (a K-th-smallest threshold by bisection on the f32 bit
 patterns, index-ordered ties, a masked matmul).
+
+`lbs_garment_single_nn` is the MGN variant's skinning (K = 1, per-frame
+garments): the 1-NN kernel picks each garment vertex's nearest T-pose body
+vertex and the row-gather kernel takes that vertex's 4x4 transforms.
 """
 
 from __future__ import annotations
@@ -24,7 +28,12 @@ import numpy as np
 import torch
 
 from garment4d_tpu_torch.ops import _build
-from garment4d_tpu_torch.ops.pointcloud import pairwise_sqdist, use_kernel
+from garment4d_tpu_torch.ops.pointcloud import (
+    group_points,
+    knn_points,
+    pairwise_sqdist,
+    use_kernel,
+)
 from garment4d_tpu_torch.smpl.lbs import (
     batch_rigid_transform,
     batch_rodrigues,
@@ -225,3 +234,50 @@ def lbs_garment_interpolation(
              + T_mat[..., :3, 3])
     return LbsResult(posed_garment=posed, nn_idx=nn1_idx,
                      unposed_garment=unposed[:, None].expand(B, T, Vg, 3))
+
+
+def lbs_garment_single_nn(
+    pred_garment_v: torch.Tensor,            # (B, T, Vg, 3) canonical + displacement
+    tpose_vertices: torch.Tensor,            # (B, Nb, 3)
+    tpose_root_joints: torch.Tensor,         # (B, 3)
+    zeropose_vertices: torch.Tensor,         # (B, T, Nb, 3)
+    gt_pose: torch.Tensor,                   # (B, T, 72) axis-angle
+    T_J_regressor: torch.Tensor,             # (B, T, 24, Nb)
+    T_lbs_weights: torch.Tensor,             # (B, T, Nb, 24)
+    parents: np.ndarray,                     # (24,)
+) -> LbsResult:
+    """The MGN variant's skinning (reference `mesh_encoder.py:529-585`):
+    each garment vertex of each frame takes the transforms of its single
+    nearest T-pose body vertex (`knn_points(K=1)`, the 1-NN kernel on the
+    card), with no interpolation and no smoothing; un-pose to the zero
+    pose, re-pose to the frame. The 4x4 transforms of every body vertex
+    (`inv_T_all`, `T_all`) are formed first and each garment vertex's row
+    is gathered by `group_points` (16-float rows, the row-gather kernel on
+    the card), in the JAX package's order. `nn_idx` is (B*T, Vg, 1)."""
+    B, T, Vg, _ = pred_garment_v.shape
+    J = T_J_regressor.shape[2]
+    BT = B * T
+
+    pose_mat = batch_rodrigues(gt_pose.reshape(BT, J, 3))
+    root_garment = (pred_garment_v + tpose_root_joints[:, None, None, :]).reshape(BT, Vg, 3)
+    tpose_bt = tpose_vertices[:, None].expand(B, T, *tpose_vertices.shape[1:]).reshape(BT, -1, 3)
+    _, nn_idx = knn_points(root_garment, tpose_bt, K=1)
+
+    inv_pose_mat = batch_rodrigues(_inverse_template_pose(BT, pred_garment_v.device))
+    inv_J = vertices2joints_b(T_J_regressor.reshape(BT, J, -1), tpose_bt)
+    _, inv_A = batch_rigid_transform(inv_pose_mat, inv_J, parents)
+
+    w_bt = T_lbs_weights.reshape(BT, -1, J)
+    inv_T_all = torch.einsum("bvj,bjpq->bvpq", w_bt, inv_A)  # (BT, Nb, 4, 4)
+    inv_T = group_points(inv_T_all.reshape(BT, -1, 16), nn_idx).reshape(BT, Vg, 4, 4)
+    unposed = (torch.einsum("bvpq,bvq->bvp", inv_T[:, :, :3, :3], root_garment)
+               + inv_T[:, :, :3, 3])
+
+    zero_v = zeropose_vertices.reshape(BT, -1, 3)
+    J_pos = vertices2joints_b(T_J_regressor.reshape(BT, J, -1), zero_v)
+    _, A = batch_rigid_transform(pose_mat, J_pos, parents)
+    T_all = torch.einsum("bvj,bjpq->bvpq", w_bt, A)
+    T_nn = group_points(T_all.reshape(BT, -1, 16), nn_idx).reshape(BT, Vg, 4, 4)
+    posed = torch.einsum("bvpq,bvq->bvp", T_nn[:, :, :3, :3], unposed) + T_nn[:, :, :3, 3]
+    return LbsResult(posed_garment=posed.reshape(B, T, Vg, 3), nn_idx=nn_idx,
+                     unposed_garment=unposed.reshape(B, T, Vg, 3))

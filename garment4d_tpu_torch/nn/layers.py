@@ -5,8 +5,10 @@ over the last axis, followed by BatchNorm (eps 1e-5, momentum 0.1 in
 torch's convention, 0.9 in Flax's) and an optional ReLU. Train-mode
 BatchNorm computes its statistics and updates its running ones as Flax
 does; eval uses the running statistics. Submodule names follow the Flax
-parameter paths (`layer0.conv`, `layer0.bn`), so a Flax checkpoint maps
-onto them by renaming (`train/convert.py`).
+parameter paths (`layer0.conv`, `layer0.bn`, `linear0`), so a Flax
+checkpoint maps onto them by renaming (`train/convert.py`). `MLP` is a
+plain Linear/ReLU stack and `GraphConvolution` one pygcn layer, dense or
+banded.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from garment4d_tpu_torch.ops.graph import graph_matmul, graph_matmul_banded
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -125,3 +129,47 @@ class SharedMLP(nn.Module):
         the stack is ReLU'd."""
         pairs = [block.folded() for block in self.blocks()]
         return [w for w, _ in pairs], [b for _, b in pairs]
+
+
+class MLP(nn.Module):
+    """Linear layers `linear0`, `linear1`, ... of the given widths over the
+    last axis, a ReLU between consecutive ones (none after the last)."""
+
+    def __init__(self, in_features: int, widths: Sequence[int]):
+        super().__init__()
+        self.widths = tuple(int(w) for w in widths)
+        c = in_features
+        for i, w in enumerate(self.widths):
+            self.add_module(f"linear{i}", nn.Linear(c, w))
+            c = w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        last = len(self.widths) - 1
+        for i in range(len(self.widths)):
+            x = getattr(self, f"linear{i}")(x)
+            if i != last:
+                x = torch.relu(x)
+        return x
+
+
+class GraphConvolution(nn.Module):
+    """One pygcn layer, adj @ (x @ W) + b: weight (in, out), bias (out,),
+    both U(-1/sqrt(out), 1/sqrt(out)) at init. With `diag_offsets` (the
+    adjacency's nonzero cyclic diagonals, `ops.cyclic_diagonals`) the
+    product with the adjacency is `ops.graph_matmul_banded`, the banded
+    kernel on the card; else the dense `ops.graph_matmul`."""
+
+    def __init__(self, in_features: int, features: int, diag_offsets=None):
+        super().__init__()
+        stdv = 1.0 / features ** 0.5
+        self.weight = nn.Parameter(torch.empty(in_features, features).uniform_(-stdv, stdv))
+        self.bias = nn.Parameter(torch.empty(features).uniform_(-stdv, stdv))
+        self.diag_offsets = None if diag_offsets is None else tuple(int(o) for o in diag_offsets)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        support = torch.matmul(x, self.weight)
+        if self.diag_offsets is not None:
+            out = graph_matmul_banded(adj, support, self.diag_offsets)
+        else:
+            out = graph_matmul(adj, support)
+        return out + self.bias

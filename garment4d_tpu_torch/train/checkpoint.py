@@ -7,10 +7,9 @@ only, and the stage-1 -> stage-2 bootstrap (`--GarmentPCA_pretrain`).
 
 A checkpoint is one `torch.save` file in the reference's layout,
 `{epoch, model_state, optimizer_state, other_state}`; the train state's
-`step` and `lr_scale` travel in `other_state`. Loading the reference's own
-`.ckpt` files needs a map from its key names onto the port's (ROADMAP
-Queue 1 item 2); until then they match no tensor and `load_pretrained`
-raises.
+`step` and `lr_scale` travel in `other_state`. `load_pretrained` and
+`bootstrap_canonical` also take the reference's own `.ckpt` files, keyed by
+the reference's module names (`train/torch_import.py`).
 """
 
 from __future__ import annotations
@@ -22,6 +21,12 @@ import torch
 
 from garment4d_tpu_torch.train.convert import load_npz
 from garment4d_tpu_torch.train.state import TrainState
+from garment4d_tpu_torch.train.torch_import import (
+    import_reference_state_dict,
+    is_reference_named,
+    load_reference_state_dict,
+    map_reference_state_dict,
+)
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
@@ -67,18 +72,40 @@ def _weights(path: str) -> dict:
     variables npz (through `train/convert.py`), keys as the file has them."""
     if path.endswith(".npz"):
         return load_npz(path)
-    payload = _read(path, "cpu")
-    return payload.get("model_state", payload)
+    return load_reference_state_dict(path)
+
+
+def _reference_named(path: str, state_dict: dict, own: dict) -> bool:
+    """Whether the file's keys are the reference's (`train/torch_import.py`)
+    rather than the port's. A file is reference-named when some key (other
+    than `num_batches_tracked`) is one the reference map knows, and
+    port-named when some key, without its `module.` prefix, is one of the
+    model's own; the two sets of names are disjoint, so a file with keys of
+    both kinds raises ValueError."""
+    reference = is_reference_named(state_dict)
+    port = any(_strip_module(k) in own for k in state_dict
+               if not k.endswith("num_batches_tracked"))
+    if reference and port:
+        raise ValueError(f"{path}: holds both reference-named and port-named keys")
+    return reference
 
 
 def load_pretrained(path: str, model: torch.nn.Module) -> Dict[str, list]:
     """Load only the weights (and BatchNorm statistics) of `path` into
-    `model`: a port checkpoint, a bare state_dict, or a Flax variables npz.
-    Keys may carry a `module.` prefix; a tensor loads where the model has
-    its key with its shape. Returns {"loaded": keys, "skipped": keys of the
-    file not loaded}; raises KeyError when no tensor matches."""
+    `model`: a port checkpoint, a bare state_dict, a Flax variables npz, or
+    a reference checkpoint (`_reference_named`: mapped by
+    `import_reference_state_dict`, tolerant). Keys may carry a `module.`
+    prefix; a tensor loads where the model has its key with its shape.
+    Returns {"loaded": keys, "skipped": keys of the file not loaded};
+    raises KeyError when no tensor matches."""
     state_dict = _weights(path)
     own = model.state_dict()
+    if _reference_named(path, state_dict, own):
+        report = import_reference_state_dict(state_dict, model)
+        if not report["loaded"]:
+            raise KeyError(f"{path}: none of its reference-named tensors matches a key "
+                           f"and shape of {type(model).__name__}")
+        return report
     matched, skipped = {}, []
     for key, value in state_dict.items():
         name = _strip_module(key)
@@ -97,14 +124,24 @@ def load_pretrained(path: str, model: torch.nn.Module) -> Dict[str, list]:
 def bootstrap_canonical(path: str, posed_model: torch.nn.Module) -> Dict[str, list]:
     """Stage-1 -> stage-2 bootstrap: the canonical-stage weights of `path`
     into the posed model's `canonical` submodule (reference
-    `--GarmentPCA_pretrain`, `train_temporal.py:162-178`). The whole
-    submodule is replaced, as the JAX package replaces its `canonical`
-    subtree: every tensor must come from the file with its shape (keys may
-    carry a `module.` prefix), else KeyError names the missing, unexpected
-    and mismatched keys (a checkpoint of another PCADIM, or one trained
-    with `--only_seg`, which has no PCA head)."""
-    state_dict = {_strip_module(k): v for k, v in _weights(path).items()}
+    `--GarmentPCA_pretrain`, `train_temporal.py:162-178`). The file is a
+    port checkpoint or state_dict of the canonical model, or the
+    reference's bare canonical-stage file (`PCAGarmentEncoderSeg`'s keys,
+    `_reference_named`). The whole submodule is replaced, as the JAX
+    package replaces its `canonical` subtree: every tensor must come from
+    the file with its shape (keys may carry a `module.` prefix), else
+    KeyError names the missing, unexpected and mismatched keys (a
+    checkpoint of another PCADIM, or one trained with `--only_seg`, which
+    has no PCA head)."""
+    raw = _weights(path)
     own = posed_model.canonical.state_dict()
+    if _reference_named(path, raw, own):
+        state_dict = map_reference_state_dict(raw)
+        for name, value in own.items():  # the port's own count, not the file's
+            if name.endswith("num_batches_tracked"):
+                state_dict[name] = value
+    else:
+        state_dict = {_strip_module(k): v for k, v in raw.items()}
     missing = sorted(set(own) - set(state_dict))
     unexpected = sorted(set(state_dict) - set(own))
     mismatched = sorted(k for k in set(own) & set(state_dict)

@@ -79,10 +79,10 @@ def make_posed_steps(model, assets, body_faces: np.ndarray,
     batch)), each returning the loss dict (detached). The train step takes
     the canonical stage's `generator` argument and ignores it (the posed
     stage draws no random numbers), so a loop calls both stages alike. The
-    loss-side constants live on the device of the model's buffers when this
-    is called."""
+    loss-side constants live on the device of the model's parameters when
+    this is called."""
     weights = weights or L.LossWeights()
-    device = model.gcn_adj.device
+    device = next(model.parameters()).device
     lap_adj = np.asarray(assets.lap_adj)
     lap_offsets = cyclic_diagonals(lap_adj)
     lap_perm = None

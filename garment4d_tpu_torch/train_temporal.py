@@ -9,10 +9,13 @@ Counterpart of the repo's `train_temporal.py`, with its flags
 
   --GarmentPCA 1     canonical stage
   --GarmentPCALBS 1  posed stage
+  --MGN 1            with --GarmentPCALBS 1: the MGN variant (models/mgn.py)
   --only_seg 1       segmentation-only training (canonical stage)
   --fix_PCA 1        freeze the canonical stage (posed stage)
-  --GarmentPCA_pretrain PATH  canonical weights for the posed stage
-  --pretrained_model PATH     weights only (a port checkpoint or Flax npz)
+  --GarmentPCA_pretrain PATH  canonical weights for the posed stage (a port
+                              checkpoint or the reference's canonical .ckpt)
+  --pretrained_model PATH     weights only (a port checkpoint, a Flax npz or
+                              a reference .ckpt)
   --only_eval 1      one evaluation pass
 
 With --synthetic_data 1 it trains on synthetic batches (`data/synthetic.py`);
@@ -38,7 +41,12 @@ from garment4d_tpu_torch.data.cloth3d import (
 )
 from garment4d_tpu_torch.data.pipeline import ParallelItemLoader
 from garment4d_tpu_torch.data.synthetic import make_batch
-from garment4d_tpu_torch.models import CanonicalGarmentModel, GarmentAssets, PosedGarmentModel
+from garment4d_tpu_torch.models import (
+    CanonicalGarmentModel,
+    GarmentAssets,
+    MgnGarmentModel,
+    PosedGarmentModel,
+)
 from garment4d_tpu_torch.smpl import load_smpl, synthetic_smpl
 from garment4d_tpu_torch.train import checkpoint as ckpt_lib
 from garment4d_tpu_torch.train.loop import eval_one_epoch, fit, make_logger
@@ -47,7 +55,6 @@ from garment4d_tpu_torch.utils.config import parse_args
 
 # flags whose modules the port has not yet: (set?, ROADMAP item)
 _UNPORTED = (
-    (lambda a: a.MGN, "--MGN 1: the MGN variant (models/mgn.py), ROADMAP Queue 1 item 4"),
     (lambda a: a.vis, "--vis: the prediction export (data/export.py), ROADMAP Queue 1 item 7"),
     (lambda a: a.spatial_sample, "--spatial_sample 1: Morton-ordered sampling, "
                                  "ROADMAP Queue 1 item 6"),
@@ -143,7 +150,9 @@ def _make_state(args, cfg, assets, body_model, device, logger):
     it, as the JAX package's does)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the initial weights, as JAX's PRNGKey(0)
-        if args.GarmentPCALBS:
+        if args.GarmentPCALBS and args.MGN:
+            model = MgnGarmentModel(assets, body_model.faces)
+        elif args.GarmentPCALBS:
             model = PosedGarmentModel(assets, body_model.faces, lbs_k=cfg.NETWORK.LBSK,
                                       iterations=cfg.NETWORK.ITERATION)
         else:

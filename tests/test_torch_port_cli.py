@@ -160,7 +160,7 @@ def test_disk_fixture_chain(tmp_path, disk):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--MGN", "1"], ["--vis"], ["--spatial_sample", "1"],
+    ["--vis"], ["--spatial_sample", "1"],
     ["--candidate_reuse_margin", "0.05"], ["--launcher", "pytorch"], ["--syncbn", "1"],
     ["--bf16", "1"], ["--remat", "1"], ["--debug_nans", "1"]], ids=lambda f: f[0][2:])
 def test_unported_flag_raises(tmp_path, flag):
