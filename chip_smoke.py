@@ -204,7 +204,45 @@ then:
    every key but `num_batches_tracked` loaded, none skipped, each of the
    port's tensors bitwise the file's after the map's reshape, one finite
    forward of each; the whole run's seconds printed;
-9. prints a JSON line of the kernels (each row read from the costliest
+9. data parallelism (`garment4d_tpu_torch.parallel`) on the one card:
+   9a: phase 6's canonical (B=20) and phase 5's posed (B=4) train steps
+   each once without a process group, and then both in one group of one
+   rank over NCCL in this process, whose presence alone switches the
+   data-parallel path on (global-batch BatchNorm moments by all-reduce,
+   the gradient and loss all-reduces), from the same weights, batch and
+   dropout generator, with the launch counters at 0 before each: the
+   posed step bitwise (losses, gradients, parameters and buffers; both
+   runs, and a second run without the group, under torch's deterministic
+   algorithms, which make the losses' `index_add_` atomics repeat), the
+   canonical one within DP1_TOL (losses 1e-5 relative,
+   running statistics 1e-6 of each tensor's largest, gradients 1e-2
+   relative L2; those zero in exact arithmetic, `record_errors`, below
+   1e-4 of the largest gradient), the same launches on both paths; each
+   path's train frames/s (median of 5 after 2 warm-ups), device ms and
+   NCCL kernels (launches, ms) a step by the profiler; the data-parallel
+   step's all-reduces counted (two a BatchNorm in training, one of the
+   gradients, one of the losses; none without the group). 9b, two ranks on the
+   one card over gloo (NCCL refuses two ranks of one GPU), each its own
+   process (`chip_smoke.py --dp-rank`, torchrun's variables, the library
+   the parent built) with its half of each global batch (the posed step
+   under deterministic algorithms, as in 9a): the two replicas
+   bitwise equal after each step, the loss scalars, running statistics
+   and gradients within DP2_TOL (1e-4, 1e-5, 2e-2: the JAX package's
+   sharded step test) of 9a's single-process steps; the posed step's
+   per-sample `lbs_garment_msre_list` (`per_sample_errors`) within 1e-6 of
+   one process's on the same rows and within 2e-3 of one process's at B=4,
+   a limit between the control (one process at B=2 on each half against
+   B=4) and the rank blocks swapped, both printed and both checked to fall
+   on their side of it; each rank's FPS launches over
+   half the frames (canonical sa1 over 100, not 200) and every kernel of
+   the step launched; each rank's step wall time ("two ranks sharing one
+   card", not a scaling number). 9c, the entry point under `--launcher
+   pytorch` with WORLD_SIZE=1 (NCCL) on phase 7's tree: one canonical
+   epoch at B=20, then one posed epoch (`--fix_PCA 1`) from its
+   checkpoint: finite losses, each checkpoint written once by rank 0, the
+   launch counters nonzero, no group left behind, train frames/s beside
+   phase 7's;
+10. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -262,9 +300,12 @@ import contextlib
 import json
 import logging
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2533,14 +2574,13 @@ def restored_matches_file(args, _kwargs, result) -> bool:
     return ok and state.step == other["step"] and state.lr_scale == other["lr_scale"]
 
 
-def entry_point_phase(step_fps: dict) -> dict:
+def entry_point_phase(step_fps: dict, root: Path) -> dict:
     """The port's training entry point (`garment4d_tpu_torch.train_temporal`)
     at the recipe (`scripts/train/train_skirt_{canonical,posed}.sh`) on a
-    mini-CLOTH3D tree: the canonical stage, then the posed stage from its
-    checkpoint with the canonical stage frozen, the posed run again (an
-    auto-resume), then one evaluation of the posed checkpoint."""
-    import tempfile
-
+    mini-CLOTH3D tree written under `root`: the canonical stage, then the
+    posed stage from its checkpoint with the canonical stage frozen, the
+    posed run again (an auto-resume), then one evaluation of the posed
+    checkpoint. The tree stays for phase 9."""
     from garment4d_tpu_torch import ops, train_temporal
     from garment4d_tpu_torch.data.cloth3d import Cloth3dDataset, Cloth3dPaths, finalize_batch
     from garment4d_tpu_torch.models import GarmentAssets
@@ -2548,189 +2588,187 @@ def entry_point_phase(step_fps: dict) -> dict:
     from garment4d_tpu_torch.train import checkpoint
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="g4d_entry_") as tmp:
-        root = Path(tmp)
-        assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
-        tree = write_entry_tree(root, assets)
-        # the reference's canonical stage (seeded weights) in its own
-        # checkpoint layout, for the MGN run's --GarmentPCA_pretrain
-        reference_canon = str(root / "reference_canonical.ckpt")
-        reference_sd = save_reference(reference_canon, seeded_reference(
-            reference_mirror().PCAGarmentEncoderSeg(
-                "Skirt", assets.pca_components, assets.pca_mean, assets.pca_scale), seed=3))
-        setup_s = time.perf_counter() - t_phase
+    assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
+    tree = write_entry_tree(root, assets)
+    # the reference's canonical stage (seeded weights) in its own
+    # checkpoint layout, for the MGN run's --GarmentPCA_pretrain
+    reference_canon = str(root / "reference_canonical.ckpt")
+    reference_sd = save_reference(reference_canon, seeded_reference(
+        reference_mirror().PCAGarmentEncoderSeg(
+            "Skirt", assets.pca_components, assets.pca_mean, assets.pca_scale), seed=3))
+    setup_s = time.perf_counter() - t_phase
 
-        def args(out, *extra):
-            return ["--config", tree["cfg"], "--smpl_model_dir", tree["smpl_dir"], "--T", str(T),
-                    "--lr", str(TRAIN_LR), "--output_dir", str(root / out), *extra]
+    def args(out, *extra):
+        return ["--config", tree["cfg"], "--smpl_model_dir", tree["smpl_dir"], "--T", str(T),
+                "--lr", str(TRAIN_LR), "--output_dir", str(root / out), *extra]
 
-        canon_ckpt = str(root / "canonical" / "ckpt" / "model.ckpt")
-        posed_ckpt = str(root / "posed" / "ckpt" / "model.ckpt")
-        posed_args = args("posed", "--GarmentPCALBS", "1", "--fix_PCA", "1",
-                          "--GarmentPCA_pretrain", canon_ckpt, "--batch_size", str(TRAIN_B),
-                          "--epoch_num", str(ENTRY_EPOCHS), "--lr_sche")
-        runs = {
-            "canonical": (args("canonical", "--GarmentPCA", "1", "--batch_size", str(CANON_B),
-                               "--epoch_num", str(ENTRY_EPOCHS), "--lr_sche"),
-                          CANON_TRAIN_KERNELS + ["fused_chain"]),
-            "posed": (posed_args, POSED_TRAIN_KERNELS),
-            "posed_resumed": (posed_args, POSED_TRAIN_KERNELS),
-            "only_eval": (args("eval", "--GarmentPCALBS", "1", "--only_eval", "1",
-                               "--batch_size", str(TRAIN_B), "--pretrained_model", posed_ckpt),
-                          FORWARD_KERNELS + ["nn1"]),
-            "mgn": (args("mgn", "--GarmentPCALBS", "1", "--MGN", "1", "--fix_PCA", "1",
-                         "--GarmentPCA_pretrain", reference_canon, "--batch_size", str(TRAIN_B),
-                         "--epoch_num", "1"), MGN_TRAIN_KERNELS),
-        }
-        saved = {"canonical": canon_ckpt, "posed": posed_ckpt, "posed_resumed": posed_ckpt,
-                 "mgn": str(root / "mgn" / "ckpt" / "model.ckpt")}
-        out, launches, epochs, snapshots, restores = {}, {}, {}, {}, []
-        for label, (argv, names) in runs.items():
-            with timed_epochs() as times, \
-                    recording(checkpoint, "restore_checkpoint", keep=restored_matches_file) as rs:
-                t0 = time.perf_counter()
-                out[label], launches[label] = counted(
-                    f"entry point {label}", lambda: train_temporal.main(argv), names)
-                wall = time.perf_counter() - t0
-            restores.extend((label, ok) for ok in rs)
-            epochs[label] = times
-            snapshots[label] = torch.load(saved[label], map_location="cpu",
-                                          weights_only=True) if label in saved else None
-            print(f"entry point {label}: {wall:.2f} s, train epochs (frames, s) {times['train']}, "
-                  f"eval epochs {times['eval']}", flush=True)
+    canon_ckpt = str(root / "canonical" / "ckpt" / "model.ckpt")
+    posed_ckpt = str(root / "posed" / "ckpt" / "model.ckpt")
+    posed_args = args("posed", "--GarmentPCALBS", "1", "--fix_PCA", "1",
+                      "--GarmentPCA_pretrain", canon_ckpt, "--batch_size", str(TRAIN_B),
+                      "--epoch_num", str(ENTRY_EPOCHS), "--lr_sche")
+    runs = {
+        "canonical": (args("canonical", "--GarmentPCA", "1", "--batch_size", str(CANON_B),
+                           "--epoch_num", str(ENTRY_EPOCHS), "--lr_sche"),
+                      CANON_TRAIN_KERNELS + ["fused_chain"]),
+        "posed": (posed_args, POSED_TRAIN_KERNELS),
+        "posed_resumed": (posed_args, POSED_TRAIN_KERNELS),
+        "only_eval": (args("eval", "--GarmentPCALBS", "1", "--only_eval", "1",
+                           "--batch_size", str(TRAIN_B), "--pretrained_model", posed_ckpt),
+                      FORWARD_KERNELS + ["nn1"]),
+        "mgn": (args("mgn", "--GarmentPCALBS", "1", "--MGN", "1", "--fix_PCA", "1",
+                     "--GarmentPCA_pretrain", reference_canon, "--batch_size", str(TRAIN_B),
+                     "--epoch_num", "1"), MGN_TRAIN_KERNELS),
+    }
+    saved = {"canonical": canon_ckpt, "posed": posed_ckpt, "posed_resumed": posed_ckpt,
+             "mgn": str(root / "mgn" / "ckpt" / "model.ckpt")}
+    out, launches, epochs, snapshots, restores = {}, {}, {}, {}, []
+    for label, (argv, names) in runs.items():
+        with timed_epochs() as times, \
+                recording(checkpoint, "restore_checkpoint", keep=restored_matches_file) as rs:
+            t0 = time.perf_counter()
+            out[label], launches[label] = counted(
+                f"entry point {label}", lambda: train_temporal.main(argv), names)
+            wall = time.perf_counter() - t0
+        restores.extend((label, ok) for ok in rs)
+        epochs[label] = times
+        snapshots[label] = torch.load(saved[label], map_location="cpu",
+                                      weights_only=True) if label in saved else None
+        print(f"entry point {label}: {wall:.2f} s, train epochs (frames, s) {times['train']}, "
+              f"eval epochs {times['eval']}", flush=True)
 
-        # every loss finite
-        for label, result in out.items():
-            for row in ([result] if label == "only_eval" else
-                        [r[s] for r in result for s in ("train", "eval")]):
-                require(row and all(math.isfinite(v) for v in row.values()),
-                        f"entry point {label}: non-finite or missing losses {row}")
-        # the canonical stage bitwise its bootstrap through both posed runs
-        canon = snapshots["canonical"]["model_state"]
-        for label in ("posed", "posed_resumed"):
-            state = snapshots[label]["model_state"]
-            require(all(same_bits(state[f"canonical.{k}"], v) for k, v in canon.items()),
-                    f"entry point {label}: the frozen canonical stage changed")
-        # the MGN run's frozen canonical stage bitwise the reference file's
-        from garment4d_tpu_torch.train.torch_import import map_reference_state_dict
+    # every loss finite
+    for label, result in out.items():
+        for row in ([result] if label == "only_eval" else
+                    [r[s] for r in result for s in ("train", "eval")]):
+            require(row and all(math.isfinite(v) for v in row.values()),
+                    f"entry point {label}: non-finite or missing losses {row}")
+    # the canonical stage bitwise its bootstrap through both posed runs
+    canon = snapshots["canonical"]["model_state"]
+    for label in ("posed", "posed_resumed"):
+        state = snapshots[label]["model_state"]
+        require(all(same_bits(state[f"canonical.{k}"], v) for k, v in canon.items()),
+                f"entry point {label}: the frozen canonical stage changed")
+    # the MGN run's frozen canonical stage bitwise the reference file's
+    from garment4d_tpu_torch.train.torch_import import map_reference_state_dict
 
-        state = snapshots["mgn"]["model_state"]
-        want = map_reference_state_dict(reference_sd)
-        require(sorted(f"canonical.{k}" for k in want) == sorted(
-            k for k in state if k.startswith("canonical.")
-            and not k.endswith("num_batches_tracked")) and all(
-            same_bits(state[f"canonical.{k}"], v) for k, v in want.items()),
-            "entry point mgn: the canonical stage differs from the reference file")
-        print(f"entry point mgn: the canonical stage ({len(want)} tensors) bitwise the "
-              f"reference file's after its epoch", flush=True)
-        # the auto-resume restored exactly the saved state, once
-        require(restores == [("posed_resumed", True)],
-                f"entry point: restores {restores}, one bitwise restore expected")
-        per_epoch = epochs["posed_resumed"]["train"][0][0] // (TRAIN_B * T)
-        require(snapshots["posed_resumed"]["other_state"]["step"]
-                == snapshots["posed"]["other_state"]["step"]
-                + (snapshots["posed_resumed"]["epoch"] + 1) * per_epoch,
-                "entry point: the resumed run did not continue the saved step count")
-        # --only_eval against the eval logged for the epoch the checkpoint holds
-        held = out["posed_resumed"][snapshots["posed_resumed"]["epoch"]]["eval"]
-        only = out["only_eval"]
-        eval_err = max(abs(only[k] - v) / max(abs(v), 1e-12) for k, v in held.items())
-        print(f"entry point --only_eval vs the logged eval of epoch "
-              f"{snapshots['posed_resumed']['epoch']}: largest relative difference "
-              f"{eval_err:.3e}", flush=True)
-        require(sorted(only) == sorted(held) and eval_err <= ENTRY_TOL,
-                f"entry point --only_eval: relative difference {eval_err} > {ENTRY_TOL}")
+    state = snapshots["mgn"]["model_state"]
+    want = map_reference_state_dict(reference_sd)
+    require(sorted(f"canonical.{k}" for k in want) == sorted(
+        k for k in state if k.startswith("canonical.")
+        and not k.endswith("num_batches_tracked")) and all(
+        same_bits(state[f"canonical.{k}"], v) for k, v in want.items()),
+        "entry point mgn: the canonical stage differs from the reference file")
+    print(f"entry point mgn: the canonical stage ({len(want)} tensors) bitwise the "
+          f"reference file's after its epoch", flush=True)
+    # the auto-resume restored exactly the saved state, once
+    require(restores == [("posed_resumed", True)],
+            f"entry point: restores {restores}, one bitwise restore expected")
+    per_epoch = epochs["posed_resumed"]["train"][0][0] // (TRAIN_B * T)
+    require(snapshots["posed_resumed"]["other_state"]["step"]
+            == snapshots["posed"]["other_state"]["step"]
+            + (snapshots["posed_resumed"]["epoch"] + 1) * per_epoch,
+            "entry point: the resumed run did not continue the saved step count")
+    # --only_eval against the eval logged for the epoch the checkpoint holds
+    held = out["posed_resumed"][snapshots["posed_resumed"]["epoch"]]["eval"]
+    only = out["only_eval"]
+    eval_err = max(abs(only[k] - v) / max(abs(v), 1e-12) for k, v in held.items())
+    print(f"entry point --only_eval vs the logged eval of epoch "
+          f"{snapshots['posed_resumed']['epoch']}: largest relative difference "
+          f"{eval_err:.3e}", flush=True)
+    require(sorted(only) == sorted(held) and eval_err <= ENTRY_TOL,
+            f"entry point --only_eval: relative difference {eval_err} > {ENTRY_TOL}")
 
-        # one finalize_batch on the card against the same raw batch on the CPU
-        from garment4d_tpu_torch.utils.config import load_config
+    # one finalize_batch on the card against the same raw batch on the CPU
+    from garment4d_tpu_torch.utils.config import load_config
 
-        cfg = load_config(tree["cfg"])
-        ds = Cloth3dDataset(Cloth3dPaths(root=str(root), template_prefix=str(
-            root / "CLOTH3D_template")), tree["lists"]["eval"], "Skirt", T=T,
-            npoints=cfg.NETWORK.NPOINTS, is_train=False, body_verts=N)
-        raw = ds.collate([ds.raw_item(i) for i in (0, 4, 8, 12)])
-        smpl_paths = {g: str(Path(tree["smpl_dir"]) / f"SMPL_{g.upper()}.npz")
-                      for g in ("male", "female")}
-        got = finalize_batch(raw, {g: load_smpl(p, "cuda") for g, p in smpl_paths.items()})
-        want = finalize_batch(raw, {g: load_smpl(p, "cpu") for g, p in smpl_paths.items()})
-        fin_err = 0.0
-        for k, w in want.items():
-            g = got[k].cpu()
-            if w.dtype.is_floating_point:
-                fin_err = max(fin_err, ((g - w).abs() / (1 + w.abs())).max().item())
-            else:
-                require(torch.equal(g, w), f"finalize_batch {k}: card and CPU differ")
-        print(f"finalize_batch (B={raw['pose'].shape[0]}, T={T}, N={cfg.NETWORK.NPOINTS}) card "
-              f"vs CPU: largest difference {fin_err:.3e} (relative beyond 1); indices and "
-              f"labels equal", flush=True)
-        require(fin_err <= ENTRY_TOL, f"finalize_batch card vs CPU {fin_err} > {ENTRY_TOL}")
+    cfg = load_config(tree["cfg"])
+    ds = Cloth3dDataset(Cloth3dPaths(root=str(root), template_prefix=str(
+        root / "CLOTH3D_template")), tree["lists"]["eval"], "Skirt", T=T,
+        npoints=cfg.NETWORK.NPOINTS, is_train=False, body_verts=N)
+    raw = ds.collate([ds.raw_item(i) for i in (0, 4, 8, 12)])
+    smpl_paths = {g: str(Path(tree["smpl_dir"]) / f"SMPL_{g.upper()}.npz")
+                  for g in ("male", "female")}
+    got = finalize_batch(raw, {g: load_smpl(p, "cuda") for g, p in smpl_paths.items()})
+    want = finalize_batch(raw, {g: load_smpl(p, "cpu") for g, p in smpl_paths.items()})
+    fin_err = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.dtype.is_floating_point:
+            fin_err = max(fin_err, ((g - w).abs() / (1 + w.abs())).max().item())
+        else:
+            require(torch.equal(g, w), f"finalize_batch {k}: card and CPU differ")
+    print(f"finalize_batch (B={raw['pose'].shape[0]}, T={T}, N={cfg.NETWORK.NPOINTS}) card "
+          f"vs CPU: largest difference {fin_err:.3e} (relative beyond 1); indices and "
+          f"labels equal", flush=True)
+    require(fin_err <= ENTRY_TOL, f"finalize_batch card vs CPU {fin_err} > {ENTRY_TOL}")
 
-        # the data path alone, per stage and loader width (`--num_workers`
-        # 0, 1 and 8): one train epoch's batches read by the loader and
-        # completed on the card with no step between them (two passes; the
-        # first reads each sequence's files cold), and one batch's
-        # `finalize_batch` by itself
-        from garment4d_tpu_torch.data.pipeline import ParallelItemLoader
-        from garment4d_tpu_torch.utils.config import parse_args
+    # the data path alone, per stage and loader width (`--num_workers`
+    # 0, 1 and 8): one train epoch's batches read by the loader and
+    # completed on the card with no step between them (two passes; the
+    # first reads each sequence's files cold), and one batch's
+    # `finalize_batch` by itself
+    from garment4d_tpu_torch.data.pipeline import ParallelItemLoader
+    from garment4d_tpu_torch.utils.config import parse_args
 
-        data_path = {}
-        bodies = {g: load_smpl(p, "cuda") for g, p in smpl_paths.items()}
-        for label, argv in (("canonical", runs["canonical"][0]), ("posed", posed_args)):
-            widths = {}
-            for workers in ENTRY_WORKERS:
-                run_args, run_cfg = parse_args([*argv, "--num_workers", str(workers)])
-                loaders = []
-                try:
-                    train_batches, _ = train_temporal.cloth3d_batches(
-                        run_args, run_cfg, run_cfg.NETWORK.NPOINTS, bodies,
-                        torch.device("cuda"), logging.getLogger("chip_smoke"), loaders)
-                    passes = []
-                    for _ in range(2):
-                        t0, frames = time.perf_counter(), 0
-                        for batch in train_batches(1):
-                            frames += batch["pcd"].shape[0] * batch["pcd"].shape[1]
-                        torch.cuda.synchronize()
-                        passes.append(frames / (time.perf_counter() - t0))
-                finally:
-                    for loader in loaders:
-                        loader.close()
-                widths[workers] = dict(cold_frames_per_sec=passes[0], frames_per_sec=passes[1])
-                print(f"entry point {label} data path alone (B={run_args.batch_size}, "
-                      f"--num_workers {workers}): {passes[1]:.2f} frames/s (cold pass "
-                      f"{passes[0]:.2f})", flush=True)
-            raw = ds.collate([ds.raw_item(i % len(ds)) for i in range(run_args.batch_size)])
-            fin_ms = wall_s(lambda: finalize_batch(raw, bodies)) * 1e3
-            data_path[label] = dict(by_workers=widths, finalize_ms=fin_ms,
-                                    batch=run_args.batch_size)
-            print(f"entry point {label} finalize_batch (B={run_args.batch_size}): {fin_ms:.2f} "
-                  f"ms a batch", flush=True)
-
-        # the loader alone (`raw_item` and `collate` on the host, nothing on
-        # the card) over the canonical stage's train windows, their
-        # sequences' files read once before
-        train_ds = Cloth3dDataset(Cloth3dPaths(root=str(root), template_prefix=str(
-            root / "CLOTH3D_template")), tree["lists"]["train"], "Skirt", T=T,
-            npoints=cfg.NETWORK.NPOINTS, is_train=True, body_verts=N)
-        index_batches = [list(range(i, i + CANON_B))
-                         for i in range(0, len(train_ds) - CANON_B + 1, CANON_B)]
-        for idxs in index_batches:
-            train_ds.collate([train_ds.raw_item(i) for i in idxs])
-        loader_alone = {}
+    data_path = {}
+    bodies = {g: load_smpl(p, "cuda") for g, p in smpl_paths.items()}
+    for label, argv in (("canonical", runs["canonical"][0]), ("posed", posed_args)):
+        widths = {}
         for workers in ENTRY_WORKERS:
-            loader = ParallelItemLoader(train_ds.raw_item, num_workers=workers)
+            run_args, run_cfg = parse_args([*argv, "--num_workers", str(workers)])
+            loaders = []
             try:
-                t0 = time.perf_counter()
-                for items in loader.map_batches(index_batches):
-                    train_ds.collate(items)
-                secs = time.perf_counter() - t0
+                train_batches, _ = train_temporal.cloth3d_batches(
+                    run_args, run_cfg, run_cfg.NETWORK.NPOINTS, bodies,
+                    torch.device("cuda"), logging.getLogger("chip_smoke"), loaders)
+                passes = []
+                for _ in range(2):
+                    t0, frames = time.perf_counter(), 0
+                    for batch in train_batches(1):
+                        frames += batch["pcd"].shape[0] * batch["pcd"].shape[1]
+                    torch.cuda.synchronize()
+                    passes.append(frames / (time.perf_counter() - t0))
             finally:
-                loader.close()
-            windows = sum(len(b) for b in index_batches)
-            loader_alone[workers] = dict(frames_per_sec=windows * T / secs,
-                                         ms_per_window=secs / windows * 1e3)
-            print(f"entry point loader alone (--num_workers {workers}, {windows} windows of "
-                  f"{T} frames): {windows * T / secs:.2f} frames/s, "
-                  f"{secs / windows * 1e3:.2f} ms a window", flush=True)
+                for loader in loaders:
+                    loader.close()
+            widths[workers] = dict(cold_frames_per_sec=passes[0], frames_per_sec=passes[1])
+            print(f"entry point {label} data path alone (B={run_args.batch_size}, "
+                  f"--num_workers {workers}): {passes[1]:.2f} frames/s (cold pass "
+                  f"{passes[0]:.2f})", flush=True)
+        raw = ds.collate([ds.raw_item(i % len(ds)) for i in range(run_args.batch_size)])
+        fin_ms = wall_s(lambda: finalize_batch(raw, bodies)) * 1e3
+        data_path[label] = dict(by_workers=widths, finalize_ms=fin_ms,
+                                batch=run_args.batch_size)
+        print(f"entry point {label} finalize_batch (B={run_args.batch_size}): {fin_ms:.2f} "
+              f"ms a batch", flush=True)
+
+    # the loader alone (`raw_item` and `collate` on the host, nothing on
+    # the card) over the canonical stage's train windows, their
+    # sequences' files read once before
+    train_ds = Cloth3dDataset(Cloth3dPaths(root=str(root), template_prefix=str(
+        root / "CLOTH3D_template")), tree["lists"]["train"], "Skirt", T=T,
+        npoints=cfg.NETWORK.NPOINTS, is_train=True, body_verts=N)
+    index_batches = [list(range(i, i + CANON_B))
+                     for i in range(0, len(train_ds) - CANON_B + 1, CANON_B)]
+    for idxs in index_batches:
+        train_ds.collate([train_ds.raw_item(i) for i in idxs])
+    loader_alone = {}
+    for workers in ENTRY_WORKERS:
+        loader = ParallelItemLoader(train_ds.raw_item, num_workers=workers)
+        try:
+            t0 = time.perf_counter()
+            for items in loader.map_batches(index_batches):
+                train_ds.collate(items)
+            secs = time.perf_counter() - t0
+        finally:
+            loader.close()
+        windows = sum(len(b) for b in index_batches)
+        loader_alone[workers] = dict(frames_per_sec=windows * T / secs,
+                                     ms_per_window=secs / windows * 1e3)
+        print(f"entry point loader alone (--num_workers {workers}, {windows} windows of "
+              f"{T} frames): {windows * T / secs:.2f} frames/s, "
+              f"{secs / windows * 1e3:.2f} ms a window", flush=True)
     torch.cuda.synchronize()
 
     fps = {}
@@ -2751,7 +2789,7 @@ def entry_point_phase(step_fps: dict) -> dict:
     phase_s = time.perf_counter() - t_phase
     print(f"entry point phase: {phase_s:.1f} s (tree written in {setup_s:.1f} s)", flush=True)
     return dict(launches=launches, frames_per_sec=fps, loader_alone=loader_alone,
-                only_eval_rel_err=eval_err, finalize_err=fin_err, phase_s=phase_s)
+                only_eval_rel_err=eval_err, finalize_err=fin_err, phase_s=phase_s, tree=tree)
 
 
 # ---- phase 8: the MGN variant and the reference's checkpoint files --------
@@ -2995,8 +3033,6 @@ def reference_files_phase(assets, body, pcd, body_in) -> dict:
     the card through `GarmentReconstructor.from_assets(checkpoint=)` and
     `load_pretrained`: every tensor loaded and bitwise, one finite forward
     of each."""
-    import tempfile
-
     from garment4d_tpu_torch import api
     from garment4d_tpu_torch.models import MgnGarmentModel
     from garment4d_tpu_torch.train.checkpoint import load_pretrained
@@ -3031,6 +3067,496 @@ def reference_files_phase(assets, body, pcd, body_in) -> dict:
     print("reference files: the posed and MGN forwards of the loaded weights finite",
           flush=True)
     return counts
+
+
+# ---- phase 9: data parallelism on torch.distributed --------------------------
+
+DP_WORLD = 2  # the ranks of phase 9b, all on the one card
+DP_RANK_TIMEOUT = 600  # seconds a rank of phase 9b may take, its start included
+DP1_TOL = dict(loss=1e-5, stats=1e-6, grad=1e-2)  # 9a: one rank over NCCL vs no group
+DP2_TOL = dict(loss=1e-4, stats=1e-5, grad=2e-2)  # 9b: two ranks vs one process
+ZERO_GRAD = 1e-5  # of the largest gradient norm: a gradient zero in exact arithmetic
+# 9b, the posed step's per-sample loss entries: against one process on the same rows
+# (the same forward at B=2), and against one process at B=4 (fp32 rounding of another
+# batch size, 2.07e-4 in one frame on the card, amplified by the refinement)
+PER_SAMPLE_EXACT, PER_SAMPLE_TOL = 1e-6, 2e-3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, port: int) -> dict:
+    """The variables torchrun gives a process of one host's group."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+@contextlib.contextmanager
+def torchrun_vars(rank: int, world: int):
+    """This process's environment as torchrun's rank `rank` of `world`, for
+    `--launcher pytorch`; the previous values come back after."""
+    env = torchrun_env(rank, world, free_port())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """torch's deterministic algorithms (warnings only where an op has
+    none) inside, when `on`."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def dp_state(stage: str, assets, body, weights, dev):
+    """(train state, train step) of phase 5's posed or phase 6's canonical
+    train step from `posed_synth.npz`; in a process group, a replica of a
+    data-parallel run."""
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.models import CanonicalGarmentModel
+    from garment4d_tpu_torch.train import (load_npz_subtree, make_canonical_steps,
+                                           make_posed_steps, make_state_for)
+
+    if stage == "posed":
+        model = GarmentReconstructor.from_npz(assets, body, weights, device=dev).model
+        state = make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
+        return state, make_posed_steps(model, assets, body.faces)[0]
+    model = CanonicalGarmentModel(assets).to(dev)
+    model.load_state_dict(load_npz_subtree(weights, "canonical"), strict=True)
+    state = make_state_for(model, lr=TRAIN_LR)
+    return state, make_canonical_steps(model, assets, body.faces)[0]
+
+
+DP_STAGES = {"canonical": (CANON_B, CANON_TRAIN_KERNELS), "posed": (TRAIN_B, POSED_TRAIN_KERNELS)}
+
+
+def dp_step_args(stage: str, batch, dev):
+    """The step's arguments after the state: the batch, and for the
+    canonical stage a fresh dropout generator seeded 1 (phase 6's)."""
+    if stage == "posed":
+        return (batch,)
+    return batch, torch.Generator(device=dev).manual_seed(1)
+
+
+def step_record(state, losses) -> dict:
+    """A copy on the CPU of one step's loss dict, gradients, parameters and
+    buffers."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    model = state.model
+    return dict(losses={k: host(v) for k, v in losses.items()},
+                grads={n: host(p.grad) for n, p in model.named_parameters()
+                       if p.grad is not None},
+                params={n: host(p) for n, p in model.named_parameters()},
+                buffers={n: host(b) for n, b in model.named_buffers()})
+
+
+def record_errors(got: dict, want: dict) -> dict:
+    """`got` against `want` (the key sets must agree): the largest relative
+    difference of a loss scalar (the 0-d entries; the per-sample entries'
+    largest elementwise one beside it, `per_sample`, gated in 9b by
+    `per_sample_errors`), the largest running-statistic difference
+    relative to its tensor's largest magnitude, and the largest relative L2
+    difference of a gradient. A gradient whose norm is below ZERO_GRAD of
+    the largest in `want` is zero in exact arithmetic (the canonical PCA
+    head's conv biases and the garment summary's last BatchNorm bias, each
+    followed by a train-mode BatchNorm that cancels a shift), so fp32 leaves
+    rounding noise there: it is held below ten times ZERO_GRAD of the
+    largest on both sides instead (`zero`: its largest norm on either side
+    over ZERO_GRAD of the largest)."""
+    require(sorted(got["losses"]) == sorted(want["losses"]), "loss keys differ")
+    require(sorted(got["grads"]) == sorted(want["grads"]), "the tensors with a gradient differ")
+    rel = {k: float(((got["losses"][k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+           for k, v in want["losses"].items()}
+    loss = {k: e for k, e in rel.items() if want["losses"][k].ndim == 0}
+    per_sample = {k: e for k, e in rel.items() if k not in loss}
+    stats = {n: float((got["buffers"][n] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+             for n, v in want["buffers"].items() if "running" in n}
+    largest = max(float(g.norm()) for g in want["grads"].values())
+    zero = {n for n, g in want["grads"].items() if float(g.norm()) < ZERO_GRAD * largest}
+    grads = {n: rel_l2(got["grads"][n], g) for n, g in want["grads"].items() if n not in zero}
+    zero_scale = max((max(float(got["grads"][n].norm()), float(want["grads"][n].norm()))
+                      / (ZERO_GRAD * largest) for n in zero), default=0.0)
+    return dict(loss=max(loss.values()), loss_key=max(loss, key=loss.get),
+                per_sample=max(per_sample.values(), default=0.0),
+                per_sample_key=max(per_sample, key=per_sample.get, default=None),
+                stats=max(stats.values(), default=0.0),
+                stats_key=max(stats, key=stats.get, default=None),
+                grad=max(grads.values()), grad_key=max(grads, key=grads.get),
+                zero=zero_scale, zero_keys=sorted(zero))
+
+
+def records_equal(a: dict, b: dict) -> list:
+    """The (part, name) pairs where two step records differ in any bit."""
+    return [(part, name) for part in ("losses", "grads", "params", "buffers")
+            for name in sorted(set(a[part]) | set(b[part]))
+            if name not in a[part] or name not in b[part]
+            or not same_bits(a[part][name], b[part][name])]
+
+
+def check_errors(label: str, err: dict, tol: dict) -> None:
+    print(f"{label}: losses within {err['loss']:.3e} relative ({err['loss_key']}; per sample "
+          f"{err['per_sample']:.3e}, {err['per_sample_key']}), running "
+          f"statistics within {err['stats']:.3e} ({err['stats_key']}), gradients within "
+          f"{err['grad']:.3e} relative L2 ({err['grad_key']}); zero in exact arithmetic "
+          f"{err['zero_keys']}: within {err['zero']:.3f} x {ZERO_GRAD} of the largest",
+          flush=True)
+    for key in ("loss", "stats", "grad"):
+        require(err[key] <= tol[key], f"{label}: {key} difference {err[key]} > {tol[key]}")
+    require(err["zero"] < 10.0, f"{label}: a gradient zero in exact arithmetic is not: {err}")
+
+
+def per_sample_errors(got: dict, want: dict, halves: dict) -> dict:
+    """9b's gate on the posed step's per-sample loss entries (B, T): the
+    two ranks' entries, gathered in rank order, against one process's on
+    the same rows (`halves`: a step on each rank's two sequences alone,
+    9a) within PER_SAMPLE_EXACT relative, and against one process's step
+    at B=4 within PER_SAMPLE_TOL. Beside them two readings that place
+    PER_SAMPLE_TOL: the control, `halves` against the B=4 step (the same
+    rows, another batch size; the trained part has no BatchNorm, so they
+    differ by fp32 rounding alone, which the refinement amplifies), which
+    must fall below it, and the rank blocks in the wrong order against the
+    B=4 step, which must fall above it, or the gate could not see that
+    fault."""
+    def worst(entries, ref):
+        return max(float(((entries[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                   for k, v in ref.items())
+
+    per_sample = {k: v for k, v in want.items() if v.ndim}
+    require(per_sample and sorted(halves) == sorted(per_sample),
+            f"per-sample entries {sorted(per_sample)}, halves {sorted(halves)}")
+    swapped = {k: torch.cat(v.chunk(DP_WORLD)[::-1]) for k, v in halves.items()}
+    err = dict(per_sample_ranks_vs_halves=worst(got, halves),
+               per_sample_ranks_vs_single=worst(got, per_sample),
+               per_sample_control=worst(halves, per_sample),
+               per_sample_wrong_order=worst(swapped, per_sample))
+    print(f"posed per-sample entries {sorted(per_sample)}: two ranks vs one process on the "
+          f"same rows {err['per_sample_ranks_vs_halves']:.3e}, two ranks vs one process at "
+          f"B={TRAIN_B} {err['per_sample_ranks_vs_single']:.3e}; control (one process at "
+          f"B={TRAIN_B // DP_WORLD} on each half vs B={TRAIN_B}) "
+          f"{err['per_sample_control']:.3e}, rank blocks swapped "
+          f"{err['per_sample_wrong_order']:.3e}; gate {PER_SAMPLE_TOL}", flush=True)
+    require(err["per_sample_ranks_vs_halves"] <= PER_SAMPLE_EXACT,
+            f"9b posed per-sample entries vs one process on the same rows: {err}")
+    require(err["per_sample_control"] <= PER_SAMPLE_TOL,
+            f"9b control above the per-sample gate: {err}")
+    require(err["per_sample_ranks_vs_single"] <= PER_SAMPLE_TOL,
+            f"9b posed per-sample entries vs one process at B={TRAIN_B}: {err}")
+    require(err["per_sample_wrong_order"] > PER_SAMPLE_TOL,
+            f"9b: the per-sample gate would not see the rank blocks swapped: {err}")
+    return err
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A process group of this one process over NCCL (torchrun's variables
+    for rank 0 of 1), ended after: the switch of the data-parallel path."""
+    from garment4d_tpu_torch import parallel
+
+    with torchrun_vars(0, 1):
+        info = parallel.initialize_distributed("pytorch", device="cuda")
+    try:
+        require(info["backend"] == "nccl" and info["process_count"] == 1,
+                f"world-1 group: {info}")
+        yield info
+    finally:
+        parallel.shutdown()
+    require(not torch.distributed.is_initialized(), "9a left its group behind")
+
+
+def dp_path(stage: str, label: str, assets, body, weights) -> dict:
+    """One 9a run of a train step at its phase's shape (phase 5's posed at
+    B=4, phase 6's canonical at B=20, seed 1), from `posed_synth.npz`: the
+    step once with the launch counters at 0 before it, its FPS frames and
+    all-reduce calls recorded (the posed one under deterministic
+    algorithms); then, but for `plain again`, frames/s (median of 5 after
+    2 warm-ups) and the device ms and NCCL kernels of a step by the
+    profiler."""
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.nn import BatchNorm
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    dev = torch.device("cuda")
+    batch_size, names = DP_STAGES[stage]
+    batch = make_batch(assets, body, batch_size=batch_size, T=T, npoints=N, seed=1, device=dev)
+    state, step = dp_state(stage, assets, body, weights, dev)
+    with deterministic(stage == "posed"), \
+            recording(pc, "_fps_kernel", keep=lambda a, k, r: int(a[0].shape[0])) as fps_calls, \
+            recording(torch.distributed, "all_reduce",
+                      keep=lambda a, k, r: a[0].numel()) as reduce_calls:
+        losses, launches = counted(f"{stage} train step, {label}",
+                                   lambda: step(state, *dp_step_args(stage, batch, dev)), names)
+    out = dict(record=step_record(state, losses), launches=launches,
+               fps_frames=list(fps_calls), reduces=list(reduce_calls),
+               batchnorms=sum(isinstance(m, BatchNorm) and m.training
+                              for m in state.model.modules()))
+    if label != "plain again":
+        secs = wall_s(lambda: step(state, *dp_step_args(stage, batch, dev)), runs=5, warmup=2)
+        rows, dev_ms = profile_device(lambda: step(state, *dp_step_args(stage, batch, dev)),
+                                      runs=1)
+        nccl = [r for r in rows if "nccl" in r[2].lower()]
+        out.update(frames_per_sec=batch_size * T / secs, profile=dict(
+            device_ms=dev_ms, nccl_launches=sum(r[1] for r in nccl),
+            nccl_ms=sum(r[0] for r in nccl), nccl_kernels=sorted({r[2] for r in nccl})))
+        print(f"{stage} train step, {label}: {out['frames_per_sec']:.2f} frames/s "
+              f"({secs * 1e3:.2f} ms a step), device {dev_ms:.3f} ms a step, "
+              f"NCCL {out['profile']['nccl_launches']:.0f} launches "
+              f"{out['profile']['nccl_ms']:.4f} ms a step {out['profile']['nccl_kernels']}",
+              flush=True)
+    del state, step, losses, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def posed_halves(assets, body, weights) -> dict:
+    """For 9b's per-sample gate: the posed step's per-sample loss entries of
+    one process on each rank's rows of 9a's batch alone (B=2 each, under
+    deterministic algorithms), in rank order."""
+    from garment4d_tpu_torch import parallel
+    from garment4d_tpu_torch.data.synthetic import make_batch
+
+    dev = torch.device("cuda")
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    parts = []
+    for r in range(DP_WORLD):
+        state, step = dp_state("posed", assets, body, weights, dev)
+        with deterministic(True):
+            losses = step(state, parallel.shard_batch(batch, r, DP_WORLD))
+        parts.append({k: v.to("cpu", copy=True) for k, v in losses.items() if v.ndim})
+        del state, step, losses
+    torch.cuda.empty_cache()
+    return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+
+
+def dp_world_one(assets, body, weights) -> dict:
+    """9a: each train step (`dp_path`) without a process group, the posed
+    one twice, and then, in one group of one rank over NCCL, through the
+    data-parallel path, from the same weights, batch and generator. The
+    posed step bitwise (its trained part has no BatchNorm; all runs under
+    deterministic algorithms, which make the losses' `index_add_` atomics
+    repeat, as its second run without the group shows); the canonical one
+    within DP1_TOL (its BatchNorm moments summed in another order); the
+    same launches on both paths; the all-reduce calls counted. Also 9b's
+    `posed_halves`."""
+    runs = {stage: {"plain": dp_path(stage, "plain", assets, body, weights)}
+            for stage in DP_STAGES}
+    runs["posed"]["plain again"] = dp_path("posed", "plain again", assets, body, weights)
+    halves = posed_halves(assets, body, weights)
+    with world_of_one():
+        for stage in DP_STAGES:
+            runs[stage]["data parallel"] = dp_path(stage, "data parallel", assets, body, weights)
+    out = {}
+    for stage, run in runs.items():
+        plain, dp = run["plain"], run["data parallel"]
+        if stage == "posed":
+            control = records_equal(plain["record"], run["plain again"]["record"])
+            differ = records_equal(plain["record"], dp["record"])
+            print(f"posed train step under deterministic algorithms: plain vs plain again "
+                  f"{len(control)} tensors differ, data parallel vs plain {len(differ)} "
+                  f"{differ[:5]}", flush=True)
+            require(not control, f"the posed step does not repeat itself: {control[:5]}")
+            require(not differ, f"posed step, data parallel vs plain: {differ[:5]}")
+            err = dict(loss=0.0, stats=0.0, grad=0.0, differ=0)
+        else:
+            err = record_errors(dp["record"], plain["record"])
+            check_errors("canonical train step, world of one over NCCL vs no group", err,
+                         DP1_TOL)
+        # a BatchNorm in training: one all-reduce of its moments forward and one
+        # of their gradient backward; then the gradients' and the losses'
+        want = 2 * dp["batchnorms"] + 2
+        print(f"{stage} train step, data parallel: {len(dp['reduces'])} all-reduces a step "
+              f"({want} expected: {dp['batchnorms']} BatchNorms in training), "
+              f"{sum(dp['reduces'])} floats", flush=True)
+        require(len(dp["reduces"]) == want and not plain["reduces"],
+                f"{stage}: all-reduces {len(dp['reduces'])} on the data-parallel path "
+                f"({want} expected), {len(plain['reduces'])} without")
+        require(dp["launches"] == plain["launches"],
+                f"{stage}: launches {dp['launches']} vs {plain['launches']}")
+        out[stage] = dict(
+            frames_per_sec={k: run[k]["frames_per_sec"] for k in ("plain", "data parallel")},
+            profile={k: run[k]["profile"] for k in ("plain", "data parallel")}, errors=err,
+            all_reduces=len(dp["reduces"]), all_reduce_floats=sum(dp["reduces"]),
+            launches=dp["launches"], single=plain["record"],
+            halves=halves if stage == "posed" else None, fps_frames=plain["fps_frames"])
+    return out
+
+
+def dp_rank_main(outdir: Path) -> int:
+    """One rank of 9b (`chip_smoke.py --dp-rank OUTDIR`, torchrun's
+    variables in the environment): joins the gloo group on the card, runs
+    each train step on its share of the global batch (the posed one under
+    deterministic algorithms, as 9a's) with the launch counters at 0 before
+    it and the FPS launches' frame counts recorded, and writes what it saw
+    to OUTDIR/rank<r>.pt."""
+    from garment4d_tpu_torch import parallel
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.models import GarmentAssets
+    from garment4d_tpu_torch.ops import _build, pointcloud as pc
+    from garment4d_tpu_torch.smpl import synthetic_smpl
+
+    info = parallel.initialize_distributed("pytorch", backend="gloo", device="cuda")
+    try:
+        _build.library()
+        dev = info["device"]
+        assets = GarmentAssets.synthetic(num_rings=RINGS, ring_size=RING_SIZE)
+        body = synthetic_smpl(num_verts=N, device=dev)
+        weights = str(REPO / "ckpt_synth" / "posed_synth.npz")
+        out = dict(info={k: str(v) for k, v in info.items()})
+        for stage, (batch_size, names) in DP_STAGES.items():
+            state, step = dp_state(stage, assets, body, weights, dev)
+            batch = parallel.shard_batch(make_batch(assets, body, batch_size=batch_size, T=T,
+                                                    npoints=N, seed=1, device=dev))
+            args = dp_step_args(stage, batch, dev)
+            parallel.barrier()
+            t0 = time.perf_counter()
+            with deterministic(stage == "posed"), \
+                    recording(pc, "_fps_kernel", keep=lambda a, k, r: int(a[0].shape[0])) \
+                    as fps_calls:
+                losses, launches = counted(f"rank {info['process_index']} {stage} train step",
+                                           lambda: step(state, *args), names)
+            wall = time.perf_counter() - t0
+            out[stage] = dict(step_record(state, losses), launches=launches,
+                              fps_frames=list(fps_calls), wall_s=wall)
+            del state, step, batch, args, losses
+            torch.cuda.empty_cache()
+        torch.save(out, outdir / f"rank{info['process_index']}.pt")
+        parallel.barrier()
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def dp_two_ranks(single: dict, root: Path) -> dict:
+    """9b: two ranks on the one card over gloo (NCCL refuses two ranks of
+    one GPU), each a process of its own with its half of phase 5's and
+    phase 6's global batches; against 9a's single-process steps (moved to
+    the CPU, the card freed before): replicas bitwise, losses, statistics
+    and gradients within DP2_TOL, the posed step's per-sample entries by
+    `per_sample_errors`, each rank's kernels launched at its share of the
+    frames."""
+    outdir = root / "dp_ranks"
+    outdir.mkdir()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--dp-rank",
+                               str(outdir)], env={**os.environ, **torchrun_env(r, DP_WORLD, port)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    try:
+        outs = [p.communicate(timeout=DP_RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        print("\n".join(f"[rank {r}] {line}" for line in text.splitlines()[-12:]), flush=True)
+        require(p.returncode == 0, f"9b: rank {r} exited with {p.returncode}")
+    ranks = [torch.load(outdir / f"rank{r}.pt", map_location="cpu", weights_only=False)
+             for r in range(DP_WORLD)]
+    out = {}
+    for stage in DP_STAGES:
+        a, b = ranks[0][stage], ranks[1][stage]
+        differ = records_equal(a, b)
+        require(not differ, f"9b {stage}: the two ranks differ in {differ[:5]}")
+        err = record_errors(a, single[stage]["single"])
+        check_errors(f"{stage} train step, two ranks on one card vs one process", err, DP2_TOL)
+        if single[stage]["halves"] is not None:
+            err.update(per_sample_errors(a["losses"], single[stage]["single"]["losses"],
+                                         single[stage]["halves"]))
+        want = [f // DP_WORLD for f in single[stage]["fps_frames"]]
+        for r, rank in enumerate(ranks):
+            require(rank[stage]["fps_frames"] == want,
+                    f"9b {stage} rank {r}: FPS over {rank[stage]['fps_frames']} frames, "
+                    f"{want} expected")
+        print(f"{stage} train step, two ranks sharing one card: replicas bitwise, FPS launches "
+              f"over {want} frames a rank (one process: {single[stage]['fps_frames']}); "
+              f"rank steps {[round(r[stage]['wall_s'], 3) for r in ranks]} s (two ranks "
+              f"sharing one card, not a scaling number)", flush=True)
+        out[stage] = dict(errors=err, launches=[r[stage]["launches"] for r in ranks],
+                          fps_frames=want, step_wall_s=[r[stage]["wall_s"] for r in ranks])
+    out["ranks_wall_s"] = wall
+    print(f"9b: both ranks, their start and build load included, {wall:.1f} s", flush=True)
+    return out
+
+
+def dp_entry_point(root: Path, tree: dict, phase7_fps) -> dict:
+    """9c: the entry point under `--launcher pytorch` with WORLD_SIZE=1
+    (NCCL) on phase 7's tree: one canonical epoch at B=20, then one posed
+    epoch (`--fix_PCA 1`) from its checkpoint. Losses finite, each
+    checkpoint written once by rank 0, the launch counters nonzero, no
+    group left behind; train frames/s beside phase 7's."""
+    from garment4d_tpu_torch import train_temporal
+    from garment4d_tpu_torch.train import checkpoint
+
+    def args(out, *extra):
+        return ["--config", tree["cfg"], "--smpl_model_dir", tree["smpl_dir"], "--T", str(T),
+                "--lr", str(TRAIN_LR), "--epoch_num", "1", "--launcher", "pytorch",
+                "--output_dir", str(root / out), *extra]
+
+    canon_ckpt = str(root / "dp_canonical" / "ckpt" / "model.ckpt")
+    runs = {
+        "canonical": (args("dp_canonical", "--GarmentPCA", "1", "--batch_size", str(CANON_B)),
+                      CANON_TRAIN_KERNELS + ["fused_chain"], canon_ckpt),
+        "posed": (args("dp_posed", "--GarmentPCALBS", "1", "--fix_PCA", "1",
+                       "--GarmentPCA_pretrain", canon_ckpt, "--batch_size", str(TRAIN_B)),
+                  POSED_TRAIN_KERNELS, str(root / "dp_posed" / "ckpt" / "model.ckpt")),
+    }
+    out = {}
+    for label, (argv, names, ckpt) in runs.items():
+        with torchrun_vars(0, 1), timed_epochs() as times, \
+                recording(checkpoint, "save_checkpoint", keep=lambda a, k, r: a[0]) as saves:
+            history, launches = counted(f"entry point --launcher pytorch {label}",
+                                        lambda: train_temporal.main(argv), names)
+        require(not torch.distributed.is_initialized(), f"9c {label}: a group left behind")
+        require(saves == [ckpt] and os.path.isfile(ckpt),
+                f"9c {label}: checkpoints written {saves}, one at {ckpt} expected")
+        for row in [h[s] for h in history for s in ("train", "eval")]:
+            require(row and all(math.isfinite(v) for v in row.values()),
+                    f"9c {label}: non-finite or missing losses {row}")
+        frames = sum(f for f, _ in times["train"])
+        fps = frames / sum(s for _, s in times["train"])
+        before = phase7_fps[label]["frames_per_sec"]
+        print(f"entry point --launcher pytorch (WORLD_SIZE=1, NCCL) {label}: {fps:.2f} train "
+              f"frames/s over one epoch of {frames} frames; phase 7 without --launcher "
+              f"{before:.2f} over two epochs",
+              flush=True)
+        out[label] = dict(frames_per_sec=fps, phase7_frames_per_sec=before, launches=launches,
+                          saves=len(saves))
+    return out
+
+
+def data_parallel_phase(assets, body, weights, root: Path, tree: dict, phase7_fps) -> dict:
+    """Phase 9: 9a, 9b, 9c, and their seconds."""
+    t0 = time.perf_counter()
+    world_one = dp_world_one(assets, body, weights)
+    torch.cuda.empty_cache()
+    two_ranks = dp_two_ranks(world_one, root)
+    entry = dp_entry_point(root, tree, phase7_fps)
+    phase_s = time.perf_counter() - t0
+    print(f"data-parallel phase: {phase_s:.1f} s", flush=True)
+    for stage in DP_STAGES:
+        world_one[stage].pop("single")
+        world_one[stage].pop("halves")
+    return dict(world_one=world_one, two_ranks=two_ranks, entry_point=entry, phase_s=phase_s)
 
 
 def counted(label, fn, names):
@@ -3583,6 +4109,8 @@ def main() -> int:
         return time_kernels(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) > 2:
         return ab(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) > 2:
+        return dp_rank_main(Path(sys.argv[2]))
     from garment4d_tpu_torch import ops
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
@@ -3758,25 +4286,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     canon_train = canonical_train_phase(assets, body, weights, res)
 
-    # ---- 7. the training entry point -----------------------------------------
-    torch.cuda.empty_cache()
-    entry = entry_point_phase({"canonical_train": canon_train["frames_per_sec"],
-                               "posed_train": train["frames_per_sec"]})
+    entry_root = Path(tempfile.mkdtemp(prefix="g4d_entry_"))
+    try:
+        # ---- 7. the training entry point -------------------------------------
+        torch.cuda.empty_cache()
+        entry = entry_point_phase({"canonical_train": canon_train["frames_per_sec"],
+                                   "posed_train": train["frames_per_sec"]}, entry_root)
 
-    # ---- 8. the MGN variant and the reference's checkpoint files ------------
-    from garment4d_tpu_torch.train.convert import load_npz_subtree
+        # ---- 8. the MGN variant and the reference's checkpoint files --------
+        from garment4d_tpu_torch.train.convert import load_npz_subtree
 
-    torch.cuda.empty_cache()
-    canonical_sd = load_npz_subtree(weights, "canonical")
-    mgn = mgn_forward_phase(assets, body, pcd, body_in, canonical_sd, res)
-    torch.cuda.empty_cache()
-    mgn_train = mgn_train_phase(assets, body, canonical_sd, res)
-    torch.cuda.empty_cache()
-    reference = reference_files_phase(assets, body, pcd, body_in)
+        torch.cuda.empty_cache()
+        canonical_sd = load_npz_subtree(weights, "canonical")
+        mgn = mgn_forward_phase(assets, body, pcd, body_in, canonical_sd, res)
+        torch.cuda.empty_cache()
+        mgn_train = mgn_train_phase(assets, body, canonical_sd, res)
+        torch.cuda.empty_cache()
+        reference = reference_files_phase(assets, body, pcd, body_in)
+
+        # ---- 9. data parallelism ---------------------------------------------
+        torch.cuda.empty_cache()
+        dp = data_parallel_phase(assets, body, weights, entry_root, entry.pop("tree"),
+                                 entry["frames_per_sec"])
+    finally:
+        shutil.rmtree(entry_root, ignore_errors=True)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
 
-    # ---- 9. results --------------------------------------------------------
+    # ---- 10. results -------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -3852,6 +4389,7 @@ def main() -> int:
         "mgn_train_loss_rel_err_kernel_vs_plain": mgn_train["loss_rel_err"],
         "mgn_train_grad_rel_l2": mgn_train["grad_rel_l2"],
         "reference_files_tensors_loaded": reference,
+        "data_parallel": dp,
         "build_s": build_s,
         "total_s": total_s}))
     print(card)

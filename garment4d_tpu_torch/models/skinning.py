@@ -65,12 +65,18 @@ def _normalize_inf_zeroed(w: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isinf(w), torch.zeros_like(w), w)
 
 
+# per bit-pattern type: the largest finite float's pattern, the bisection's steps
+_BISECTION = {torch.int32: (0x7F7FFFFF, 31), torch.int64: (0x7FEFFFFFFFFFFFFF, 63)}
+
+
 def _kth_smallest_bits(bits: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-row k-th smallest of non-negative f32 bit patterns (int32) by a
-    31-step bisection on the value: (..., N) -> (..., 1)."""
-    lo = torch.zeros((*bits.shape[:-1], 1), dtype=torch.int32, device=bits.device)
-    hi = torch.full_like(lo, 0x7F7FFFFF)  # f32 max
-    for _ in range(31):
+    """Per-row k-th smallest of non-negative f32 bit patterns (int32; f64's
+    as int64) by a 31-step (63-step) bisection on the value: (..., N) ->
+    (..., 1)."""
+    top, steps = _BISECTION[bits.dtype]
+    lo = torch.zeros((*bits.shape[:-1], 1), dtype=bits.dtype, device=bits.device)
+    hi = torch.full_like(lo, top)
+    for _ in range(steps):
         mid = lo + (hi - lo) // 2
         found = (bits <= mid).sum(dim=-1, keepdim=True) >= k
         lo, hi = torch.where(found, lo, mid + 1), torch.where(found, mid, hi)
@@ -82,7 +88,7 @@ def _masked_weight_transfer(d2: torch.Tensor, w0: torch.Tensor, k: int) -> torch
     normalised 1/d^2 average of w0 over each row's exact k nearest, ties at
     the k-th distance to the lower index."""
     d2 = d2.clamp_min(0.0)
-    bits = d2.view(torch.int32)
+    bits = d2.view(torch.int64 if d2.dtype == torch.float64 else torch.int32)
     t = _kth_smallest_bits(bits, k)
     below = bits < t
     tie = bits == t

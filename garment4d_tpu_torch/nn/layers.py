@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from garment4d_tpu_torch.ops.graph import graph_matmul, graph_matmul_banded
+from garment4d_tpu_torch.parallel.data import global_moments, global_rows
+from garment4d_tpu_torch.parallel.launch import in_group
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -29,7 +31,13 @@ class BatchNorm(nn.BatchNorm1d):
     that biased variance (torch's own BatchNorm updates with the unbiased
     one and refuses a batch of one row; Flax takes it). Eval mode is
     torch's, on the running statistics. The parameters and buffers are
-    torch's, so state_dicts keep their names."""
+    torch's, so state_dicts keep their names.
+
+    In a process group (`parallel.in_group`) the train-mode moments are
+    the global batch's, from one differentiable all-reduce
+    (`parallel.global_moments`), as the JAX package's BatchNorm takes them
+    over a sharded batch: every rank then normalises alike and updates its
+    running statistics alike."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
@@ -37,8 +45,11 @@ class BatchNorm(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+        if in_group():
+            mean, mean_sq = global_moments(x)
+        else:
+            mean, mean_sq = x.mean(dim=0), (x * x).mean(dim=0)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
@@ -51,7 +62,9 @@ class Dropout(nn.Module):
     """Flax's `nn.Dropout` with its random bits from an explicit
     `torch.Generator` (no global RNG): in training each element is kept
     where a uniform draw falls below 1 - p and scaled by 1 / (1 - p), else
-    zeroed; in eval, and at p = 0, the identity."""
+    zeroed; in eval, and at p = 0, the identity. In a process group the
+    draws are the global batch's (`parallel.global_rows`), of which this
+    rank keeps its rows: the masks are the single-process ones."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -64,8 +77,11 @@ class Dropout(nn.Module):
             raise ValueError("dropout in training draws from an explicit torch.Generator; "
                              "none was given")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=generator, dtype=x.dtype,
-                          device=x.device) < keep_prob
+        if in_group():
+            u = global_rows(x.shape, generator, x.dtype, x.device)
+        else:
+            u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        keep = u < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

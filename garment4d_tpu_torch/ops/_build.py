@@ -6,6 +6,8 @@ library with a plain C interface, loaded with `ctypes`. The build runs at
 the first kernel launch of a process, never at import, into
 `garment4d_tpu_torch/_build/` (ignored by git), named by a hash of the
 sources and flags so that an edited source never loads a stale library.
+Processes that start together build it once: one compiles under a file
+lock, the others wait and load its result.
 
 Each C entry point takes device pointers and the CUDA stream as `void*`,
 sizes as `int` and radii as `float`, and returns `cudaGetLastError()`;
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -150,15 +153,34 @@ def _compile(target: Path) -> None:
     os.replace(tmp, target)  # atomic: a concurrent build never sees a partial file
 
 
+def build_once(target: Path, compile_fn=None) -> bool:
+    """Build `target` with `compile_fn` (default `_compile`) unless it
+    exists, holding an exclusive `fcntl` lock on a file beside it, so that
+    of several processes starting together (the ranks of a data-parallel
+    run) one compiles and the others wait and load its result. Returns
+    whether this process compiled."""
+    if target.exists():
+        return False
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with open(target.parent / ".build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if target.exists():
+                return False
+            (compile_fn or _compile)(target)
+            return True
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it on first use."""
     global _lib, build_seconds
     with _lock:
         if _lib is None:
             target = BUILD_DIR / f"libg4d_kernels_{_digest()}.so"
-            if not target.exists():
-                t0 = time.perf_counter()
-                _compile(target)
+            t0 = time.perf_counter()
+            if build_once(target):
                 build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(target))
             for name, argtypes in _SIGNATURES.items():

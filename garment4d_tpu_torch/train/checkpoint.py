@@ -10,6 +10,9 @@ A checkpoint is one `torch.save` file in the reference's layout,
 `step` and `lr_scale` travel in `other_state`. `load_pretrained` and
 `bootstrap_canonical` also take the reference's own `.ckpt` files, keyed by
 the reference's module names (`train/torch_import.py`).
+
+Under data parallelism rank 0 writes (`save_on_main`) and every rank reads
+the same file, so the replicas start equal.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from garment4d_tpu_torch.parallel.launch import barrier, is_main_process
 from garment4d_tpu_torch.train.convert import load_npz
 from garment4d_tpu_torch.train.state import TrainState
 from garment4d_tpu_torch.train.torch_import import (
@@ -44,6 +48,16 @@ def save_checkpoint(path: str, state: TrainState, epoch: int,
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def save_on_main(path: str, state: TrainState, epoch: int,
+                 other_state: Optional[Dict[str, Any]] = None) -> None:
+    """`save_checkpoint` on rank 0 (every process outside a process group);
+    the other ranks, whose state equals rank 0's, wait at a barrier until
+    the file is written."""
+    if is_main_process():
+        save_checkpoint(path, state, epoch, other_state)
+    barrier()
 
 
 def _read(path: str, device) -> dict:

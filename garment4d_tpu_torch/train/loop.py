@@ -16,6 +16,13 @@ build / train_one_epoch / eval_one_epoch / main loops):
 The dropout of every step draws from one `torch.Generator` on the model's
 device, seeded from `seed` (the JAX package splits a `jax.random` key a
 step).
+
+In a process group (data parallelism) every rank runs the loop on its
+share of each global batch: the train steps return global means already,
+the eval means are reduced over the ranks as weighted global sums (a rank
+whose share of the eval tail is all padding weighs 0), so the plateau step
+and the "new best" decision are the same on every rank, and only rank 0
+writes the scalars.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from garment4d_tpu_torch.parallel.data import reduce_metric_sums
+from garment4d_tpu_torch.parallel.launch import in_group, is_main_process
 from garment4d_tpu_torch.train.state import PlateauScheduler, TrainState
 
 
@@ -148,6 +157,8 @@ def eval_one_epoch(state: TrainState, batches: Iterable, eval_step,
             weight = (float(batch["pcd"].shape[0])
                       if isinstance(batch, dict) and "pcd" in batch else 1.0)
         acc.add(scalars, weight=weight)
+    if in_group():
+        acc.sums, acc.count = reduce_metric_sums(acc.sums, acc.count, _model_device(state))
     means = acc.means()
     if writer is not None:
         key = ("lbs_garment_msre" if "lbs_garment_msre" in means
@@ -177,7 +188,7 @@ def fit(state: TrainState, train_batches_fn, eval_batches_fn, train_step,
     from 0 on every call, as in the JAX package, also after a resume.
     """
     logger = logger or make_logger(output_dir)
-    writer = MetricWriter(output_dir)
+    writer = MetricWriter(output_dir if is_main_process() else None)
     plateau = PlateauScheduler()
     generator = torch.Generator(device=_model_device(state)).manual_seed(seed)
     best = float("inf")

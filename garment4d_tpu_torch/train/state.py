@@ -6,6 +6,8 @@ relies on (betas (0.9, 0.999), eps 1e-8); `--fix_PCA`-style freezing of the
 canonical stage by `requires_grad_(False)` on its parameters, so they get
 no gradient and no update (JAX zeroes their updates with
 `optax.set_to_zero`); ReduceLROnPlateau as a host-side learning-rate scale.
+In a process group the gradients are averaged over the ranks before each
+update (`parallel.average_gradients`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from garment4d_tpu_torch.parallel.data import average_gradients
+from garment4d_tpu_torch.parallel.launch import in_group
 
 
 def make_optimizer(model: torch.nn.Module, lr: float,
@@ -38,7 +43,11 @@ class TrainState:
     lr_scale: float = 1.0
 
     def apply_gradients(self) -> None:
-        """One optimizer step on the gradients in the parameters' `.grad`."""
+        """One optimizer step on the gradients in the parameters' `.grad`,
+        first averaged over the ranks in a process group."""
+        if in_group():
+            average_gradients(p for group in self.optimizer.param_groups
+                              for p in group["params"])
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr * self.lr_scale
         self.optimizer.step()

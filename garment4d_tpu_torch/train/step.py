@@ -11,6 +11,13 @@ forward in train mode with the canonical stage frozen in eval mode, the
 posed-stage losses, backward, one Adam step; its loss Laplacian is banded
 through its cyclic diagonals, or through the reverse Cuthill-McKee
 relabeling that makes it banded, as the model's GCN stack is.
+
+In a process group (`parallel.in_group`) the same steps run on this rank's
+share of the global batch: BatchNorm statistics and dropout masks are the
+global batch's, the gradients are averaged over the ranks before the
+update, and the train step's loss dict holds the global batch's values
+(`parallel.mean_over_ranks`). The eval step stays per rank;
+`train/loop.py` reduces its means.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 from garment4d_tpu_torch import losses as L
 from garment4d_tpu_torch.models.posed import BodyInputs
 from garment4d_tpu_torch.ops.graph import bandwidth_permutation, cyclic_diagonals
+from garment4d_tpu_torch.parallel.data import broadcast_module, mean_over_ranks
+from garment4d_tpu_torch.parallel.launch import in_group
 from garment4d_tpu_torch.train.state import TrainState, make_optimizer
 
 
@@ -36,6 +45,13 @@ def body_inputs_from_batch(batch: Dict[str, torch.Tensor]) -> BodyInputs:
         J_regressor=batch["J_regressor"],
         lbs_weights=batch["lbs_weights"],
     )
+
+
+def _step_losses(state: TrainState, losses: Dict[str, torch.Tensor]):
+    """The train step's detached loss dict; the global batch's in a process
+    group."""
+    losses = {k: v.detach() for k, v in losses.items()}
+    return mean_over_ranks(losses) if in_group() else losses
 
 
 def make_canonical_steps(model, assets, body_faces: np.ndarray,
@@ -62,7 +78,7 @@ def make_canonical_steps(model, assets, body_faces: np.ndarray,
         state.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in losses.items()}
+        return _step_losses(state, losses)
 
     @torch.inference_mode()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -106,7 +122,7 @@ def make_posed_steps(model, assets, body_faces: np.ndarray,
         state.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in losses.items()}
+        return _step_losses(state, losses)
 
     @torch.inference_mode()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -121,6 +137,9 @@ def make_state_for(model, lr: float, freeze_canonical: bool = False) -> TrainSta
     """A TrainState over the model's parameters (the model already holds its
     weights and constants): Adam at `lr` over every parameter that requires
     grad, the posed model's canonical stage frozen with `freeze_canonical`.
-    BatchNorm running statistics are buffers, updated by the forward."""
+    BatchNorm running statistics are buffers, updated by the forward. In a
+    process group the model's parameters and buffers are set to rank 0's."""
+    if in_group():
+        broadcast_module(model)
     return TrainState(model=model, lr=lr,
                       optimizer=make_optimizer(model, lr, freeze_canonical))

@@ -17,22 +17,34 @@ Counterpart of the repo's `train_temporal.py`, with its flags
   --pretrained_model PATH     weights only (a port checkpoint, a Flax npz or
                               a reference .ckpt)
   --only_eval 1      one evaluation pass
+  --launcher pytorch|slurm  data-parallel training over a process group
+                     (torchrun's environment, or Slurm's with --tcp_port);
+                     --batch_size is the global batch; BatchNorm statistics
+                     are the global batch's, so --syncbn is implied
+
+    torchrun --nproc_per_node 2 -m garment4d_tpu_torch.train_temporal \
+        --launcher pytorch --config cfgs/skirt.yaml --GarmentPCA 1 \
+        --batch_size 20 ...
 
 With --synthetic_data 1 it trains on synthetic batches (`data/synthetic.py`);
 otherwise on the CLOTH3D tree the config names, read by `--num_workers`
 loader threads and completed on the device (`data/cloth3d.py`). A
 checkpoint at `<output_dir>/ckpt/<ckpt_name>` is resumed from. `main` runs
-on the card unless the caller passes `device="cpu"`.
+on the card unless the caller passes `device="cpu"` (with --launcher, on
+gloo). Under --launcher each rank reads and steps on its own rows of every
+global batch (`parallel.local_batch_indices`), and rank 0 alone writes the
+logs, the scalars and the checkpoint.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
 import torch
 
-from garment4d_tpu_torch import _device
+from garment4d_tpu_torch import _device, parallel
 from garment4d_tpu_torch.data.cloth3d import (
     Cloth3dDataset,
     Cloth3dPaths,
@@ -60,8 +72,6 @@ _UNPORTED = (
                                  "ROADMAP Queue 1 item 6"),
     (lambda a: a.candidate_reuse_margin, "--candidate_reuse_margin: the body-query "
                                          "candidate reuse, ROADMAP Queue 1 item 6"),
-    (lambda a: a.launcher, "--launcher: data parallelism (parallel/), ROADMAP Queue 1 item 5"),
-    (lambda a: a.syncbn, "--syncbn 1: SyncBatchNorm (parallel/), ROADMAP Queue 1 item 5"),
     (lambda a: a.bf16, "--bf16 1: no counterpart in the port (fp32 throughout; ROADMAP)"),
     (lambda a: a.remat, "--remat 1: no counterpart in the port (ROADMAP)"),
     (lambda a: a.debug_nans, "--debug_nans 1: no counterpart in the port (ROADMAP)"),
@@ -90,23 +100,29 @@ def _body_models(args, device):
     return body_models
 
 
-def cloth3d_batches(args, cfg, npoints, body_models, device, logger, loaders):
+def cloth3d_batches(args, cfg, npoints, body_models, device, logger, loaders,
+                    window_seed=None):
     """(train_batches(epoch), eval_batches(epoch)) over the CLOTH3D tree:
     train windows shuffled by epoch with the last partial batch dropped,
     eval windows in order with the tail padded by repeats and masked out
     of the means by `valid_mask` (reference eval sampler,
-    `utils/train_utils.py:12-31`). The loaders it makes are appended to
-    `loaders`, for the caller to close."""
+    `utils/train_utils.py:12-31`). The train windows are drawn from
+    `window_seed`, or unseeded without one (the reference's dataset). In a
+    process group each rank reads only its rows of every global batch, and
+    of its mask, so the ranks must draw the same windows (one seed for
+    all). The loaders it makes are appended to `loaders`, for the caller
+    to close."""
     paths = Cloth3dPaths(
         root=cfg.DATASET.ROOT_FOLDER,
         cloth3d_folder=cfg.DATASET.CLOTH3D_FOLDER,
         garment_folder=cfg.DATASET.GARMENT_FOLDER,
         template_prefix=cfg.DATASET.GARMENT_TEMPLATE_T_POSE_PREFIX)
     body_verts = body_models["male"].num_verts
+    rng = None if window_seed is None else np.random.RandomState(window_seed)
     datasets = [Cloth3dDataset(
         paths, file_list, cfg.GARMENT.NAME, T=args.T, npoints=npoints,
         pca_dim=cfg.GARMENT.PCADIM, is_train=is_train,
-        exclude_list=cfg.DATASET.EXCLUDE_SEQ_LIST or None, body_verts=body_verts)
+        exclude_list=cfg.DATASET.EXCLUDE_SEQ_LIST or None, body_verts=body_verts, rng=rng)
         for file_list, is_train in ((cfg.DATASET.TRAIN_F_LIST, True),
                                     (cfg.DATASET.EVAL_F_LIST, False))]
     logger.info(f"train windows: {len(datasets[0])}  eval windows: {len(datasets[1])}")
@@ -130,11 +146,13 @@ def cloth3d_batches(args, cfg, npoints, body_models, device, logger, loaders):
                 while len(idxs) < bs:
                     idxs.append(idxs[-1])
                 mask = (np.arange(bs) < n_real).astype(np.float32)
-                metas.append((idxs, mask if (not shuffle and n_real < bs) else None))
+                metas.append((parallel.local_batch_indices(idxs),
+                              mask if (not shuffle and n_real < bs) else None))
             for (_, mask), items in zip(metas, loader.map_batches([m[0] for m in metas])):
                 batch = finalize_batch(ds.collate(items), body_models)
                 if mask is not None:
-                    batch["valid_mask"] = host_to_device(mask, device)
+                    batch["valid_mask"] = host_to_device(parallel.local_batch_indices(mask),
+                                                         device)
                 yield batch
         return gen
 
@@ -144,7 +162,8 @@ def cloth3d_batches(args, cfg, npoints, body_models, device, logger, loaders):
 def _make_state(args, cfg, assets, body_model, device, logger):
     """The model on `device` with its weights (--pretrained_model, then the
     canonical bootstrap, both before the optimizer is built over the
-    parameters left trainable), its train state, and the auto-resume from
+    parameters left trainable), its train state (in a process group every
+    rank reads the same files), and the auto-resume from
     `<output_dir>/ckpt/<ckpt_name>` (reference build(),
     `train_temporal.py:136-156`; `fit` counts epochs from 0 again after
     it, as the JAX package's does)."""
@@ -178,7 +197,8 @@ def _make_state(args, cfg, assets, body_model, device, logger):
 
 def main(argv=None, device=_device.DEFAULT):
     """Parse `argv` and train or evaluate; returns the fit history, or the
-    eval means with --only_eval."""
+    eval means with --only_eval. With --launcher it joins the process group
+    first and ends it after."""
     args, cfg = parse_args(argv)
     _refuse_unported(args)
     if not (args.GarmentPCA or args.GarmentPCALBS):
@@ -187,11 +207,35 @@ def main(argv=None, device=_device.DEFAULT):
         raise SystemExit("--GarmentPCA_pretrain bootstraps the posed stage: "
                          "pass --GarmentPCALBS 1")
     device = _device.resolve(device)
+    dist_info = parallel.initialize_distributed(args.launcher, args.tcp_port, args.local_rank,
+                                                device=device)
+    try:
+        return _run(args, cfg, dist_info)
+    finally:
+        if args.launcher:
+            parallel.shutdown()
 
-    os.makedirs(args.output_dir, exist_ok=True)
-    logger = make_logger(args.output_dir)
+
+def _run(args, cfg, dist_info):
+    device = dist_info["device"]
+    data_parallel = parallel.in_group()
+    local_batch = parallel.per_process_batch(args.batch_size)
+    main_process = parallel.is_main_process()
+    if main_process:
+        os.makedirs(args.output_dir, exist_ok=True)
+        logger = make_logger(args.output_dir)
+    else:
+        logger = make_logger(None)
+        logger.setLevel(logging.WARNING)
     for key, val in sorted(vars(args).items()):
         logger.info(f"{key:20} {val}")
+    if data_parallel:
+        logger.info(f"data parallel over {dist_info['process_count']} processes "
+                    f"({dist_info['backend']}): global batch {args.batch_size}, "
+                    f"{local_batch} a rank")
+    if args.syncbn:
+        logger.info("--syncbn 1: BatchNorm statistics are the global batch's under "
+                    "--launcher whatever --syncbn says, as in the JAX package")
 
     # ---------------- assets / body model ----------------
     if args.synthetic_data:
@@ -214,15 +258,17 @@ def main(argv=None, device=_device.DEFAULT):
             def batches_fn(split_seed):
                 def gen(epoch):
                     for i in range(2):
-                        yield make_batch(assets, body_model, batch_size=args.batch_size,
-                                         T=args.T, npoints=npoints,
-                                         seed=split_seed * 1000 + epoch * 10 + i,
-                                         device=device)
+                        batch = make_batch(assets, body_model, batch_size=args.batch_size,
+                                           T=args.T, npoints=npoints,
+                                           seed=split_seed * 1000 + epoch * 10 + i,
+                                           device=device)
+                        yield parallel.shard_batch(batch) if data_parallel else batch
                 return gen
             train_batches, eval_batches = batches_fn(0), batches_fn(1)
         else:
             train_batches, eval_batches = cloth3d_batches(
-                args, cfg, npoints, body_models, device, logger, loaders)
+                args, cfg, npoints, body_models, device, logger, loaders,
+                window_seed=parallel.shared_seed() if data_parallel else None)
 
         # ---------------- model, state, steps ----------------
         state, ckpt_path = _make_state(args, cfg, assets, body_model, device, logger)
@@ -238,15 +284,16 @@ def main(argv=None, device=_device.DEFAULT):
         if args.only_eval:
             means = eval_one_epoch(state, eval_batches(0), eval_step, logger=logger)
             logger.info(f"EVAL RESULT: {eval_metric}={means.get(eval_metric):.6f}")
-            print({k: round(v, 6) for k, v in sorted(means.items())})
+            if main_process:
+                print({k: round(v, 6) for k, v in sorted(means.items())})
             return means
 
         def save_fn(st, epoch, best):
-            ckpt_lib.save_checkpoint(ckpt_path, st, epoch, {"best_v_l2": best})
+            ckpt_lib.save_on_main(ckpt_path, st, epoch, {"best_v_l2": best})
 
         state, history = fit(
             state, train_batches, eval_batches, train_step, eval_step,
-            epochs=args.epoch_num, output_dir=args.output_dir,
+            epochs=args.epoch_num, output_dir=args.output_dir if main_process else None,
             use_plateau=bool(args.lr_sche), eval_metric=eval_metric,
             save_fn=save_fn, logger=logger)
         return history

@@ -226,16 +226,19 @@ def test_canonical_stage_loss(jassets, jbody, rng, only_seg, masked):
 
 @pytest.fixture(scope="module")
 def step_case(jassets, jbody):
-    """JAX's canonical train step (`make_canonical_steps`' loss, its
-    gradients, the Adam update and the new batch statistics) in float64 at
-    random weights, dropout intercepted, in one compile; the batch and the
-    weights the port gets."""
+    return jax_canonical_step(jassets, jbody, B)
+
+
+def jax_step_inputs(jassets, jbody, batch_size):
+    """The batch (point cloud on a 1/256 grid) and the random Flax-path
+    weights of `jax_canonical_step`."""
     batch = {k: np.asarray(v) for k, v in
-             jmake_batch(jassets, jbody, batch_size=B, T=T, npoints=N, seed=5).items()}
+             jmake_batch(jassets, jbody, batch_size=batch_size, T=T, npoints=N,
+                         seed=5).items()}
     batch["pcd"] = (np.round(batch["pcd"] * 256) / 256).astype(np.float32)
-    model = JCanonical(assets=jassets)
-    shapes = jax.eval_shape(lambda p: model.init(jax.random.PRNGKey(0), p, train=False),
-                            batch["pcd"])
+    shapes = jax.eval_shape(
+        lambda p: JCanonical(assets=jassets).init(jax.random.PRNGKey(0), p, train=False),
+        batch["pcd"])
     rng = np.random.RandomState(5)
     flat = {}
     for coll in ("params", "batch_stats"):
@@ -249,6 +252,19 @@ def step_case(jassets, jbody):
             else:
                 a = 0.1 * rng.randn(*v.shape)
             flat[f"{coll}/{k}"] = a.astype(np.float32)
+    return batch, flat
+
+
+def jax_canonical_step(jassets, jbody, batch_size, inputs=None):
+    """JAX's canonical train step (`make_canonical_steps`' loss, its
+    gradients, the Adam update and the new batch statistics) in float64 at
+    random weights, dropout intercepted, in one compile, at `batch_size`
+    sequences of T frames of N points, from `inputs` (`jax_step_inputs`'
+    batch and weights, made here if not given): (the batch and the
+    Flax-path weights the port gets, the losses, and the gradients, the
+    parameters after Adam and the new statistics under the port's names)."""
+    batch, flat = inputs or jax_step_inputs(jassets, jbody, batch_size)
+    model = JCanonical(assets=jassets)
 
     with jax.enable_x64(True):
         def f64(tree):
