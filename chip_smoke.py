@@ -242,7 +242,49 @@ then:
    checkpoint: finite losses, each checkpoint written once by rank 0, the
    launch counters nonzero, no group left behind, train frames/s beside
    phase 7's;
-10. prints a JSON line of the kernels (each row read from the costliest
+10. the posed model's opt-in levers (`spatial_sample`, candidate reuse
+   at `candidate_reuse_margin`), from phase 4's weights and batch: phase
+   4's per-center displacements between iterations printed, and two
+   margins from them (LEVER_BELOW x the largest step, LEVER_ABOVE x the
+   largest drift from the iteration-0 centers). The posed forward under
+   spatial sampling, reuse at each margin and both (the smaller margin,
+   whose tables fit their cap), each with the launch counters at 0 before
+   it and under torch's deterministic algorithms (the body normals'
+   `index_add_` atomics otherwise move two runs of one forward by
+   ~1e-7): the candidate builds and overflows a forward; every coverage
+   launch (the radius widened by the margin) and grouped ball-query launch
+   (the Morton-compacted body tables) bitwise its plain version, and under
+   the spatial lever every flat query of the Morton-sorted garment levels
+   (queried whole: the JAX package's group window is a TPU device) bitwise
+   as it ran, each distinct case timed; every row gather (the center
+   and table permutations, the inverse gathers) bitwise as it runs, each
+   case timed; every Morton code and permutation bitwise the CPU's; each
+   iteration teacher-forced on the CPU plain path (sequence 0, the same
+   center order) within 1e-5, for the spatial forwards and a reuse
+   forward that is not bitwise the default (phase 4 holds the default's);
+   a reuse forward against the forward without reuse bitwise, else within
+   REUSE_TOL, where neither overflowed, and each of its iterations fed to
+   the model without reuse on the card bitwise, else within REUSE_TOL.
+   Under the spatial lever an overflowed query samples the full set in
+   index order (as the JAX package's does), so a comparison whose two
+   sides' tables overflowed otherwise is printed, not gated. Frames/s,
+   the profiler's device ms and idle share. The body query's reuse at the
+   op level on the iteration-0 body query's inputs, in index order and
+   under the spatial lever (the forwards' per-center steps exceed any
+   margin that fits the cap, so no forward reuses): built at
+   REUSE_OP_MARGIN (halved until it fits), centers moved by half the
+   margin reuse the table (no coverage launch) bitwise a fresh call,
+   moved by twice the margin rebuild it bitwise; a reusing and a fresh
+   call's ms. The posed train step (B=4) under both levers (the smaller
+   margin; at least one body query on a compacted table): the kernels
+   launched (the scatter-add among them), finite losses and gradients, every trainable tensor moved, the
+   canonical stage unchanged, the plain step's losses within 1e-3 and
+   each iteration's backward within 1e-4 of the plain versions'
+   (`teacher_forced_grads`); frames/s and a profile. The entry point under both flags (the
+   smaller margin) on phase 7's tree: one posed epoch from phase 7's canonical checkpoint, and
+   `--only_eval 1 --vis` of its posed checkpoint writing its 2 x 4 x 10 x
+   4 files;
+11. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -1417,9 +1459,14 @@ def check_knn(label, args, res: Results, path=None):
 
 
 def query_case(args, grouped=False) -> str:
+    """A ball query's case; a grouped one's table `compacted` (valid rows
+    fewer than its rows in a frame) or `all valid`."""
     radii, nsamples, xyz, new_xyz = args[:4]
     Bq, Nq = xyz.shape[:2]
-    return (f"({Bq}, {Nq}{' compacted' if grouped else ''}) x {new_xyz.shape[1]}, r "
+    table = ""
+    if grouped:
+        table = " compacted" if int(args[4].min()) < Nq else " all valid"
+    return (f"({Bq}, {Nq}{table}) x {new_xyz.shape[1]}, r "
             f"{'/'.join(f'{r:g}' for r in radii)}, S {'/'.join(map(str, nsamples))}")
 
 
@@ -3559,6 +3606,480 @@ def data_parallel_phase(assets, body, weights, root: Path, tree: dict, phase7_fp
     return dict(world_one=world_one, two_ranks=two_ranks, entry_point=entry, phase_s=phase_s)
 
 
+# ---- phase 10: the posed model's opt-in levers --------------------------------
+
+LEVER_BELOW = 0.02  # the margin below: this share of phase 4's largest per-center step
+LEVER_ABOVE = 1.25  # the margin above: this multiple of the largest drift from iteration 0
+REUSE_TOL = dict(rtol=1e-5, atol=1e-6)  # reuse vs no reuse where not bitwise (the JAX test's)
+REUSE_OP_MARGIN = 0.05  # the op-level reuse case's margin, halved until its table fits the cap
+VIS_BATCHES = 2  # eval batches `--vis` exports
+
+
+def center_steps(out) -> dict:
+    """A posed forward's per-center displacements (norms, the largest over
+    every frame and vertex): between consecutive iterations' centers (the
+    LBS garment, then each iteration's output) and from the iteration-0
+    centers, which the candidate reuse compares against."""
+    cur = [out.lbs.posed_garment] + list(out.iter_garment_v[:-1])
+    steps = [float((b - a).norm(dim=-1).max()) for a, b in zip(cur, cur[1:])]
+    from_first = [float((c - cur[0]).norm(dim=-1).max()) for c in cur[1:]]
+    return dict(steps=steps, from_first=from_first)
+
+
+def lever_model(recon, **levers):
+    """`recon`'s posed model (its weights, device and mode) with the levers."""
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.models import PosedGarmentModel
+
+    model = PosedGarmentModel(recon.assets, recon.model.body_faces.cpu().numpy(),
+                              lbs_k=recon.model.lbs_k, **levers)
+    model.load_state_dict(recon.model.state_dict(), strict=True)
+    return GarmentReconstructor(assets=recon.assets, model=model.to(recon.device).eval(),
+                                device=recon.device)
+
+
+def fresh_levers(args):
+    """Recorded `refine` arguments with its LeverState replaced by a fresh
+    one of the same center order (no candidate state: built anew)."""
+    from garment4d_tpu_torch.models import LeverState
+
+    return [LeverState(a.cperm, a.cinv) if isinstance(a, LeverState) else a for a in args]
+
+
+@torch.inference_mode()
+def refine_with_build(model, args):
+    """`model.refine(*args)` (with `fresh_levers`) -> ((offsets, hidden),
+    whether the candidate table its body query built overflowed)."""
+    from garment4d_tpu_torch.ops import pemax
+
+    with recording(pemax, "_compact_candidates") as builds:
+        out = model.refine(*fresh_levers(args))
+    return out, bool(builds) and builds[-1][2][1]
+
+
+@torch.inference_mode()
+def check_lever_kernels(label, calls, res: Results) -> dict:
+    """The new kernel cases of a lever forward, recorded with their inputs:
+    every coverage and grouped ball-query launch bitwise its plain version
+    (the widened coverage radius, the Morton-compacted body tables), every
+    flat ball-query launch on the garment levels (Morton-sorted under the
+    spatial lever) bitwise as it ran, every Morton code and permutation
+    bitwise the CPU's, each distinct case timed; the row gathers were held
+    bitwise as they ran (`gather_keep`), each distinct case timed here.
+    -> counts."""
+    from garment4d_tpu_torch.ops import morton, pointcloud as pc
+
+    for i, row in enumerate(coverage_launches(calls["coverage"])):
+        xyz, centers, r = row["args"]
+        require(torch.equal(pc._covered_mask_kernel(xyz, centers, r),
+                            pc._covered_mask_plain(xyz, centers, r)),
+                f"{label}: coverage launch {i} (r {r:g}) differs from the plain version")
+        res.record("coverage", f"{label} launch {i}: {row['case']}", 0,
+                   lambda: pc._covered_mask_kernel(xyz, centers, r),
+                   lambda: pc._covered_mask_plain(xyz, centers, r), row["nbytes"], row["ops"],
+                   reps_p=1, path="levers", bytes_ms=row["bytes_ms"])
+    grouped = query_launches(calls["grouped"], True)
+    for case, (row, count) in by_case(grouped).items():
+        for other in (r for r in grouped if r["case"] == case):
+            radii, nsamples, xyz, new_xyz, n_valid = args = other["args"][:5]
+            want = [pc._ball_query_plain(r, s, xyz, new_xyz, n_valid)
+                    for r, s in zip(radii, nsamples)]
+            require(all(torch.equal(a, b) for a, b in
+                        zip(pc._ball_query_grouped_kernel(*args), want)),
+                    f"{label}: ball_query_grouped {case} differs from the plain version")
+        radii, nsamples, xyz, new_xyz, n_valid = args = row["args"][:5]
+        res.record("ball_query_grouped", f"{label} {case} x{count}", 0,
+                   lambda: pc._ball_query_grouped_kernel(*args),
+                   lambda: [pc._ball_query_plain(r, s, xyz, new_xyz, n_valid)
+                            for r, s in zip(radii, nsamples)],
+                   row["nbytes"], row["ops"], reps_p=1, path="levers", launches=count)
+    if "flat" in calls:
+        # the spatial lever's Morton-sorted garment levels, each queried
+        # whole by the flat kernel (VG centers: the refinement iterations')
+        garment = [c for c in calls["flat"] if c[0][3].shape[1] == VG]
+        require(len(garment) >= 3 * 3, f"{label}: {len(garment)} garment-level flat queries")
+        for (radii, nsamples, xyz, new_xyz), _, outs in garment:
+            require(all(torch.equal(o, pc._ball_query_plain(r, s, xyz, new_xyz))
+                        for o, r, s in zip(outs, radii, nsamples)),
+                    f"{label}: ball_query {query_case((radii, nsamples, xyz, new_xyz))} "
+                    f"differs from the plain version")
+        for case, (row, count) in by_case(query_launches(garment, False)).items():
+            radii, nsamples, xyz, new_xyz = args = row["args"][:4]
+            res.record("ball_query", f"{label} sorted garment level {case} x{count}", 0,
+                       lambda: pc._ball_query_kernel(*args),
+                       lambda: [pc._ball_query_plain(r, s, xyz, new_xyz)
+                                for r, s in zip(radii, nsamples)],
+                       row["nbytes"], row["ops"], reps_p=1, queued=True, path="levers",
+                       launches=count, scan_bound_ms=row["scan_bound_ms"])
+    for name in ("morton_codes", "spatial_order"):
+        for (xyz,), _, got in calls[name]:
+            require(torch.equal(got.cpu(), getattr(morton, name)(xyz.cpu())),
+                    f"{label}: {name} {tuple(xyz.shape)} differs from the CPU's")
+    record_gathers(label, calls["gather"], res, path="levers")
+    return {k: len(v) for k, v in calls.items()}
+
+
+def lever_forward(label, recon, pcd, body_in, res: Results):
+    """One counted posed forward of a lever model (torch's deterministic
+    algorithms on) with every launch of the levers' new cases recorded
+    (`check_lever_kernels`), its candidate builds and the refinement
+    iterations. -> (output, launches, the
+    builds' overflow flags, refine calls, per iteration whether the table
+    its body query used had overflowed (a reused table never has: an
+    overflow forces a rebuild), case counts)."""
+    from garment4d_tpu_torch.ops import morton, pemax, pointcloud as pc
+
+    with recording(pemax, "_compact_candidates") as builds, \
+            recording(pc, "_covered_mask_kernel") as ccalls, \
+            recording(pc, "_ball_query_grouped_kernel") as gcalls, \
+            recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(morton, "morton_codes") as mcalls, \
+            recording(morton, "spatial_order") as scalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gathers, \
+            recording(recon.model, "refine",
+                      keep=lambda a, k, r: (a, k, r, len(builds))) as steps, \
+            deterministic(True):
+        out, launches = counted(f"levers {label}",
+                                lambda: recon.posed(pcd, body_in, return_all=True),
+                                FORWARD_KERNELS)
+    overflows = [b[2][1] for b in builds]
+    decisions, seen = [], 0
+    for *_, n in steps:
+        decisions.append(overflows[n - 1] if n > seen else False)
+        seen = n
+    print(f"levers {label}: {len(overflows)} candidate builds in 3 body queries, overflows "
+          f"{overflows}; the tables used overflowed {decisions}", flush=True)
+    calls = dict(coverage=ccalls, grouped=gcalls, morton_codes=mcalls, spatial_order=scalls,
+                 gather=gathers)
+    if recon.model.spatial_sample:
+        calls["flat"] = bcalls
+    cases = check_lever_kernels(label, calls, res)
+    return out, launches, overflows, [s[:3] for s in steps], decisions, cases
+
+
+def forced_lever_iterations(label, steps, decisions, recon_cpu, spatial: bool) -> list:
+    """Each recorded refinement iteration of a lever forward fed to the
+    CPU plain path (sequence 0, the same center order, a fresh candidate
+    table): offsets and hidden features within FORCED_TOL everywhere. Under
+    the spatial lever an iteration whose table overflowed on one side only
+    sampled otherwise (the full set in index order, as the JAX package's
+    overflow branch, against the Morton-ordered table; the CPU decides on
+    its 10 frames alone): printed, not gated."""
+    rows = []
+    for (args, _, (h_gpu, hid_gpu)), overflowed in zip(steps, decisions):
+        def seq0(t):
+            return None if t is None else t[:T].cpu()
+
+        it, cur, hidden, g_xyz, g_feat, b_v, b_vn, _, _, levers = fresh_levers(args)
+        levers.cperm, levers.cinv = seq0(levers.cperm), seq0(levers.cinv)
+        (h_cpu, hid_cpu), cpu_overflowed = refine_with_build(recon_cpu.model, (
+            it, seq0(cur), seq0(hidden), [seq0(t) for t in g_xyz], [seq0(t) for t in g_feat],
+            seq0(b_v), seq0(b_vn), 1, T, levers))
+        gated = not spatial or cpu_overflowed == overflowed
+        row = dict(iteration=it, max_abs=max_abs(h_cpu, h_gpu[:T].cpu()),
+                   hidden_max_abs=max_abs(hid_cpu, hid_gpu[:T].cpu()), overflowed=overflowed,
+                   cpu_overflowed=cpu_overflowed, gated=gated)
+        rows.append(row)
+        print(f"levers {label}: teacher-forced iteration {it} on the CPU: max abs diff "
+              f"{row['max_abs']:.3e}, hidden {row['hidden_max_abs']:.3e} (table overflowed: "
+              f"card {overflowed}, CPU {cpu_overflowed}; gated {gated})", flush=True)
+        for key in ("max_abs", "hidden_max_abs"):
+            require(not gated or row[key] <= FORCED_TOL, f"levers {label}: teacher-forced "
+                    f"iteration {it}: {key} {row[key]} > {FORCED_TOL}")
+    return rows
+
+
+def reuse_against(label, got, want, steps, decisions, want_decisions, ref, spatial) -> dict:
+    """A reuse forward against the forward without reuse (`want`, of the
+    model `ref`). Whole forwards: bitwise expected where neither
+    overflowed (the same kernels on the same rows), else within REUSE_TOL;
+    where one did, printed only (an overflowed query takes the full-set
+    branch, whose no-hit centers come from the chain kernel and not from
+    the fix-up's matmul: ~1e-7 apart, which later iterations' boundary
+    flips amplify). Each iteration teacher-forced on the card, its inputs
+    fed to `ref`: bitwise, else within REUSE_TOL; under the spatial lever
+    where only one side's table overflowed (another sample), printed only."""
+    diffs = [max_abs(a, b) for a, b in zip(got.iter_garment_v, want.iter_garment_v)]
+    bitwise = all(same_bits(a, b) for a, b in zip(got.iter_garment_v, want.iter_garment_v))
+    clean = not any(decisions) and not any(want_decisions)
+    print(f"levers {label} vs the forward without reuse: bitwise {bitwise}, largest "
+          f"difference per iteration {diffs} (overflow on either side: {not clean})", flush=True)
+    if clean and not bitwise:
+        for i, (a, b) in enumerate(zip(got.iter_garment_v, want.iter_garment_v)):
+            require(torch.allclose(a, b, **REUSE_TOL),
+                    f"levers {label}: iteration {i} differs by {diffs[i]} beyond {REUSE_TOL}")
+    forced = []
+    for (args, _, (h, hid)), overflowed in zip(steps, decisions):
+        (h_ref, hid_ref), ref_overflowed = refine_with_build(ref.model, args)
+        gated = not spatial or ref_overflowed == overflowed
+        row = dict(iteration=args[0], bitwise=same_bits(h, h_ref) and same_bits(hid, hid_ref),
+                   max_abs=max_abs(h, h_ref), hidden_max_abs=max_abs(hid, hid_ref),
+                   overflowed=overflowed, ref_overflowed=ref_overflowed, gated=gated)
+        forced.append(row)
+        print(f"levers {label}: iteration {row['iteration']} fed to the model without reuse on "
+              f"the card: bitwise {row['bitwise']}, max abs diff {row['max_abs']:.3e}, hidden "
+              f"{row['hidden_max_abs']:.3e} (overflowed {overflowed} / {ref_overflowed}; gated "
+              f"{gated})", flush=True)
+        require(not gated or row["bitwise"] or (torch.allclose(h, h_ref, **REUSE_TOL) and
+                                                torch.allclose(hid, hid_ref, **REUSE_TOL)),
+                f"levers {label}: teacher-forced iteration {row['iteration']} against the "
+                f"model without reuse beyond {REUSE_TOL}")
+    return dict(bitwise=bitwise, max_abs=diffs, overflow=not clean, forced=forced)
+
+
+@torch.inference_mode()
+def body_query_reuse(recon, pcd, body_in) -> dict:
+    """The body query's candidate reuse at the bench shape, op level, on the
+    inputs of `recon`'s iteration-0 body query (the body (B*T, 6890) x the
+    VG garment vertices), in index order and under the spatial lever: a
+    build at REUSE_OP_MARGIN (halved until the widened table fits its cap),
+    then the centers each moved by half the margin (the state reused: no
+    coverage launch, the same state object; the outputs bitwise a fresh
+    call's), then by twice the margin (rebuilt at the moved centers,
+    bitwise a fresh call's); a reusing call's and a fresh call's ms by
+    CUDA events (host reads included)."""
+    from garment4d_tpu_torch import ops
+
+    with recording(ops, "query_group_pe_multi") as qcalls:
+        recon.posed(pcd, body_in)
+    radii, nsamples, xyz, centers, feats, pe_params = qcalls[0][0][:6]
+    del qcalls
+    gen = torch.Generator(device=centers.device).manual_seed(0)
+    step = torch.randn(centers.shape, generator=gen, device=centers.device)
+    step = step / step.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    rows = {}
+    for spatial in (False, True):
+        label = "spatial" if spatial else "index order"
+
+        def call(c, state=None, margin=0.0):
+            return ops.query_group_pe_multi(radii, nsamples, xyz, c, feats, pe_params,
+                                            spatial=spatial, candidates=state,
+                                            reuse_margin=margin)
+
+        def same(got, c):
+            return all(same_bits(a, b) for a, b in zip(got, call(c)[0]))
+
+        margin = REUSE_OP_MARGIN
+        outs0, state0 = call(centers, margin=margin)
+        while state0["overflow"]:
+            margin /= 2
+            require(margin > 1e-4, f"body query reuse ({label}): every margin overflows")
+            outs0, state0 = call(centers, margin=margin)
+        require(same(outs0, centers), f"body query reuse ({label}): the build differs from "
+                f"a fresh call")
+        near, far = centers + 0.5 * margin * step, centers + 2.0 * margin * step
+        ops.reset_counts()
+        outs1, state1 = call(near, state0, margin)
+        torch.cuda.synchronize()
+        coverage = ops.launch_counts["coverage"]
+        require(state1 is state0 and coverage == 0,
+                f"body query reuse ({label}): a drift of half the margin rebuilt the table")
+        require(same(outs1, near), f"body query reuse ({label}): the reusing call differs "
+                f"from a fresh call")
+        outs2, state2 = call(far, state1, margin)
+        require(state2 is not state1 and torch.equal(state2["centers0"], far),
+                f"body query reuse ({label}): a drift of twice the margin reused the table")
+        require(same(outs2, far), f"body query reuse ({label}): the rebuilt call differs "
+                f"from a fresh call")
+        row = dict(margin=margin, counts_min=int(state0["counts"].min()),
+                   counts_max=int(state0["counts"].max()),
+                   reuse_ms=cuda_ms(lambda: call(near, state0, margin), 10),
+                   fresh_ms=cuda_ms(lambda: call(near), 10))
+        rows[label] = row
+        print(f"body query reuse ({label}, {tuple(xyz.shape)} x {centers.shape[1]}): margin "
+              f"{margin:g}, {row['counts_min']}-{row['counts_max']} candidates a frame; "
+              f"half a margin reused (0 coverage launches), bitwise a fresh call; twice "
+              f"rebuilt, bitwise; {row['reuse_ms']:.4f} ms reusing vs {row['fresh_ms']:.4f} "
+              f"ms fresh", flush=True)
+    return rows
+
+
+def lever_train_step(assets, body, weights, margin, res: Results) -> dict:
+    """The posed train step (B=4) with both levers from `posed_synth.npz`:
+    the kernels launched (the gathers' backward, the scatter-add, among
+    them), at least one body query on a Morton-compacted table (so its
+    backward runs through the compacted rows), finite losses and gradients, every trainable tensor moved, the
+    canonical stage bitwise unchanged; the plain step's losses within
+    LOSS_TOL; per iteration the backward through the kernels against the
+    plain versions' within GRAD_TOL (`teacher_forced_grads`); frames/s and
+    a profile (the row gathers' and the scatter-add's device ms)."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.ops import pemax
+    from garment4d_tpu_torch.train import make_posed_steps, make_state_for
+
+    dev = torch.device("cuda")
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    base = GarmentReconstructor.from_npz(assets, body, weights, device=dev)
+
+    def new_state():
+        model = lever_model(base, spatial_sample=True, candidate_reuse_margin=margin).model
+        return make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
+
+    state, state_plain = new_state(), new_state()
+    model = state.model
+    train_step, _ = make_posed_steps(model, assets, body.faces)
+    train_plain, _ = make_posed_steps(state_plain.model, assets, body.faces)
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    canonical = {k: v.clone() for k, v in model.canonical.state_dict().items()}
+    with recording(model, "refine") as steps, \
+            recording(pemax, "_compact_candidates", keep=lambda a, k, r: r[1]) as builds:
+        losses, launches = counted("levers train", lambda: train_step(state, batch),
+                                   POSED_TRAIN_KERNELS + ["scatter_add"])
+    print(f"levers train step: {len(builds)} candidate builds, overflows {builds}", flush=True)
+    require(not all(builds), "levers train: no body query ran on a compacted table")
+    for k, v in losses.items():
+        require(bool(torch.isfinite(v).all()), f"levers train: loss {k} is not finite")
+    params = dict(model.named_parameters())
+    for name, before in trainable.items():
+        p = params[name]
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"levers train: {name}: no finite gradient")
+        require(not torch.equal(p.detach(), before), f"levers train: {name}: not moved")
+    for k, v in model.canonical.state_dict().items():
+        require(torch.equal(v, canonical[k]), f"levers train: canonical {k} changed")
+    ops.reset_counts()
+    with ops.plain_ops():
+        losses_plain = train_plain(state_plain, batch)
+    torch.cuda.synchronize()
+    require(not any(ops.launch_counts.values()), "levers train: the plain step launched kernels")
+    loss_err = {k: float(((losses[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                for k, v in losses_plain.items()}
+    worst = max(loss_err, key=loss_err.get)
+    print(f"levers train step: {len(trainable)} tensors moved, losses vs the plain path "
+          f"largest relative {loss_err[worst]:.3e} ({worst})", flush=True)
+    require(loss_err[worst] <= LOSS_TOL, f"levers train: loss {worst} relative "
+            f"{loss_err[worst]} > {LOSS_TOL}")
+    forced, failed = teacher_forced_grads(model, [(fresh_levers(a), k, r) for a, k, r in steps])
+    require(not failed, "; ".join(failed))
+    step_s = wall_s(lambda: train_step(state, batch), runs=3, warmup=1)
+    prof, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
+    idle = print_profile("levers train", prof, dev_ms, step_s * 1e3, top=8)
+    kernel_ms_ = {k: device_ms_of(prof, AB_KERNEL_NAMES[k]) for k in ("gather_rows",
+                                                                       "scatter_add")}
+    print(f"levers posed train step: {TRAIN_F / step_s:.2f} frames/s; device ms a step: "
+          + ", ".join(f"{k} {ms:.4f} in {launches.get(k, 0)} launches"
+                      for k, ms in kernel_ms_.items()), flush=True)
+    return dict(launches=launches, builds=len(builds), overflows=sum(builds),
+                loss_rel_err=loss_err, forced=forced,
+                frames_per_sec=TRAIN_F / step_s, device_ms_per_step=dev_ms, idle_share=idle,
+                kernel_device_ms=kernel_ms_)
+
+
+def lever_entry_point(root: Path, tree: dict, margin: float) -> dict:
+    """The entry point with both levers on phase 7's tree: one posed epoch
+    (`--fix_PCA 1` from phase 7's canonical checkpoint), then `--only_eval 1
+    --vis` of phase 7's posed checkpoint: finite losses, the kernels
+    launched, and the export's files (VIS_BATCHES eval batches x TRAIN_B
+    sequences x T frames x 4) with finite vertices."""
+    import numpy as np
+
+    from garment4d_tpu_torch import train_temporal
+    from garment4d_tpu_torch.data.obj_io import read_obj
+
+    levers = ["--spatial_sample", "1", "--candidate_reuse_margin", repr(margin)]
+    common = ["--config", tree["cfg"], "--smpl_model_dir", tree["smpl_dir"], "--T", str(T),
+              "--batch_size", str(TRAIN_B), "--GarmentPCALBS", "1", *levers]
+    t0 = time.perf_counter()
+    hist, train_launches = counted("levers entry point epoch", lambda: train_temporal.main(
+        common + ["--fix_PCA", "1", "--GarmentPCA_pretrain",
+                  str(root / "canonical" / "ckpt" / "model.ckpt"), "--epoch_num", "1",
+                  "--lr", str(TRAIN_LR), "--output_dir", str(root / "posed_levers")]),
+        POSED_TRAIN_KERNELS + ["scatter_add"])
+    epoch_s = time.perf_counter() - t0
+    for split in ("train", "eval"):
+        require(all(math.isfinite(v) for v in hist[0][split].values()),
+                f"levers entry point: non-finite {split} losses {hist[0][split]}")
+    vis_out = root / "eval_vis"
+    means, eval_launches = counted("levers entry point --only_eval --vis", lambda: train_temporal.main(
+        common + ["--only_eval", "1", "--vis", "--pretrained_model",
+                  str(root / "posed" / "ckpt" / "model.ckpt"), "--output_dir", str(vis_out)]),
+        FORWARD_KERNELS + ["nn1"])
+    require(all(math.isfinite(v) for v in means.values()), f"levers --only_eval: {means}")
+    files = sorted(os.listdir(vis_out / "vis"))
+    want = sorted(f"b{bi}_s{b}_f{t}_{kind}" for bi in range(VIS_BATCHES) for b in range(TRAIN_B)
+                  for t in range(T) for kind in ("pcd.ply", "pred_garment.obj",
+                                                 "gt_garment.obj", "body.obj"))
+    require(files == want, f"levers --vis: {len(files)} files, {len(want)} expected")
+    v, faces, _, _ = read_obj(str(vis_out / "vis" / f"b{VIS_BATCHES - 1}_s{TRAIN_B - 1}_f{T - 1}"
+                                               f"_pred_garment.obj"))
+    require(v.shape == (VG, 3) and bool(np.isfinite(v).all()) and len(faces) > 0,
+            "levers --vis: the predicted garment OBJ")
+    print(f"levers entry point: one posed epoch {epoch_s:.2f} s, {hist[0]['train']}; "
+          f"--only_eval --vis wrote {len(files)} files", flush=True)
+    return dict(epoch_s=epoch_s, train_launches=train_launches,
+                eval_launches=eval_launches, vis_files=len(files))
+
+
+def levers_phase(recon, recon_cpu, pcd, body_in, steps4: dict, assets, body, weights,
+                 root: Path, tree: dict, res: Results) -> dict:
+    """Phase 10: the posed forward under `spatial_sample`, under candidate
+    reuse at a margin below and one above phase 4's per-center steps, and
+    under both (the margin below, whose tables fit their cap); the body
+    query's reuse at the op level; the posed train step and the entry
+    point under both (the margin below)."""
+    from garment4d_tpu_torch.ops import pemax
+
+    t0 = time.perf_counter()
+    step = max(steps4["steps"])
+    margins = dict(below=LEVER_BELOW * step,
+                   above=LEVER_ABOVE * max(step, max(steps4["from_first"])))
+    print(f"levers: phase 4's largest per-center step between iterations {steps4['steps']}, "
+          f"from the iteration-0 centers {steps4['from_first']}; margins {margins}", flush=True)
+    configs = {"spatial": dict(spatial_sample=True),
+               "reuse_below": dict(candidate_reuse_margin=margins["below"]),
+               "reuse_above": dict(candidate_reuse_margin=margins["above"]),
+               "both": dict(spatial_sample=True, candidate_reuse_margin=margins["below"])}
+    out, rows, models, decided = {}, {}, {}, {}
+    models["default"] = recon
+    # the forwards compared run under torch's deterministic algorithms: the
+    # body's vertex normals sum by `index_add_`, whose atomics make two runs
+    # of one forward differ by ~1e-7, which the iterations amplify
+    with recording(pemax, "_compact_candidates") as builds, deterministic(True):
+        out["default"] = recon.posed(pcd, body_in, return_all=True)
+    decided["default"] = [b[2][1] for b in builds]  # a build an iteration
+    for label, levers in configs.items():
+        lever = models[label] = lever_model(recon, **levers)
+        out[label], launches, overflows, steps, decided[label], cases = lever_forward(
+            label, lever, pcd, body_in, res)
+        row = dict(levers=levers, launches=launches, builds=len(overflows),
+                   overflows=sum(overflows), tables_overflowed=decided[label], cases=cases)
+        spatial = levers.get("spatial_sample", False)
+        if "candidate_reuse_margin" in levers:
+            ref = "spatial" if spatial else "default"
+            row["vs_without_reuse"] = reuse_against(
+                label, out[label], out[ref], steps, decided[label], decided[ref], models[ref],
+                spatial)
+        if spatial or not row["vs_without_reuse"]["bitwise"]:
+            cpu = lever_model(recon_cpu, **levers)
+            row["forced"] = forced_lever_iterations(label, steps, decided[label], cpu, spatial)
+        else:  # the default forward's iterations, which phase 4 teacher-forces
+            print(f"levers {label}: bitwise the default forward, whose iterations phase 4 "
+                  f"holds teacher-forced", flush=True)
+        del steps
+        fwd_s = wall_s(lambda: lever.posed(pcd, body_in))
+        prof, dev_ms = profile_device(lambda: lever.posed(pcd, body_in), runs=2)
+        row.update(frames_per_sec=F / fwd_s, device_ms=dev_ms,
+                   idle_share=print_profile(f"levers {label}", prof, dev_ms, fwd_s * 1e3, top=8),
+                   kernel_device_ms={k: device_ms_of(prof, AB_KERNEL_NAMES[k])
+                                     for k in TIMED_KERNELS})
+        print(f"levers {label}: {row['frames_per_sec']:.2f} frames/s, {row['builds']} builds "
+              f"and {row['overflows']} overflows a forward", flush=True)
+        rows[label] = row
+    del out, models
+    torch.cuda.empty_cache()
+    reuse_op = body_query_reuse(recon, pcd, body_in)
+    torch.cuda.empty_cache()
+    train = lever_train_step(assets, body, weights, margins["below"], res)
+    torch.cuda.empty_cache()
+    entry = lever_entry_point(root, tree, margins["below"])
+    phase_s = time.perf_counter() - t0
+    print(f"levers phase: {phase_s:.1f} s", flush=True)
+    return dict(steps=steps4, margins=margins, forwards=rows, body_query_reuse=reuse_op,
+                train=train, entry_point=entry, phase_s=phase_s)
+
+
 def counted(label, fn, names):
     """Run the main path `fn` once with the launch counters at 0 before it;
     require each kernel in `names` to have launched."""
@@ -4180,6 +4701,7 @@ def main() -> int:
           f"(one host read each)", flush=True)
     last = out.iter_garment_v[-1]
     require(len(out.iter_garment_v) == 3, "three refinement iterations")
+    steps4 = center_steps(out)
     require(tuple(last.shape) == (B, T, VG, 3), f"posed shape {tuple(last.shape)}")
     require(all(bool(torch.isfinite(v).all()) for v in out.iter_garment_v),
             "non-finite posed garment")
@@ -4306,14 +4828,20 @@ def main() -> int:
 
         # ---- 9. data parallelism ---------------------------------------------
         torch.cuda.empty_cache()
-        dp = data_parallel_phase(assets, body, weights, entry_root, entry.pop("tree"),
+        tree = entry.pop("tree")
+        dp = data_parallel_phase(assets, body, weights, entry_root, tree,
                                  entry["frames_per_sec"])
+
+        # ---- 10. the posed model's opt-in levers -----------------------------
+        torch.cuda.empty_cache()
+        levers = levers_phase(recon, recon_cpu, pcd, body_in, steps4, assets, body, weights,
+                              entry_root, tree, res)
     finally:
         shutil.rmtree(entry_root, ignore_errors=True)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
 
-    # ---- 10. results -------------------------------------------------------
+    # ---- 11. results -------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -4330,6 +4858,8 @@ def main() -> int:
             launches_canonical_train_step=canon_train["launches"].get(name, 0),
             launches_mgn=mgn["launches"].get(name, 0),
             launches_mgn_train_step=mgn_train["launches"].get(name, 0),
+            launches_spatial=levers["forwards"]["spatial"]["launches"].get(name, 0),
+            launches_both_levers=levers["forwards"]["both"]["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -4390,6 +4920,7 @@ def main() -> int:
         "mgn_train_grad_rel_l2": mgn_train["grad_rel_l2"],
         "reference_files_tensors_loaded": reference,
         "data_parallel": dp,
+        "levers": levers,
         "build_s": build_s,
         "total_s": total_s}))
     print(card)

@@ -8,7 +8,7 @@ from garment4d_tpu_torch.models.canonical import (
     select_garment_points,
 )
 from garment4d_tpu_torch.models.mgn import MgnGarmentModel
-from garment4d_tpu_torch.models.posed import BodyInputs, PosedGarmentModel, PosedOutput
+from garment4d_tpu_torch.models.posed import BodyInputs, LeverState, PosedGarmentModel, PosedOutput
 from garment4d_tpu_torch.models.skinning import (
     LbsResult,
     lbs_garment_interpolation,
@@ -17,7 +17,7 @@ from garment4d_tpu_torch.models.skinning import (
 
 __all__ = [
     "BackboneOutput", "BodyInputs", "CLASS_NUM", "CanonicalGarmentModel",
-    "CanonicalOutput", "GarmentAssets", "LABEL_DICT", "LbsResult", "MgnGarmentModel",
+    "CanonicalOutput", "GarmentAssets", "LABEL_DICT", "LbsResult", "LeverState", "MgnGarmentModel",
     "PointNet2SegBackbone", "PosedGarmentModel", "PosedOutput",
     "lbs_garment_interpolation", "lbs_garment_single_nn", "select_garment_points",
 ]

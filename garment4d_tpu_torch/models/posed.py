@@ -13,13 +13,32 @@ npz loads through `train/convert.py`. In training (`train/step.py`) the
 gradient flows through the refinement iterations only: the canonical stage
 runs in eval mode under no_grad, LBS sees no trainable input, and the PE
 tables (body and stage-1 garment levels) get no gradient.
+
+Two opt-in levers, off by default (the JAX model's fields of the same
+names; the parameters are the same either way):
+
+- `spatial_sample`: the stage-1 garment level tables are sorted once by
+  Morton code (`ops/morton.py`) and queried whole with the flat ball
+  query (the JAX package's grouped kernel bounds each query to a window of
+  the sorted table, a TPU device whose indices equal the flat query's);
+  the refinement queries see the centers in the Morton order of the
+  iteration-0 centers, and their PE outputs are gathered back to the
+  model's vertex order before the GCN. The first-S subsets differ from the
+  default's (equally arbitrary in-radius samples): for training from
+  scratch, not for checkpoint-parity evaluation.
+- `candidate_reuse_margin` > 0: the body query's compacted candidate table
+  is built at the largest radius plus the margin and reused by the later
+  iterations while the centers stay within the margin
+  (`ops.query_group_pe_multi`). Exact alone; under `spatial_sample` a
+  widened coverage that overflows the table where the plain one would not
+  samples that query in index order, not in Morton order.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +53,7 @@ from garment4d_tpu_torch.models.canonical import (
 )
 from garment4d_tpu_torch.models.skinning import LbsResult, lbs_garment_interpolation
 from garment4d_tpu_torch.nn import GraphConvolution
+from garment4d_tpu_torch.ops import morton
 
 # SMPL kinematic tree (smplx kintree_table[0])
 _SMPL_PARENTS = np.array(
@@ -61,6 +81,19 @@ class PosedOutput(NamedTuple):
     canonical: CanonicalOutput
     lbs: LbsResult
     iter_garment_v: tuple  # per-iteration refined garments, each (B, T, Vg, 3)
+
+
+@dataclasses.dataclass
+class LeverState:
+    """One forward's state of the opt-in levers, which `refine` reads:
+    `cperm` (B*T, Vg), the Morton order of the iteration-0 centers, and its
+    inverse `cinv` (spatial_sample); `body_state`, the body query's
+    candidate table (candidate_reuse_margin > 0), which `refine` replaces
+    by the one its query returns. A fresh instance builds everything anew."""
+
+    cperm: Optional[torch.Tensor] = None
+    cinv: Optional[torch.Tensor] = None
+    body_state: Optional[dict] = None
 
 
 class PEParams(nn.Module):
@@ -96,11 +129,14 @@ class PosedGarmentModel(FrozenCanonicalStage):
     """Stage 2: point-cloud sequence + body -> posed garment sequence."""
 
     def __init__(self, assets: GarmentAssets, body_faces: np.ndarray,
-                 lbs_k: int = 256, iterations: int = ITERATIONS):
+                 lbs_k: int = 256, iterations: int = ITERATIONS,
+                 spatial_sample: bool = False, candidate_reuse_margin: float = 0.0):
         super().__init__()
         self.assets = assets
         self.lbs_k = lbs_k
         self.iterations = iterations
+        self.spatial_sample = bool(spatial_sample)
+        self.candidate_reuse_margin = float(candidate_reuse_margin)
         self.canonical = CanonicalGarmentModel(assets)
         r = self.radii
         self.body_radius, self.body_nsample = r["body_radius"], r["body_nsample"]
@@ -167,19 +203,34 @@ class PosedGarmentModel(FrozenCanonicalStage):
         return mixed.reshape(B * T, Vg, HIDDEN_DIM)
 
     def refine(self, it: int, cur: torch.Tensor, hidden, garment_xyz, garment_features,
-               body_v: torch.Tensor, body_vn: torch.Tensor, B: int, T: int):
+               body_v: torch.Tensor, body_vn: torch.Tensor, B: int, T: int,
+               levers: Optional[LeverState] = None):
         """Refinement iteration `it`: body and garment PE blocks around the
         current garment vertices `cur` (B*T, Vg, 3), in the model's vertex
         order; the temporal-attention mix of the previous iteration's
         `hidden` from the second iteration on; the GCN stack. -> (vertex
-        offsets (B*T, Vg, 3), hidden (B*T, Vg, HIDDEN_DIM))."""
+        offsets (B*T, Vg, 3), hidden (B*T, Vg, HIDDEN_DIM)). `levers`: the
+        forward's `LeverState` (the queries see the centers in its `cperm`
+        order; its `body_state` is reused and replaced); without it every
+        query is built anew in the model's order, with the same results."""
+        levers = levers or LeverState()
         body_params = [getattr(self, f"body_pe{i}").kb() for i in range(3)]
-        pieces = [cur]
-        pieces.extend(ops.query_group_pe_multi(
-            self.body_radius, self.body_nsample, body_v, cur, body_vn, body_params))
+        # the queries' centers, in the Morton order of the spatial lever;
+        # each center's PE outputs are independent of the others', so the
+        # inverse gathers give the model's order back bitwise
+        cur_q = cur if levers.cperm is None else ops.gather_points(cur, levers.cperm)
+
+        def model_order(pe):
+            return pe if levers.cinv is None else ops.gather_points(pe, levers.cinv)
+
+        body_pes, levers.body_state = ops.query_group_pe_multi(
+            self.body_radius, self.body_nsample, body_v, cur_q, body_vn, body_params,
+            spatial=self.spatial_sample, candidates=levers.body_state,
+            reuse_margin=self.candidate_reuse_margin)
+        pieces = [cur] + [model_order(pe) for pe in body_pes]
         for i in range(3):
-            pieces.append(getattr(self, f"garment_pe{i}")(
-                garment_xyz[i], cur, garment_features[i]))
+            pieces.append(model_order(getattr(self, f"garment_pe{i}")(
+                garment_xyz[i], cur_q, garment_features[i])))
         if it > 0:
             pieces.append(self._temporal_mix(it, hidden, B, T))
         layers = [getattr(self, f"gcn{it}_{l}") for l in range(4)]
@@ -208,10 +259,21 @@ class PosedGarmentModel(FrozenCanonicalStage):
         cur = lbs.posed_garment.reshape(BT, Vg, 3)
         if self.band_reordered:
             cur = cur[:, self.band_perm]
+        garment_xyz, garment_features = canonical.garment_xyz, canonical.garment_features
+        levers = LeverState()
+        if self.spatial_sample:
+            # the level tables Z-ordered once for all iterations, and one
+            # center order, taken at the iteration-0 centers (after the band
+            # permutation), for every iteration
+            perms = [morton.spatial_order(t) for t in garment_xyz]
+            garment_xyz = [ops.gather_points(t, p) for t, p in zip(garment_xyz, perms)]
+            garment_features = [ops.gather_points(t, p) for t, p in zip(garment_features, perms)]
+            levers.cperm = morton.spatial_order(cur)
+            levers.cinv = torch.argsort(levers.cperm, dim=1).to(torch.int32)
         iter_results, hidden = [], None
         for it in range(self.iterations):
-            h, hidden = self.refine(it, cur, hidden, canonical.garment_xyz,
-                                    canonical.garment_features, body_v, body_vn, B, T)
+            h, hidden = self.refine(it, cur, hidden, garment_xyz, garment_features,
+                                    body_v, body_vn, B, T, levers)
             cur = cur + h
             out_v = cur[:, self.band_inv] if self.band_reordered else cur
             iter_results.append(out_v.reshape(B, T, Vg, 3))

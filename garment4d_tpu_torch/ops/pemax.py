@@ -31,8 +31,12 @@ into a sentinel-padded table, one grouped ball query over it for all radii,
 the PE blocks, and the reference's no-hit convention (a center with no hit
 gathers full-space row 0). If a frame has more covered points than the
 table holds, the query runs over the whole point set instead; that decision
-is one host read per call. The control flow is the same on every device:
-only the kernels swap for their plain versions.
+is one host read per call. Its opt-in levers: `spatial` compacts in
+Morton order (`ops/morton.py`), and `reuse_margin` widens the coverage by
+a margin and returns the compacted table, for later calls to reuse while
+their centers stay within the margin (a second host read a call). The
+control flow is the same on every device: only the kernels swap for their
+plain versions.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from typing import Sequence
 
 import torch
 
-from garment4d_tpu_torch.ops import _build
+from garment4d_tpu_torch.ops import _build, morton
 from garment4d_tpu_torch.ops.pointcloud import (
     _gather_rows_plain,
     _scatter_add_rows_kernel,
@@ -609,15 +613,26 @@ def group_pe_max_split_frozen(xyz: torch.Tensor, features: torch.Tensor,
 
 
 def _compact_candidates(xyz: torch.Tensor, centers: torch.Tensor,
-                        cover_r: float, cap: int):
-    """Coverage mask at `cover_r`, then the covered point indices in
-    ascending order (keys where(cover, iota, 1 << 30), sorted), cut to
-    `cap`. -> (counts (B,) int32, overflow: bool read on the host,
+                        cover_r: float, cap: int, spatial: bool = False):
+    """Coverage mask at `cover_r`, then the covered point indices cut to
+    `cap`: in ascending order (keys where(cover, iota, 1 << 30), sorted),
+    or with `spatial` in Morton order (keys where(cover, morton_codes(xyz),
+    1 << 30) over the whole frame's box, a stable sort, so ties keep index
+    order). -> (counts (B,) int32, overflow: bool read on the host,
     compact_idx (B, cap) int32; entries past counts[b] are >= N)."""
     B, N, _ = xyz.shape
     cover = covered_mask(xyz, centers, cover_r)
     counts = cover.sum(dim=1, dtype=torch.int32)
     overflow = bool((counts > cap).any())  # the one host read of the call
+    if spatial:
+        keys = torch.where(cover > 0, morton.morton_codes(xyz),
+                           torch.full_like(cover, 1 << 30))
+        ordered = torch.sort(keys, dim=1, stable=True)
+        # an uncovered row sorts last and reads N (JAX's payload), so that
+        # `_gather_candidates` gives it a sentinel
+        compact_idx = torch.where(ordered.values < (1 << 30), ordered.indices.to(torch.int32),
+                                  torch.full_like(cover, N))
+        return counts, overflow, compact_idx[:, :cap]
     iota = torch.arange(N, dtype=torch.int32, device=xyz.device)
     keys = torch.where(cover > 0, iota[None, :],
                        torch.full_like(cover, 1 << 30))
@@ -659,9 +674,11 @@ def _no_hit_fix(outs, idxs, radii, row0, centers, cdist0, pe_params):
 
 def query_group_pe_multi(radii: Sequence[float], nsamples: Sequence[int],
                          xyz: torch.Tensor, new_xyz: torch.Tensor,
-                         features: torch.Tensor, pe_params: Sequence) -> tuple:
+                         features: torch.Tensor, pe_params: Sequence,
+                         spatial: bool = False, candidates: dict = None,
+                         reuse_margin: float = 0.0):
     """Multi-radius ball query + PE blocks over concat(xyz, features):
-    a tuple of (B, M, G_i), exactly max_s PE_i over the neighbourhoods of
+    -> (outs, state). `outs` is a tuple of (B, M, G_i), exactly max_s PE_i over the neighbourhoods of
     `ball_query_multi(radii, nsamples, xyz, new_xyz)[i]`, including the
     no-hit row-0 convention. pe_params[i] = (k0, b0, k1, b1), k0 (3 + C, F).
     (xyz, features) get no gradient through the PE blocks (`group_pe_max`
@@ -670,22 +687,58 @@ def query_group_pe_multi(radii: Sequence[float], nsamples: Sequence[int],
     For N >= 1024 with cap < N the query runs over the candidates within
     max(radii) of any center, compacted in index order (so the first-S
     semantics hold) into a `candidate_cap(N)`-row table, unless a frame
-    has more than that; the results are the same either way."""
+    has more than that; the results are the same either way.
+
+    `spatial`: the candidates are compacted in Morton order
+    (`_compact_candidates`), so the first-S subset is another, equally
+    arbitrary, in-radius sample; smaller tables and the overflow branch
+    keep index order, as the JAX package's.
+
+    `reuse_margin` > 0: coverage is taken at max(radii) + reuse_margin,
+    so the compacted table holds every point that a center within the
+    margin of the build-time centers can hit, and `state` is that table.
+    Passed back as `candidates`, it is reused while max ||center -
+    center0||^2 <= margin^2 and it did not overflow, and rebuilt otherwise
+    (one more host read a call). Reuse is exact in index order; with
+    `spatial`, a widened coverage that overflows where max(radii)'s would
+    not takes the overflow branch, whose index-order sample differs from
+    the Morton-ordered one. The state holds `counts`, `overflow`,
+    `centers0` and, unless it overflowed, the compacted table `cxyz`,
+    `cpacked`. `state` is None without reuse or where no table is
+    compacted (N < 1024 or cap >= N)."""
+    reuse = float(reuse_margin) > 0.0
+    if candidates is not None and not reuse:
+        raise ValueError("query_group_pe_multi: candidates requires reuse_margin > 0")
     B, N, _ = xyz.shape
     S = tuple(int(s) for s in nsamples)
     packed = torch.cat([xyz, features], dim=-1)
     cap = candidate_cap(N)
     if cap >= N or N < 1024:
-        return tuple(_pe_all(packed, ball_query_multi(radii, S, xyz, new_xyz),
+        outs = tuple(_pe_all(packed, ball_query_multi(radii, S, xyz, new_xyz),
                              new_xyz, pe_params))
-    counts, overflow, compact_idx = _compact_candidates(
-        xyz, new_xyz, float(max(radii)), cap)
-    if overflow:
+        return outs, None
+    centers = new_xyz.detach()
+    state = candidates
+    if state is not None:
+        drift = _sqdist(centers, state["centers0"]).max()
+        # an overflowed state would pin every reuse to the full-set branch
+        stale = bool(drift > _f32(float(reuse_margin) ** 2)) or state["overflow"]
+        if stale:
+            state = None
+    if state is None:
+        counts, overflow, compact_idx = _compact_candidates(
+            xyz, centers, float(max(radii)) + float(reuse_margin), cap, spatial)
+        state = dict(counts=counts, overflow=overflow, centers0=centers)
+        if not overflow:
+            state["cxyz"], state["cpacked"] = _gather_candidates(xyz, packed, compact_idx)
+    if state["overflow"]:
         full = torch.full((B,), N, dtype=torch.int32, device=xyz.device)
         idxs = ball_query_multi(radii, S, xyz, new_xyz, n_valid=full)
-        return tuple(_pe_all(packed, idxs, new_xyz, pe_params))
-    cxyz, cpacked = _gather_candidates(xyz, packed, compact_idx)
-    idxs = ball_query_multi(radii, S, cxyz, new_xyz, n_valid=counts)
-    outs = _pe_all(cpacked, idxs, new_xyz, pe_params)
-    d0 = _sqdist(new_xyz, cxyz[:, 0:1, :])
-    return _no_hit_fix(outs, idxs, radii, packed[:, 0, :], new_xyz, d0, pe_params)
+        outs = tuple(_pe_all(packed, idxs, new_xyz, pe_params))
+    else:
+        cxyz, cpacked = state["cxyz"], state["cpacked"]
+        idxs = ball_query_multi(radii, S, cxyz, new_xyz, n_valid=state["counts"])
+        outs = _pe_all(cpacked, idxs, new_xyz, pe_params)
+        d0 = _sqdist(new_xyz, cxyz[:, 0:1, :])
+        outs = _no_hit_fix(outs, idxs, radii, packed[:, 0, :], new_xyz, d0, pe_params)
+    return outs, (state if reuse else None)

@@ -16,7 +16,13 @@ Counterpart of the repo's `train_temporal.py`, with its flags
                               checkpoint or the reference's canonical .ckpt)
   --pretrained_model PATH     weights only (a port checkpoint, a Flax npz or
                               a reference .ckpt)
-  --only_eval 1      one evaluation pass
+  --only_eval 1      one evaluation pass; with --vis it first writes the
+                     predictions of the first two eval batches under
+                     <output_dir>/vis (data/export.py)
+  --spatial_sample 1         posed stage: Morton-ordered neighbourhood
+                             sampling (models/posed.py)
+  --candidate_reuse_margin M posed stage: reuse the body query's candidates
+                             while the vertices move less than M
   --launcher pytorch|slurm  data-parallel training over a process group
                      (torchrun's environment, or Slurm's with --tcp_port);
                      --batch_size is the global batch; BatchNorm statistics
@@ -51,6 +57,7 @@ from garment4d_tpu_torch.data.cloth3d import (
     finalize_batch,
     host_to_device,
 )
+from garment4d_tpu_torch.data.export import export_frame
 from garment4d_tpu_torch.data.pipeline import ParallelItemLoader
 from garment4d_tpu_torch.data.synthetic import make_batch
 from garment4d_tpu_torch.models import (
@@ -62,16 +69,16 @@ from garment4d_tpu_torch.models import (
 from garment4d_tpu_torch.smpl import load_smpl, synthetic_smpl
 from garment4d_tpu_torch.train import checkpoint as ckpt_lib
 from garment4d_tpu_torch.train.loop import eval_one_epoch, fit, make_logger
-from garment4d_tpu_torch.train.step import make_canonical_steps, make_posed_steps, make_state_for
+from garment4d_tpu_torch.train.step import (
+    body_inputs_from_batch,
+    make_canonical_steps,
+    make_posed_steps,
+    make_state_for,
+)
 from garment4d_tpu_torch.utils.config import parse_args
 
-# flags whose modules the port has not yet: (set?, ROADMAP item)
+# flags with no counterpart in the port: (set?, why)
 _UNPORTED = (
-    (lambda a: a.vis, "--vis: the prediction export (data/export.py), ROADMAP Queue 1 item 7"),
-    (lambda a: a.spatial_sample, "--spatial_sample 1: Morton-ordered sampling, "
-                                 "ROADMAP Queue 1 item 6"),
-    (lambda a: a.candidate_reuse_margin, "--candidate_reuse_margin: the body-query "
-                                         "candidate reuse, ROADMAP Queue 1 item 6"),
     (lambda a: a.bf16, "--bf16 1: no counterpart in the port (fp32 throughout; ROADMAP)"),
     (lambda a: a.remat, "--remat 1: no counterpart in the port (ROADMAP)"),
     (lambda a: a.debug_nans, "--debug_nans 1: no counterpart in the port (ROADMAP)"),
@@ -79,8 +86,8 @@ _UNPORTED = (
 
 
 def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for the first flag set whose module the
-    port has not yet."""
+    """Raise NotImplementedError for the first flag set that has no
+    counterpart in the port."""
     for is_set, what in _UNPORTED:
         if is_set(args):
             raise NotImplementedError(what)
@@ -173,7 +180,9 @@ def _make_state(args, cfg, assets, body_model, device, logger):
             model = MgnGarmentModel(assets, body_model.faces)
         elif args.GarmentPCALBS:
             model = PosedGarmentModel(assets, body_model.faces, lbs_k=cfg.NETWORK.LBSK,
-                                      iterations=cfg.NETWORK.ITERATION)
+                                      iterations=cfg.NETWORK.ITERATION,
+                                      spatial_sample=bool(args.spatial_sample),
+                                      candidate_reuse_margin=args.candidate_reuse_margin)
         else:
             model = CanonicalGarmentModel(assets, only_seg=bool(args.only_seg))
     model = model.to(device)
@@ -282,6 +291,8 @@ def _run(args, cfg, dist_info):
             eval_metric = "garment_msre" if not args.only_seg else "total_loss"
 
         if args.only_eval:
+            if args.vis and main_process:
+                _export_predictions(args, model, eval_batches(0), assets, body_model, logger)
             means = eval_one_epoch(state, eval_batches(0), eval_step, logger=logger)
             logger.info(f"EVAL RESULT: {eval_metric}={means.get(eval_metric):.6f}")
             if main_process:
@@ -300,6 +311,45 @@ def _run(args, cfg, dist_info):
     finally:
         for loader in loaders:
             loader.close()
+
+
+@torch.inference_mode()
+def _export_predictions(args, model, batches, assets, body_model, logger,
+                        max_batches: int = 2) -> None:
+    """--vis: each frame of the first `max_batches` eval batches written
+    under <output_dir>/vis by `export_frame`, tagged b{batch}_s{row}_f{frame}:
+    the point cloud coloured by the predicted segmentation, the predicted
+    garment (the last refinement iteration; the canonical stage's T-pose
+    garment, one frame), the ground truth and the body."""
+    vis_dir = os.path.join(args.output_dir, "vis")
+    os.makedirs(vis_dir, exist_ok=True)
+    model.eval()
+    for bi, batch in enumerate(batches):
+        if bi >= max_batches:
+            break
+        if args.GarmentPCALBS:
+            out = model(batch["pcd"], body_inputs_from_batch(batch))
+            pred = out.iter_garment_v[-1]  # (B, T, Vg, 3)
+            logits = out.canonical.backbone.sem_logits
+            gt = batch["garment"]  # (B, T, Vg, 3)
+        else:
+            out = model(batch["pcd"])
+            pred = out.tpose_garment[:, None]  # (B, 1, Vg, 3)
+            logits = out.backbone.sem_logits
+            gt = batch["garment_template_vertices"][:, None]  # (B, 1, Vg, 3)
+        pcd = batch["pcd"].cpu().numpy()
+        B, T = pcd.shape[:2]
+        labels = logits.argmax(-1).reshape(B, T, -1).cpu().numpy()
+        pred, gt = pred.cpu().numpy(), gt.cpu().numpy()
+        body = batch["smpl_vertices"].cpu().numpy()
+        for b in range(B):
+            for t in range(min(T, pred.shape[1])):
+                export_frame(vis_dir, f"b{bi}_s{b}_f{t}",
+                             {"pcd": pcd[b, t], "pcd_labels": labels[b, t],
+                              "pred_garment": pred[b, t], "gt_garment": gt[b, t],
+                              "body": body[b, t]},
+                             garment_faces=assets.faces_tri, body_faces=body_model.faces)
+    logger.info(f"wrote visualisations to {vis_dir}")
 
 
 if __name__ == "__main__":

@@ -153,7 +153,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--candidate_reuse_margin", type=float, default=0.0,
                    help="> 0: reuse the posed-stage body-query candidate "
                         "compaction across refinement iterations while the "
-                        "garment verts move less than this margin (exact; "
+                        "garment verts move less than this margin (exact, "
+                        "except with --spatial_sample 1, where a widened "
+                        "coverage that overflows samples in index order; "
                         "rebuilds on drift - pays off with trained weights)")
     p.add_argument("--debug_nans", type=int, default=0,
                    help="stop at the first NaN (JAX's jax_debug_nans; no "

@@ -318,8 +318,9 @@ class TestCoverageAndGroupedQuery:
         gather = tops.pemax._gather_candidates
         monkeypatch.setattr(tops.pemax, "_gather_candidates",
                             lambda *a: compacted.append(1) or gather(*a))
-        got = tops.query_group_pe_multi(radii, ns, _t(xyz), _t(centers), _t(feats),
-                                        [tuple(_t(a) for a in p) for p in params])
+        got, state = tops.query_group_pe_multi(radii, ns, _t(xyz), _t(centers), _t(feats),
+                                               [tuple(_t(a) for a in p) for p in params])
+        assert state is None  # no candidate state without a reuse margin
         assert bool(compacted) == (spread == "compact")
         for w, g in zip(want, got):
             assert g.shape == (B, M, 32)
