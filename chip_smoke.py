@@ -37,7 +37,7 @@ then:
    within rtol 1e-4 / atol 1e-5 on `out` and `hidden`. Then every chain
    and GCN-stack launch of one posed forward is recorded with its inputs
    (28 chain launches, 3 stacks of 4 layer launches): each launch's bound
-   and the summed bounds printed; each of the 14 row-gather launches held
+   and the summed bounds printed; each of the 15 row-gather launches held
    bitwise (int32 views, NaN rows included) to the plain version as it
    runs, each distinct case timed beside its bound and the flattened
    `index_select` (`record_gathers`), the summed bounds beside the
@@ -132,9 +132,9 @@ then:
    timed beside its bound (bytes), its plain version and one `index_add_`;
    the step's FPS, flat (its 10 single-radius queries), 3-NN (200 frames)
    and 1-NN cases bitwise their plain versions and timed as in phase 2 and
-   5; its 20 row-gather launches each held bitwise to the plain version
-   and each case timed as the posed forward's (the posed train step's 20
-   too); the profiler's device ms of its 1-NN and its 20 row gathers beside
+   5; its 25 row-gather launches each held bitwise to the plain version
+   and each case timed as the posed forward's (the posed train step's 22
+   too); the profiler's device ms of its 1-NN and its 25 row gathers beside
    their summed bounds. The eval step (fused SA path, the eval-tail mask)
    once, its 1-NN held and timed as the train step's;
    the same train
@@ -156,7 +156,8 @@ then:
    `cfgs/skirt.yaml` at NPOINTS 6890, LBSK 256, ITERATION 3, PCADIM 64):
    the canonical stage (B=20, T=10, 2 epochs, --lr_sche), the posed stage
    from its checkpoint (B=4, --fix_PCA 1, --GarmentPCA_pretrain, 2
-   epochs), the posed run again (an auto-resume), --only_eval of the
+   epochs), the posed run again for one more epoch (an auto-resume, which
+   continues at the epoch after its checkpoint's), --only_eval of the
    posed checkpoint, and the MGN variant (B=4, --MGN 1 --fix_PCA 1, 1
    epoch) bootstrapped by --GarmentPCA_pretrain from a file in the
    reference's checkpoint layout (`tests/torch_ref_mirror.py`'s
@@ -167,9 +168,11 @@ then:
    kernels and nn1, the MGN run fps, ball_query, fused_chain, three_nn,
    gather_rows, nn1 (and its pre-pass) and banded. Every loss finite; the
    canonical stage bitwise its checkpoint in both posed checkpoints and
-   bitwise the reference file's (after the key map) in the MGN one; the auto-resume's restored state bitwise the file
-   (weights, statistics, Adam's moments and steps, step, lr_scale) and its
-   step count continued; the --only_eval means within 1e-5 relative of the
+   bitwise the reference file's (after the key map) in the MGN one; the
+   auto-resume's restored state bitwise the file (weights, statistics,
+   Adam's moments and steps, step, lr_scale, the dropout generator and the
+   plateau), its one epoch the one after the checkpoint's, its `Train/*`
+   scalars at the restored step count onwards; the --only_eval means within 1e-5 relative of the
    eval logged for the epoch the checkpoint holds; one `finalize_batch` of
    four windows on the card within 1e-5 (relative beyond 1) of the same raw
    batch on the CPU, indices and labels equal. Prints each stage's train
@@ -212,8 +215,8 @@ then:
    the gradient and loss all-reduces), from the same weights, batch and
    dropout generator, with the launch counters at 0 before each: the
    posed step bitwise (losses, gradients, parameters and buffers; both
-   runs, and a second run without the group, under torch's deterministic
-   algorithms, which make the losses' `index_add_` atomics repeat), the
+   runs, and a second run without the group, with torch's deterministic
+   algorithms off: the losses' mesh sums repeat bitwise), the
    canonical one within DP1_TOL (losses 1e-5 relative,
    running statistics 1e-6 of each tensor's largest, gradients 1e-2
    relative L2; those zero in exact arithmetic, `record_errors`, below
@@ -224,8 +227,7 @@ then:
    gradients, one of the losses; none without the group). 9b, two ranks on the
    one card over gloo (NCCL refuses two ranks of one GPU), each its own
    process (`chip_smoke.py --dp-rank`, torchrun's variables, the library
-   the parent built) with its half of each global batch (the posed step
-   under deterministic algorithms, as in 9a): the two replicas
+   the parent built) with its half of each global batch: the two replicas
    bitwise equal after each step, the loss scalars, running statistics
    and gradients within DP2_TOL (1e-4, 1e-5, 2e-2: the JAX package's
    sharded step test) of 9a's single-process steps; the posed step's
@@ -249,9 +251,7 @@ then:
    largest drift from the iteration-0 centers). The posed forward under
    spatial sampling, reuse at each margin and both (the smaller margin,
    whose tables fit their cap), each with the launch counters at 0 before
-   it and under torch's deterministic algorithms (the body normals'
-   `index_add_` atomics otherwise move two runs of one forward by
-   ~1e-7): the candidate builds and overflows a forward; every coverage
+   it: the candidate builds and overflows a forward; every coverage
    launch (the radius widened by the margin) and grouped ball-query launch
    (the Morton-compacted body tables) bitwise its plain version, and under
    the spatial lever every flat query of the Morton-sorted garment levels
@@ -284,7 +284,36 @@ then:
    smaller margin) on phase 7's tree: one posed epoch from phase 7's canonical checkpoint, and
    `--only_eval 1 --vis` of its posed checkpoint writing its 2 x 4 x 10 x
    4 files;
-11. prints a JSON line of the kernels (each row read from the costliest
+11. determinism, with torch's deterministic algorithms off: the default
+   posed forward (phase 4's shapes) twice, every output tensor bitwise
+   equal, and the posed train step (phase 5's, B=4) twice from fresh
+   states, every loss, gradient, parameter and buffer bitwise equal (the
+   mesh sums run over fixed incidence tables, `ops/meshmath.py`); the
+   vertex normals' ms at the body's shape beside the `index_add_` form
+   they replaced;
+12. post-processing and body fitting (`data/postprocess.py`,
+   `tools/transfer.py`, `tools/fit_body.py`) on phase 4's posed output
+   (80 frames of the Vg=2000 ring against the 6890-vertex body):
+   `laplacian_smooth` (100 steps) and `detect_penetration` over the 80
+   frames with the launch counters at 0 before them (nn1 and gather_rows
+   launched), each 1-NN launch ((80, 2000) vs 6890) bitwise its plain
+   version in indices and squared distances and timed beside its bound
+   and `cdist_min`, each row gather held bitwise as it runs and each case
+   timed; `process_frame` with the garment faces on frame 0 of each
+   sequence (the synthetic body's faces are a random soup with no inside
+   or outside, where the removal stalls at 5 rounds as the JAX package's
+   does: no more inside vertices after than before, the JAX test's gate)
+   and on a closed pair (a 2000-vertex garment sphere inside a 6890-vertex
+   body sphere: no inside vertex left after the last round, fewer rounds
+   than 5): rounds, inside counts, ms split into the float64 projection on
+   the card and the host's sparse solve; 512 points of a frame projected
+   by the same function in float64 on the CPU (faces bitwise,
+   barycentrics, points and normals within 1e-12); the LBFGS fit (200
+   iterations) and the staged fit (60/120/120) at B=8 to targets of known
+   parameters (seed 0), and the fit through a K=3 correspondence to a
+   jittered 3000-vertex subset, each mean vertex residual within 0.02;
+   wall ms of each;
+13. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -313,7 +342,7 @@ grouped ball-query launches (ms, bounds and their sums); the posed and
 canonical train steps (frames/s, device ms, the same kernels' device ms
 per step, the PE backward's and the scatter-add's), the PE backward at
 each of its six shapes and its dtable half, and the scatter-add at each of
-its 11 shapes beside one `index_add_`, on inputs recorded from the steps;
+its 12 shapes beside one `index_add_`, on inputs recorded from the steps;
 each coverage launch of the posed forward and each distinct FPS, flat
 ball-query and 3-NN case of the posed forward and both train steps (3-NN
 beside `torch.cdist` and a top-3), their sums over the posed forward;
@@ -2607,7 +2636,8 @@ def timed_epochs():
 
 def restored_matches_file(args, _kwargs, result) -> bool:
     """`restore_checkpoint`'s state against its file, bitwise: weights,
-    BatchNorm statistics, Adam's moments and steps, `step`, `lr_scale`."""
+    BatchNorm statistics, Adam's moments and steps, `step`, `lr_scale`, the
+    dropout generator's state and the plateau's."""
     path = args[0]
     state, _, _ = result
     saved = torch.load(path, map_location="cpu", weights_only=True)
@@ -2618,7 +2648,9 @@ def restored_matches_file(args, _kwargs, result) -> bool:
     ok = ok and sorted(opt) == sorted(want) and all(
         same_bits(opt[i][k].cpu(), v) for i, s in want.items() for k, v in s.items())
     other = saved["other_state"]
-    return ok and state.step == other["step"] and state.lr_scale == other["lr_scale"]
+    return (ok and state.step == other["step"] and state.lr_scale == other["lr_scale"]
+            and torch.equal(state.generator_state, other["generator_state"])
+            and state.plateau == other["plateau"])
 
 
 def entry_point_phase(step_fps: dict, root: Path) -> dict:
@@ -2626,8 +2658,8 @@ def entry_point_phase(step_fps: dict, root: Path) -> dict:
     at the recipe (`scripts/train/train_skirt_{canonical,posed}.sh`) on a
     mini-CLOTH3D tree written under `root`: the canonical stage, then the
     posed stage from its checkpoint with the canonical stage frozen, the
-    posed run again (an auto-resume), then one evaluation of the posed
-    checkpoint. The tree stays for phase 9."""
+    posed run again for one more epoch (an auto-resume), then one
+    evaluation of the posed checkpoint. The tree stays for phase 9."""
     from garment4d_tpu_torch import ops, train_temporal
     from garment4d_tpu_torch.data.cloth3d import Cloth3dDataset, Cloth3dPaths, finalize_batch
     from garment4d_tpu_torch.models import GarmentAssets
@@ -2671,6 +2703,8 @@ def entry_point_phase(step_fps: dict, root: Path) -> dict:
              "mgn": str(root / "mgn" / "ckpt" / "model.ckpt")}
     out, launches, epochs, snapshots, restores = {}, {}, {}, {}, []
     for label, (argv, names) in runs.items():
+        if label == "posed_resumed":  # one epoch past the checkpoint's
+            argv = argv + ["--epoch_num", str(snapshots["posed"]["epoch"] + 2)]
         with timed_epochs() as times, \
                 recording(checkpoint, "restore_checkpoint", keep=restored_matches_file) as rs:
             t0 = time.perf_counter()
@@ -2708,20 +2742,33 @@ def entry_point_phase(step_fps: dict, root: Path) -> dict:
         "entry point mgn: the canonical stage differs from the reference file")
     print(f"entry point mgn: the canonical stage ({len(want)} tensors) bitwise the "
           f"reference file's after its epoch", flush=True)
-    # the auto-resume restored exactly the saved state, once
+    # the auto-resume restored exactly the saved state, once, and ran the
+    # epoch after the checkpoint's, its scalars from the restored step on
     require(restores == [("posed_resumed", True)],
             f"entry point: restores {restores}, one bitwise restore expected")
+    saved_epoch, saved_step = snapshots["posed"]["epoch"], snapshots["posed"]["other_state"]["step"]
+    require([h["epoch"] for h in out["posed_resumed"]] == [saved_epoch + 1],
+            f"entry point: the resumed run's epochs {[h['epoch'] for h in out['posed_resumed']]}, "
+            f"{saved_epoch + 1} expected")
     per_epoch = epochs["posed_resumed"]["train"][0][0] // (TRAIN_B * T)
-    require(snapshots["posed_resumed"]["other_state"]["step"]
-            == snapshots["posed"]["other_state"]["step"]
-            + (snapshots["posed_resumed"]["epoch"] + 1) * per_epoch,
+    with open(root / "posed" / "metrics.jsonl") as f:  # both runs' lines, in order
+        train = [row for row in map(json.loads, f) if row["tag"].startswith("Train/")]
+    tail = train[-per_epoch * len({row["tag"] for row in train}):]  # the resumed epoch's
+    steps = sorted({row["step"] for row in tail})
+    require(steps == list(range(saved_step, saved_step + per_epoch)),
+            f"entry point: the resumed epoch's Train/* steps {steps}, "
+            f"{saved_step}..{saved_step + per_epoch - 1} expected")
+    resumed = snapshots["posed_resumed"]
+    require((resumed["epoch"], resumed["other_state"]["step"])
+            in ((saved_epoch, saved_step), (saved_epoch + 1, saved_step + per_epoch)),
             "entry point: the resumed run did not continue the saved step count")
     # --only_eval against the eval logged for the epoch the checkpoint holds
-    held = out["posed_resumed"][snapshots["posed_resumed"]["epoch"]]["eval"]
+    logged = {h["epoch"]: h for h in out["posed"] + out["posed_resumed"]}
+    held = logged[resumed["epoch"]]["eval"]
     only = out["only_eval"]
     eval_err = max(abs(only[k] - v) / max(abs(v), 1e-12) for k, v in held.items())
     print(f"entry point --only_eval vs the logged eval of epoch "
-          f"{snapshots['posed_resumed']['epoch']}: largest relative difference "
+          f"{resumed['epoch']}: largest relative difference "
           f"{eval_err:.3e}", flush=True)
     require(sorted(only) == sorted(held) and eval_err <= ENTRY_TOL,
             f"entry point --only_eval: relative difference {eval_err} > {ENTRY_TOL}")
@@ -3160,17 +3207,6 @@ def torchrun_vars(rank: int, world: int):
                 os.environ[k] = v
 
 
-@contextlib.contextmanager
-def deterministic(on: bool):
-    """torch's deterministic algorithms (warnings only where an op has
-    none) inside, when `on`."""
-    torch.use_deterministic_algorithms(on, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def dp_state(stage: str, assets, body, weights, dev):
     """(train state, train step) of phase 5's posed or phase 6's canonical
     train step from `posed_synth.npz`; in a process group, a replica of a
@@ -3332,10 +3368,9 @@ def dp_path(stage: str, label: str, assets, body, weights) -> dict:
     """One 9a run of a train step at its phase's shape (phase 5's posed at
     B=4, phase 6's canonical at B=20, seed 1), from `posed_synth.npz`: the
     step once with the launch counters at 0 before it, its FPS frames and
-    all-reduce calls recorded (the posed one under deterministic
-    algorithms); then, but for `plain again`, frames/s (median of 5 after
-    2 warm-ups) and the device ms and NCCL kernels of a step by the
-    profiler."""
+    all-reduce calls recorded; then, but for `plain again`, frames/s
+    (median of 5 after 2 warm-ups) and the device ms and NCCL kernels of a
+    step by the profiler."""
     from garment4d_tpu_torch.data.synthetic import make_batch
     from garment4d_tpu_torch.nn import BatchNorm
     from garment4d_tpu_torch.ops import pointcloud as pc
@@ -3344,8 +3379,7 @@ def dp_path(stage: str, label: str, assets, body, weights) -> dict:
     batch_size, names = DP_STAGES[stage]
     batch = make_batch(assets, body, batch_size=batch_size, T=T, npoints=N, seed=1, device=dev)
     state, step = dp_state(stage, assets, body, weights, dev)
-    with deterministic(stage == "posed"), \
-            recording(pc, "_fps_kernel", keep=lambda a, k, r: int(a[0].shape[0])) as fps_calls, \
+    with recording(pc, "_fps_kernel", keep=lambda a, k, r: int(a[0].shape[0])) as fps_calls, \
             recording(torch.distributed, "all_reduce",
                       keep=lambda a, k, r: a[0].numel()) as reduce_calls:
         losses, launches = counted(f"{stage} train step, {label}",
@@ -3374,8 +3408,8 @@ def dp_path(stage: str, label: str, assets, body, weights) -> dict:
 
 def posed_halves(assets, body, weights) -> dict:
     """For 9b's per-sample gate: the posed step's per-sample loss entries of
-    one process on each rank's rows of 9a's batch alone (B=2 each, under
-    deterministic algorithms), in rank order."""
+    one process on each rank's rows of 9a's batch alone (B=2 each), in rank
+    order."""
     from garment4d_tpu_torch import parallel
     from garment4d_tpu_torch.data.synthetic import make_batch
 
@@ -3384,8 +3418,7 @@ def posed_halves(assets, body, weights) -> dict:
     parts = []
     for r in range(DP_WORLD):
         state, step = dp_state("posed", assets, body, weights, dev)
-        with deterministic(True):
-            losses = step(state, parallel.shard_batch(batch, r, DP_WORLD))
+        losses = step(state, parallel.shard_batch(batch, r, DP_WORLD))
         parts.append({k: v.to("cpu", copy=True) for k, v in losses.items() if v.ndim})
         del state, step, losses
     torch.cuda.empty_cache()
@@ -3396,9 +3429,9 @@ def dp_world_one(assets, body, weights) -> dict:
     """9a: each train step (`dp_path`) without a process group, the posed
     one twice, and then, in one group of one rank over NCCL, through the
     data-parallel path, from the same weights, batch and generator. The
-    posed step bitwise (its trained part has no BatchNorm; all runs under
-    deterministic algorithms, which make the losses' `index_add_` atomics
-    repeat, as its second run without the group shows); the canonical one
+    posed step bitwise (its trained part has no BatchNorm, and its losses'
+    mesh sums repeat bitwise, as its second run without the group shows;
+    torch's deterministic algorithms off); the canonical one
     within DP1_TOL (its BatchNorm moments summed in another order); the
     same launches on both paths; the all-reduce calls counted. Also 9b's
     `posed_halves`."""
@@ -3415,7 +3448,7 @@ def dp_world_one(assets, body, weights) -> dict:
         if stage == "posed":
             control = records_equal(plain["record"], run["plain again"]["record"])
             differ = records_equal(plain["record"], dp["record"])
-            print(f"posed train step under deterministic algorithms: plain vs plain again "
+            print(f"posed train step: plain vs plain again "
                   f"{len(control)} tensors differ, data parallel vs plain {len(differ)} "
                   f"{differ[:5]}", flush=True)
             require(not control, f"the posed step does not repeat itself: {control[:5]}")
@@ -3448,10 +3481,9 @@ def dp_world_one(assets, body, weights) -> dict:
 def dp_rank_main(outdir: Path) -> int:
     """One rank of 9b (`chip_smoke.py --dp-rank OUTDIR`, torchrun's
     variables in the environment): joins the gloo group on the card, runs
-    each train step on its share of the global batch (the posed one under
-    deterministic algorithms, as 9a's) with the launch counters at 0 before
-    it and the FPS launches' frame counts recorded, and writes what it saw
-    to OUTDIR/rank<r>.pt."""
+    each train step on its share of the global batch with the launch
+    counters at 0 before it and the FPS launches' frame counts recorded,
+    and writes what it saw to OUTDIR/rank<r>.pt."""
     from garment4d_tpu_torch import parallel
     from garment4d_tpu_torch.data.synthetic import make_batch
     from garment4d_tpu_torch.models import GarmentAssets
@@ -3473,8 +3505,7 @@ def dp_rank_main(outdir: Path) -> int:
             args = dp_step_args(stage, batch, dev)
             parallel.barrier()
             t0 = time.perf_counter()
-            with deterministic(stage == "posed"), \
-                    recording(pc, "_fps_kernel", keep=lambda a, k, r: int(a[0].shape[0])) \
+            with recording(pc, "_fps_kernel", keep=lambda a, k, r: int(a[0].shape[0])) \
                     as fps_calls:
                 losses, launches = counted(f"rank {info['process_index']} {stage} train step",
                                            lambda: step(state, *args), names)
@@ -3720,8 +3751,8 @@ def check_lever_kernels(label, calls, res: Results) -> dict:
 
 
 def lever_forward(label, recon, pcd, body_in, res: Results):
-    """One counted posed forward of a lever model (torch's deterministic
-    algorithms on) with every launch of the levers' new cases recorded
+    """One counted posed forward of a lever model with every launch of the
+    levers' new cases recorded
     (`check_lever_kernels`), its candidate builds and the refinement
     iterations. -> (output, launches, the
     builds' overflow flags, refine calls, per iteration whether the table
@@ -3737,8 +3768,7 @@ def lever_forward(label, recon, pcd, body_in, res: Results):
             recording(morton, "spatial_order") as scalls, \
             recording(pc, "_gather_rows_kernel", keep=gather_keep) as gathers, \
             recording(recon.model, "refine",
-                      keep=lambda a, k, r: (a, k, r, len(builds))) as steps, \
-            deterministic(True):
+                      keep=lambda a, k, r: (a, k, r, len(builds))) as steps:
         out, launches = counted(f"levers {label}",
                                 lambda: recon.posed(pcd, body_in, return_all=True),
                                 FORWARD_KERNELS)
@@ -4033,10 +4063,9 @@ def levers_phase(recon, recon_cpu, pcd, body_in, steps4: dict, assets, body, wei
                "both": dict(spatial_sample=True, candidate_reuse_margin=margins["below"])}
     out, rows, models, decided = {}, {}, {}, {}
     models["default"] = recon
-    # the forwards compared run under torch's deterministic algorithms: the
-    # body's vertex normals sum by `index_add_`, whose atomics make two runs
-    # of one forward differ by ~1e-7, which the iterations amplify
-    with recording(pemax, "_compact_candidates") as builds, deterministic(True):
+    # torch's deterministic algorithms off: every sum of the forward repeats
+    # bitwise (the body's vertex normals over their incidence table, phase 11)
+    with recording(pemax, "_compact_candidates") as builds:
         out["default"] = recon.posed(pcd, body_in, return_all=True)
     decided["default"] = [b[2][1] for b in builds]  # a build an iteration
     for label, levers in configs.items():
@@ -4078,6 +4107,330 @@ def levers_phase(recon, recon_cpu, pcd, body_in, steps4: dict, assets, body, wei
     print(f"levers phase: {phase_s:.1f} s", flush=True)
     return dict(steps=steps4, margins=margins, forwards=rows, body_query_reuse=reuse_op,
                 train=train, entry_point=entry, phase_s=phase_s)
+
+
+def tensors_of(x, prefix: str) -> dict:
+    """Every tensor of a (nested) output: {dotted name: tensor}."""
+    if torch.is_tensor(x):
+        return {prefix: x}
+    if isinstance(x, (tuple, list)):
+        names = getattr(x, "_fields", None) or range(len(x))
+        out = {}
+        for name, v in zip(names, x):
+            out.update(tensors_of(v, f"{prefix}.{name}"))
+        return out
+    return {}
+
+
+def index_add_normals(verts, faces):
+    """The vertex normals as the port summed them before its incidence
+    tables: three `index_add_` scatters (atomics on the card), a time
+    yardstick only."""
+    from garment4d_tpu_torch.ops import meshmath
+
+    f = torch.as_tensor(faces, dtype=torch.long, device=verts.device)
+    fn = meshmath.face_normals(verts, f)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn.index_add_(-2, f[:, k], fn)
+    return vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp_min(1e-6)
+
+
+def determinism_phase(recon, pcd, body_in, assets, body, weights) -> dict:
+    """Phase 11: the default posed forward (phase 4's shapes) twice and the
+    posed train step (phase 5's, B=4, seed 1) twice from fresh states, with
+    torch's deterministic algorithms off: every output tensor, loss,
+    gradient, parameter and buffer bitwise equal. Prints each forward's
+    launches and the vertex normals' ms at the body's shape, the incidence
+    tables' gather and ordered sum beside the three `index_add_` scatters
+    they replaced (a yardstick, not run-to-run bitwise)."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data.synthetic import make_batch
+
+    t0 = time.perf_counter()
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "torch's deterministic algorithms are on")
+    forwards, launches = [], []
+    for i in range(2):
+        out, n = counted(f"determinism: posed forward {i}",
+                         lambda: recon.posed(pcd, body_in, return_all=True), FORWARD_KERNELS)
+        forwards.append({k: v.to("cpu", copy=True) for k, v in tensors_of(out, "out").items()})
+        launches.append(n)
+        del out
+    differ = [k for k in forwards[0] if not same_bits(forwards[0][k], forwards[1][k])]
+    print(f"determinism: two posed forwards, {len(forwards[0])} output tensors, "
+          f"{len(differ)} differ {differ[:5]}", flush=True)
+    require(not differ, f"two posed forwards differ: {differ[:5]}")
+    require(launches[0] == launches[1], f"launches differ: {launches}")
+
+    dev = pcd.device
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    records = []
+    for i in range(2):
+        state, step = dp_state("posed", assets, body, weights, dev)
+        losses, _ = counted(f"determinism: posed train step {i}", lambda: step(state, batch),
+                            POSED_TRAIN_KERNELS)
+        records.append(step_record(state, losses))
+        del state, step, losses
+    differ = records_equal(*records)
+    print(f"determinism: two posed train steps, {len(records[0]['losses'])} losses, "
+          f"{len(records[0]['grads'])} gradients, {len(differ)} tensors differ {differ[:5]}",
+          flush=True)
+    require(not differ, f"two posed train steps differ: {differ[:5]}")
+
+    body_v = body_in.smpl_vertices.reshape(F, N, 3)
+    normals_ms = cuda_ms(lambda: ops.vertex_normals(body_v, body.faces), 20)
+    scatter_ms = cuda_ms(lambda: index_add_normals(body_v, body.faces), 20)
+    print(f"determinism: vertex normals ({F}, {N}) over {len(body.faces)} faces, incidence "
+          f"tables {normals_ms:.4f} ms, index_add_ {scatter_ms:.4f} ms", flush=True)
+    del batch
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"determinism phase: {phase_s:.1f} s", flush=True)
+    return dict(forward_launches=launches[0], forward_tensors=len(forwards[0]),
+                step_tensors=sum(len(records[0][k]) for k in records[0]),
+                normals_ms=normals_ms, index_add_normals_ms=scatter_ms, phase_s=phase_s)
+
+
+POST_FRAMES = 8  # process_frame: frame 0 of each of the 8 sequences
+POST_CPU_POINTS = 512  # smoothed vertices of frame 0 projected on the CPU too, float64
+POST_TOL = 1e-12  # the projection, card vs CPU, float64
+FIT_SEED = 0  # the known parameters the fits recover
+FIT_ITERS = 200  # LBFGS iterations of `fit_smpl_to_vertices`
+STAGED_ITERS = (60, 120, 120)
+FIT_BOUND = 0.02  # mean vertex residual of a fit, body units
+CORR_VERTS, CORR_JITTER = 3000, 0.002  # the second topology: a jittered seeded subset
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name):
+    """Synchronised wall seconds of every call of `owner.name` in the block."""
+    seconds = []
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return result
+
+    setattr(owner, name, wrapper)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, fn)
+
+
+def fibonacci_sphere(n: int, radius: float):
+    """n points on a sphere (a Fibonacci lattice) and the faces of their
+    convex hull (2n - 4), each oriented outward: a closed surface."""
+    import numpy as np
+    from scipy.spatial import ConvexHull
+
+    i = np.arange(n) + 0.5
+    phi, theta = np.arccos(1 - 2 * i / n), np.pi * (1 + 5 ** 0.5) * i
+    pts = radius * np.stack([np.cos(theta) * np.sin(phi), np.sin(theta) * np.sin(phi),
+                             np.cos(phi)], axis=-1)
+    faces = ConvexHull(pts).simplices.astype(np.int32)
+    tri = pts[faces]
+    inward = np.sum(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]) * tri.mean(1),
+                    axis=-1) < 0
+    faces[inward] = faces[inward][:, ::-1]
+    return pts.astype(np.float32), faces
+
+
+def fit_targets(body, rng, batch: int):
+    """(betas, pose, transl) known parameters and the body's vertices for
+    them: shape 0.3 sd, root orientation 0.4 sd, body pose 0.1 sd,
+    translation 0.1 sd."""
+    import numpy as np
+
+    betas = (rng.randn(batch, 10) * 0.3).astype(np.float32)
+    pose = (rng.randn(batch, 72) * 0.1).astype(np.float32)
+    pose[:, :3] = (rng.randn(batch, 3) * 0.4).astype(np.float32)
+    transl = (rng.randn(batch, 3) * 0.1).astype(np.float32)
+    dev = body.v_template.device
+    verts, _ = body.forward_axis_angle(torch.from_numpy(betas).to(dev),
+                                       torch.from_numpy(pose).to(dev))
+    return verts + torch.from_numpy(transl).to(dev)[:, None, :]
+
+
+def residual(fitted, target) -> float:
+    """Mean vertex distance between two (B, V, 3) sets."""
+    fitted = torch.as_tensor(fitted).to(target.device)
+    return float(torch.linalg.vector_norm(fitted - target, dim=-1).mean())
+
+
+def postprocess_phase(recon, pcd, body_in, assets, body, res: Results) -> dict:
+    """Phase 12: post-processing and body fitting on the card. The posed
+    forward's last iteration (phase 4's batch: 80 frames of the Vg=2000
+    ring against the 6890-vertex synthetic body): `laplacian_smooth` (100
+    steps) and `detect_penetration` over all 80 frames with the launch
+    counters at 0 before them (nn1 and gather_rows launched), every 1-NN
+    and row-gather launch bitwise its plain version and each case timed;
+    `process_frame` with the garment faces on frame 0 of each sequence
+    (the body's faces a random soup: no more inside vertices after than
+    before, its JAX test's gate) and on a closed pair, a 2000-vertex
+    garment sphere inside a 6890-vertex body sphere (none inside after the
+    last round, fewer rounds than 5); each frame's rounds, inside counts and
+    ms split into the projection and the host solve; the projection of
+    POST_CPU_POINTS points against the same function in float64 on the CPU
+    (faces bitwise, barycentrics, points and normals within POST_TOL);
+    `fit_smpl_to_vertices` (LBFGS, FIT_ITERS) and `fit_smpl_staged`
+    (STAGED_ITERS) at B=8 to targets of known parameters (FIT_SEED), and
+    the fit through `nearest_vertex_correspondence` to a jittered subset of
+    the body's vertices, each mean vertex residual within FIT_BOUND."""
+    import numpy as np
+    import scipy.sparse.linalg
+
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data import postprocess
+    from garment4d_tpu_torch.ops import pointcloud as pc
+    from garment4d_tpu_torch.tools import fit_body, transfer
+
+    t_phase = time.perf_counter()
+    dev = pcd.device
+    garment = recon.posed(pcd, body_in).reshape(F, VG, 3)
+    body_v = body_in.smpl_vertices.reshape(F, N, 3).to(dev)
+    adj = ops.build_mesh_adjacency(assets.faces, VG)
+    norm_adj = torch.from_numpy(ops.row_normalize(adj)).to(dev)
+    faces_tri = assets.faces_tri
+
+    def smooth_and_detect():
+        smoothed = postprocess.laplacian_smooth(garment, norm_adj)
+        body_vn = ops.vertex_normals(body_v, body.faces)
+        return smoothed, postprocess.detect_penetration(smoothed, body_v, body_vn)
+
+    with recording(pc, "_nn1_kernel") as ncalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gcalls:
+        (smoothed, (inside, nearest, normal)), launches = counted(
+            "post-processing (smooth, detect)", smooth_and_detect, ["nn1", "gather_rows"])
+    require(all(bool(torch.isfinite(t).all()) for t in (smoothed, nearest, normal)),
+            "post-processing: non-finite output")
+    check_nn1("post-processing detect", ncalls, res, path="postprocess")
+    record_gathers("post-processing", gcalls, res, path="postprocess")
+    smooth_s = wall_s(lambda: postprocess.laplacian_smooth(garment, norm_adj), runs=3)
+    body_vn = ops.vertex_normals(body_v, body.faces)
+    detect_s = wall_s(lambda: postprocess.detect_penetration(smoothed, body_v, body_vn), runs=3)
+    print(f"post-processing, {F} frames: laplacian_smooth (100 steps) {smooth_s * 1e3:.3f} ms, "
+          f"detect_penetration {detect_s * 1e3:.3f} ms; {float(inside.float().mean()):.4f} of "
+          f"the smoothed vertices inside by the nearest-vertex screen", flush=True)
+    del ncalls, gcalls
+
+    def inside_count(v, bv, faces) -> int:
+        """Garment vertices inside by the removal's own criterion."""
+        near, nrm = postprocess.nearest_surface_points(v, bv, faces, device=dev)
+        return int((np.sign(np.sum((np.asarray(v, np.float64) - near) * nrm, axis=-1))
+                    <= -1e-6).sum())
+
+    def one_frame(label, garment_v, bv, faces, g_adj, g_norm, g_faces):
+        """`process_frame` with the launch counters at 0 before it, timed
+        and split into the projection and the solve; the inside vertices of
+        its removal's input (the smoothed garment) and of its output."""
+        with timed_calls(postprocess, "_nearest_on") as proj_s, \
+                timed_calls(scipy.sparse.linalg, "spsolve") as solve_s, \
+                recording(postprocess, "remove_interpenetration") as removals:
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            out, rounds = postprocess.process_frame(garment_v, bv, faces, g_adj, g_norm,
+                                                    garment_faces=g_faces,
+                                                    return_rounds=True, device=dev)
+            wall = time.perf_counter() - t0
+        n = dict(ops.launch_counts)
+        require(n.get("gather_rows", 0) > 0, f"process_frame {label}: no row gather launched")
+        require(np.isfinite(out).all() and out.shape == garment_v.shape,
+                f"process_frame {label}: output {out.shape}")
+        row = dict(frame=label, rounds=rounds, ms=wall * 1e3, projection_ms=sum(proj_s) * 1e3,
+                   solve_ms=sum(solve_s) * 1e3, launches=n,
+                   inside_before=inside_count(removals[0][0][0], bv, faces),
+                   inside_after=inside_count(out, bv, faces))
+        print(f"process_frame {label}: {rounds} rounds, inside {row['inside_before']} -> "
+              f"{row['inside_after']} of {len(out)}, {wall * 1e3:.2f} ms (projection "
+              f"{row['projection_ms']:.2f} in {len(proj_s)} calls, solve {row['solve_ms']:.2f} "
+              f"in {len(solve_s)}), launches {n}", flush=True)
+        return row
+
+    # the synthetic body's faces are a random triangle soup, with no inside
+    # or outside: the removal flips its push by the sign of <garment normal,
+    # body normal>, random here, so it stalls at 5 rounds (as the JAX
+    # package's, tests/test_torch_port_postprocess.py); held to its JAX test's
+    # gate, no more inside vertices after than before
+    frames = []
+    for b in range(POST_FRAMES):
+        f = b * T
+        row = one_frame(f"frame {f}", garment[f].cpu().numpy(), body_v[f].cpu().numpy(),
+                        body.faces, adj, norm_adj.cpu().numpy(), faces_tri)
+        require(row["rounds"] <= 5 and row["inside_after"] <= row["inside_before"],
+                f"process_frame frame {f}: {row}")
+        frames.append(row)
+    # a closed, outward-oriented body surface (a 6890-vertex sphere) and a
+    # 2000-vertex garment sphere inside it: every vertex pushed out, none
+    # left inside after the last round
+    sphere_v, sphere_f = fibonacci_sphere(N, 1.0)
+    shell_v, shell_f = fibonacci_sphere(VG, 0.97)
+    shell_adj = ops.build_mesh_adjacency(shell_f, VG)
+    closed = one_frame("closed sphere pair", shell_v, sphere_v, sphere_f, shell_adj,
+                       ops.row_normalize(shell_adj), shell_f)
+    require(closed["rounds"] < 5 and closed["inside_after"] == 0,
+            f"process_frame, closed sphere pair: {closed}")
+
+    proj = []
+    for f in (0,):
+        pts, bv = smoothed[f, :POST_CPU_POINTS].double(), body_v[f].double()
+        with recording(postprocess, "_surface_correspondence") as corr_calls:
+            near, nrm = postprocess.nearest_surface_points(pts, bv, body.faces, device=dev)
+            wnear, wnrm = postprocess.nearest_surface_points(pts.cpu(), bv.cpu(), body.faces,
+                                                             device="cpu")
+        (got, want) = [c[2] for c in corr_calls]  # (face_idx, bary, vidx) of each device
+        err = dict(frame=f, faces_equal=torch.equal(got[0].cpu(), want[0]),
+                   bary=max_abs(got[1].cpu(), want[1]),
+                   points=float(np.abs(near - wnear).max()),
+                   normals=float(np.abs(nrm - wnrm).max()))
+        print(f"projection of {len(pts)} points of frame {f} onto {len(body.faces)} faces, "
+              f"card vs CPU float64: faces equal {err['faces_equal']}, "
+              f"barycentrics {err['bary']:.3e}, points {err['points']:.3e}, normals "
+              f"{err['normals']:.3e}", flush=True)
+        require(err["faces_equal"] and max(err["bary"], err["points"], err["normals"])
+                <= POST_TOL, f"projection frame {f}: card vs CPU {err}")
+        proj.append(err)
+
+    rng = np.random.RandomState(FIT_SEED)
+    target = fit_targets(body, rng, B)
+    fits = {}
+    for label, run in (
+            ("lbfgs", lambda: fit_body.fit_smpl_to_vertices(body, target, iters=FIT_ITERS)),
+            ("staged", lambda: transfer.fit_smpl_staged(body, target, iters=STAGED_ITERS))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = run()
+        secs = time.perf_counter() - t0
+        fits[label] = dict(ms=secs * 1e3, final_loss=fit.final_loss,
+                           residual=residual(fit.vertices, target))
+        print(f"fit {label} (B={B}, {N} vertices): {secs * 1e3:.1f} ms, final loss "
+              f"{fit.final_loss:.3e}, mean vertex residual {fits[label]['residual']:.3e} "
+              f"(bound {FIT_BOUND})", flush=True)
+        require(fits[label]["residual"] <= FIT_BOUND, f"fit {label}: {fits[label]}")
+    rest = body.v_template.cpu().numpy()
+    sel = rng.permutation(N)[:CORR_VERTS]
+    dst_rest = rest[sel] + CORR_JITTER * rng.randn(CORR_VERTS, 3).astype(np.float32)
+    t0 = time.perf_counter()
+    corr = fit_body.nearest_vertex_correspondence(rest, dst_rest, K=3, device=dev)
+    corr_s = time.perf_counter() - t0
+    fit = fit_body.fit_smpl_to_vertices(body, target[:, sel], correspondence=corr,
+                                        iters=FIT_ITERS)
+    fits["correspondence"] = dict(ms=corr_s * 1e3, final_loss=fit.final_loss,
+                                  residual=residual(fit.vertices[:, sel], target[:, sel]))
+    print(f"fit through nearest_vertex_correspondence ({CORR_VERTS} jittered vertices, K=3, "
+          f"{corr_s * 1e3:.1f} ms): final loss {fit.final_loss:.3e}, mean vertex residual "
+          f"{fits['correspondence']['residual']:.3e} (bound {FIT_BOUND})", flush=True)
+    require(fits["correspondence"]["residual"] <= FIT_BOUND, f"fit correspondence: {fits}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"post-processing phase: {phase_s:.1f} s", flush=True)
+    return dict(launches=launches, smooth_ms=smooth_s * 1e3, detect_ms=detect_s * 1e3,
+                inside_share=float(inside.float().mean()), frames=frames, closed=closed,
+                projection=proj, fits=fits, phase_s=phase_s)
 
 
 def counted(label, fn, names):
@@ -4601,16 +4954,19 @@ def ab(parent: Path) -> int:
         summary[key] = {"bound": runs[1][1][key]}
     for kernel in ("chain", "gcn", "pe_bwd", "scatter_add", "knn", "ball_query_grouped",
                    "ball_query", "three_nn", "fps", "coverage", "nn1", "gather_rows"):
-        for i, case in enumerate(runs[0][1][kernel]):
-            row = {f"{lab} {field}": mean(lab, lambda r: r[kernel][i][field])
-                   for field in ("ms", "err_float64", "gather_ms", "plain_ms",
-                                 "library_ms")
-                   for lab in ("parent", "change")
-                   if field in next(r for lb, r in runs if lb == lab)[kernel][i]}
+        # cases paired by name: a checkout may launch a case the other does not
+        for case in dict.fromkeys(c["case"] for _, r in runs for c in r[kernel]):
+            row = {}
+            for field in ("ms", "err_float64", "gather_ms", "plain_ms", "library_ms"):
+                for lab in ("parent", "change"):
+                    vals = [c[field] for lb, r in runs if lb == lab for c in r[kernel]
+                            if c["case"] == case and field in c]
+                    if vals:
+                        row[f"{lab} {field}"] = sum(vals) / len(vals)
             # the bounds of this checkout's plans, from a run of the change
-            row.update({k: v for k, v in runs[1][1][kernel][i].items()
-                        if k in ("bound_ms", "scan_bound_ms")})
-            summary[f"{kernel} {case['case']}"] = row
+            row.update({k: v for c in runs[1][1][kernel] if c["case"] == case
+                        for k, v in c.items() if k in ("bound_ms", "scan_bound_ms")})
+            summary[f"{kernel} {case}"] = row
     for label in ("parent", "change"):
         for line in next(r for lab, r in runs if lab == label)["ptxas"]:
             print(f"{label} ptxas: {line}", flush=True)
@@ -4838,10 +5194,18 @@ def main() -> int:
                               entry_root, tree, res)
     finally:
         shutil.rmtree(entry_root, ignore_errors=True)
+
+    # ---- 11. determinism -------------------------------------------------------
+    torch.cuda.empty_cache()
+    determinism = determinism_phase(recon, pcd, body_in, assets, body, weights)
+
+    # ---- 12. post-processing and body fitting -----------------------------------
+    torch.cuda.empty_cache()
+    post = postprocess_phase(recon, pcd, body_in, assets, body, res)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
 
-    # ---- 11. results -------------------------------------------------------
+    # ---- 13. results -------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -4860,6 +5224,7 @@ def main() -> int:
             launches_mgn_train_step=mgn_train["launches"].get(name, 0),
             launches_spatial=levers["forwards"]["spatial"]["launches"].get(name, 0),
             launches_both_levers=levers["forwards"]["both"]["launches"].get(name, 0),
+            launches_postprocess=post["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -4921,6 +5286,8 @@ def main() -> int:
         "reference_files_tensors_loaded": reference,
         "data_parallel": dp,
         "levers": levers,
+        "determinism": determinism,
+        "postprocess": post,
         "build_s": build_s,
         "total_s": total_s}))
     print(card)

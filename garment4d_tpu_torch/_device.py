@@ -1,13 +1,15 @@
 """The device an entry point runs on.
 
 Entry points (`GarmentReconstructor.from_assets`/`from_npz`, `make_batch`,
-`template_pose`, `synthetic_smpl`) default to the card. A caller who wants
+`template_pose`, `synthetic_smpl`, the post-processing and fitting tools)
+default to the card. A caller who wants
 the plain torch versions on the CPU asks for them with `device="cpu"`;
 without a card, the default raises instead of running on the CPU.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT = "cuda"
@@ -22,3 +24,11 @@ def resolve(device) -> torch.device:
             f"device {dev} requested but torch.cuda.is_available() is false; "
             f"pass device='cpu' to run the plain torch versions on the CPU")
     return dev
+
+
+def tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    """`x` (a numpy array, a list or a tensor) as a tensor of `dtype` on
+    `device`, detached."""
+    if torch.is_tensor(x):
+        return x.detach().to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -3,11 +3,12 @@
 Counterpart of `garment4d_tpu/data/native.py`, whose entry points call the
 C++ extension `native/g4d_native.cpp` when it builds and these numpy forms
 otherwise. That extension is a host file reader, not a TPU kernel; the
-port has no counterpart of it yet (ROADMAP Queue 1 item 7), so it reads
-with numpy. The results are the extension's, bit for bit: `.bin` payloads
-are raw float32, OBJ vertices are written with six decimals (a double
-parse rounded to float32 equals strtof there), and `barycentric` sums in
-float64 in the extension's order before rounding to float32.
+port has no counterpart of it yet (ROADMAP Queue 1, the native reader),
+so it reads with numpy. The results are the extension's, bit for bit:
+`.bin` payloads are raw float32, OBJ vertices are written with six
+decimals (a double parse rounded to float32 equals strtof there), and
+`barycentric` sums in float64 in the extension's order before rounding
+to float32.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ acceleration error, and the stage bundles `canonical_stage_loss` and
 `posed_stage_loss`. The interpenetration term's 1-NN query is the 1-NN
 kernel on the card (`ops.knn_points`), the banded Laplacian the banded
 kernel (`ops.graph_matmul_banded`), both differentiable. The vertex normals
-and the cotangent Laplacian scatter with `index_add_` (atomics on the
-card), so the canonical losses are not bitwise from run to run there.
+and the cotangent Laplacian sum over fixed incidence tables through the row
+gather (`ops/meshmath.py`; its backward the deterministic scatter-add), so
+the losses repeat bitwise from run to run on the card.
 """
 
 from __future__ import annotations

@@ -991,12 +991,13 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, K: int = 1):
     Differentiable in the distances. K=1 is the 1-NN kernel on the card
     (counters `nn1` and, past _NEAREST_UNSORTED points, `nn1_sort`; diff-form
     fp32, ties to the lower index, NaN distances never taken, any N); K > 1
-    is plain `pairwise_sqdist` + top-k."""
+    is plain `pairwise_sqdist` and a stable sort, ties to the lower index
+    (as XLA's top-k)."""
     if K == 1:
         d2, idx = _NN1.apply(query, points)
         return d2[..., None], idx[..., None]
-    neg, idx = torch.topk(-pairwise_sqdist(query, points), K, dim=-1)
-    return -neg, idx.to(torch.int32)
+    d2, idx = torch.sort(pairwise_sqdist(query, points), dim=-1, stable=True)
+    return d2[..., :K], idx[..., :K].to(torch.int32)
 
 
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor,

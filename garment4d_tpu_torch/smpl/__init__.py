@@ -1,5 +1,12 @@
-"""SMPL body model and linear blend skinning."""
+"""SMPL body model, linear blend skinning and joint metadata."""
 
+from garment4d_tpu_torch.smpl.joints import (
+    SMPL_JOINT_NAMES,
+    SMPL_VERTEX_IDS,
+    joint_index,
+    joints_with_extras,
+    select_extra_joints,
+)
 from garment4d_tpu_torch.smpl.lbs import (
     batch_rigid_transform,
     batch_rodrigues,
@@ -18,7 +25,8 @@ from garment4d_tpu_torch.smpl.model import (
 )
 
 __all__ = [
-    "SmplModel", "batch_rigid_transform", "batch_rodrigues", "blend_shapes",
-    "lbs", "load_smpl", "load_smpl_npz", "load_smpl_pickle", "skin_vertices", "synthetic_smpl", "vertices2joints",
-    "vertices2joints_b",
+    "SMPL_JOINT_NAMES", "SMPL_VERTEX_IDS", "SmplModel", "batch_rigid_transform",
+    "batch_rodrigues", "blend_shapes", "joint_index", "joints_with_extras", "lbs",
+    "load_smpl", "load_smpl_npz", "load_smpl_pickle", "select_extra_joints",
+    "skin_vertices", "synthetic_smpl", "vertices2joints", "vertices2joints_b",
 ]

@@ -88,13 +88,17 @@ def skin_vertices(W: torch.Tensor, A: torch.Tensor, v_posed: torch.Tensor) -> to
 def lbs(betas: torch.Tensor, pose: torch.Tensor, v_template: torch.Tensor,
         shapedirs: torch.Tensor, posedirs: torch.Tensor,
         J_regressor: torch.Tensor, parents: np.ndarray,
-        lbs_weights: torch.Tensor):
-    """Full SMPL skinning: betas (B, 10); pose (B, J*3) axis-angle ->
-    (vertices (B, V, 3), joints (B, J, 3))."""
+        lbs_weights: torch.Tensor, pose2rot: bool = True):
+    """Full SMPL skinning: betas (B, 10); pose (B, J*3) axis-angle, or with
+    `pose2rot=False` (B, J, 3, 3) rotation matrices -> (vertices (B, V, 3),
+    joints (B, J, 3))."""
     B = max(betas.shape[0], pose.shape[0])
     v_shaped = v_template[None] + blend_shapes(betas, shapedirs)
     J = vertices2joints(J_regressor, v_shaped)
-    rot_mats = batch_rodrigues(pose.reshape(B, -1, 3))
+    if pose2rot:
+        rot_mats = batch_rodrigues(pose.reshape(B, -1, 3))
+    else:
+        rot_mats = pose.reshape(B, -1, 3, 3)
     ident = torch.eye(3, dtype=v_shaped.dtype, device=v_shaped.device)
     pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)
     v_posed = v_shaped + (pose_feature @ posedirs).reshape(B, -1, 3)

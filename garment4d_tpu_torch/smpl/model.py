@@ -3,8 +3,8 @@
 Counterpart of `garment4d_tpu/smpl/model.py`. `synthetic_smpl` draws the
 same `RandomState` numbers as the JAX package, so both build the same body.
 `load_smpl` reads a released SMPL_{GENDER}.pkl (without chumpy) or an npz
-with the same buffers. `forward_rotmats` is not ported yet (ROADMAP Queue 1
-item 7).
+with the same buffers. `forward_rotmats` takes the pose as rotation
+matrices (the reference's `SMPLLayer` with `pose2rot=False`).
 """
 
 from __future__ import annotations
@@ -41,6 +41,12 @@ class SmplModel:
     @property
     def num_verts(self) -> int:
         return self.v_template.shape[0]
+
+    def forward_rotmats(self, betas: torch.Tensor, rot_mats: torch.Tensor):
+        """betas (B, 10), rot_mats (B, J, 3, 3) -> (vertices, joints)."""
+        return _lbs(betas, rot_mats, self.v_template, self.shapedirs,
+                    self.posedirs, self.J_regressor, self.parents,
+                    self.lbs_weights, pose2rot=False)
 
     def forward_axis_angle(self, betas: torch.Tensor, pose: torch.Tensor):
         """betas (B, 10), pose (B, J*3) axis-angle -> (vertices, joints)."""

@@ -7,9 +7,12 @@ only, and the stage-1 -> stage-2 bootstrap (`--GarmentPCA_pretrain`).
 
 A checkpoint is one `torch.save` file in the reference's layout,
 `{epoch, model_state, optimizer_state, other_state}`; the train state's
-`step` and `lr_scale` travel in `other_state`. `load_pretrained` and
-`bootstrap_canonical` also take the reference's own `.ckpt` files, keyed by
-the reference's module names (`train/torch_import.py`).
+`step` and `lr_scale`, and where `fit` has run an epoch the state of its
+dropout generator and plateau schedule, travel in `other_state`. A
+checkpoint written after epoch e resumes at epoch e + 1.
+`load_pretrained` and `bootstrap_canonical` also take the reference's own
+`.ckpt` files, keyed by the reference's module names
+(`train/torch_import.py`).
 
 Under data parallelism rank 0 writes (`save_on_main`) and every rank reads
 the same file, so the replicas start equal.
@@ -43,11 +46,22 @@ def save_checkpoint(path: str, state: TrainState, epoch: int,
         "model_state": state.model.state_dict(),
         "optimizer_state": state.optimizer.state_dict(),
         "other_state": {**(other_state or {}), "step": int(state.step),
-                        "lr_scale": float(state.lr_scale)},
+                        "lr_scale": float(state.lr_scale),
+                        **_loop_state(state)},
     }
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def _loop_state(state: TrainState) -> dict:
+    """The loop's resumable state, where `fit` has set it."""
+    out = {}
+    if state.generator_state is not None:
+        out["generator_state"] = state.generator_state.cpu()
+    if state.plateau is not None:
+        out["plateau"] = dict(state.plateau)
+    return out
 
 
 def save_on_main(path: str, state: TrainState, epoch: int,
@@ -66,7 +80,8 @@ def _read(path: str, device) -> dict:
 
 def restore_checkpoint(path: str, state: TrainState):
     """Full resume into `state` (built as the saved one was): returns
-    (state, epoch, other_state without `step` and `lr_scale`)."""
+    (state, epoch, other_state without `step`, `lr_scale` and the loop's
+    state, which go to `state`). The run continues at epoch + 1."""
     device = next(iter(state.model.state_dict().values())).device
     payload = _read(path, device)
     state.model.load_state_dict(payload["model_state"], strict=True)
@@ -74,6 +89,9 @@ def restore_checkpoint(path: str, state: TrainState):
     other = dict(payload["other_state"])
     state.step = int(other.pop("step"))
     state.lr_scale = float(other.pop("lr_scale"))
+    gen = other.pop("generator_state", None)
+    state.generator_state = None if gen is None else gen.cpu()
+    state.plateau = other.pop("plateau", None)
     return state, int(payload["epoch"]), other
 
 

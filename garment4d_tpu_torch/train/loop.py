@@ -17,6 +17,15 @@ The dropout of every step draws from one `torch.Generator` on the model's
 device, seeded from `seed` (the JAX package splits a `jax.random` key a
 step).
 
+A resumed run continues where its checkpoint left off: `fit` takes the
+first epoch and the best metric so far, and the dropout generator's and
+the plateau schedule's state from the train state (`TrainState.
+generator_state`, `.plateau`, saved in the checkpoint); `Train/*` scalars
+go at the train state's step count, `epoch * steps + i`. Here the port
+differs from the JAX package, whose `fit` counts epochs from 0 again after
+a resume (replaying epoch 0's shuffle and `Train/*` steps, a fresh dropout
+key and plateau).
+
 In a process group (data parallelism) every rank runs the loop on its
 share of each global batch: the train steps return global means already,
 the eval means are reduced over the ranks as weighted global sums (a rank
@@ -27,6 +36,7 @@ writes the scalars.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -122,16 +132,18 @@ def train_one_epoch(state: TrainState, batches: Iterable, train_step,
                     generator: torch.Generator, writer: Optional[MetricWriter] = None,
                     epoch: int = 0, logger=None):
     """Runs one epoch; returns (state, mean_losses). The `Train/*` scalars
-    are written at the batch's index in its epoch, as the JAX package's
-    `fit` writes them."""
+    of a batch are written at the train state's step count before its
+    step: `epoch * steps + i` for `steps` batches an epoch (the JAX
+    package writes them at i)."""
     acc = MetricAccumulator()
     t0 = time.time()
-    for i, batch in enumerate(batches):
+    for batch in batches:
+        step = state.step
         scalars, _ = host_scalars(train_step(state, batch, generator))
         acc.add(scalars)
         if writer is not None:
             for j, (k, v) in enumerate(sorted(scalars.items())):
-                writer.scalar(f"Train/{j:02d}_{k}", v, i)
+                writer.scalar(f"Train/{j:02d}_{k}", v, step)
     means = acc.means()
     if logger is not None:
         span = time.time() - t0
@@ -179,22 +191,27 @@ def _model_device(state: TrainState) -> torch.device:
 def fit(state: TrainState, train_batches_fn, eval_batches_fn, train_step,
         eval_step, *, epochs: int, output_dir: Optional[str] = None,
         use_plateau: bool = False, eval_metric: str = "total_loss",
-        save_fn: Optional[Callable] = None, seed: int = 0, logger=None):
+        save_fn: Optional[Callable] = None, seed: int = 0, logger=None,
+        start_epoch: int = 0, best: float = float("inf")):
     """Full fit loop with the plateau learning-rate schedule and
-    best-checkpoint saving.
+    best-checkpoint saving, over epochs `start_epoch .. epochs - 1`.
 
     `train_batches_fn(epoch)` / `eval_batches_fn(epoch)` yield batch dicts;
-    `save_fn(state, epoch, best)` persists the best checkpoint. Epochs count
-    from 0 on every call, as in the JAX package, also after a resume.
+    `save_fn(state, epoch, best)` persists the best checkpoint. A resume
+    passes the epoch after its checkpoint's and the best metric so far; the
+    dropout generator (else seeded from `seed`) and the plateau schedule
+    continue from `state.generator_state` and `state.plateau` where set,
+    and both are written back there after each epoch, before `save_fn`.
     """
     logger = logger or make_logger(output_dir)
     writer = MetricWriter(output_dir if is_main_process() else None)
-    plateau = PlateauScheduler()
+    plateau = PlateauScheduler(**state.plateau) if state.plateau else PlateauScheduler()
     generator = torch.Generator(device=_model_device(state)).manual_seed(seed)
-    best = float("inf")
+    if state.generator_state is not None:
+        generator.set_state(state.generator_state)
     history = []
     try:
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             state, train_means = train_one_epoch(
                 state, train_batches_fn(epoch), train_step, generator,
                 writer=writer, epoch=epoch, logger=logger)
@@ -205,6 +222,8 @@ def fit(state: TrainState, train_batches_fn, eval_batches_fn, train_step,
             if use_plateau:
                 state.lr_scale = plateau.update(metric)
                 writer.scalar("LR", state.lr_scale, epoch)
+            state.generator_state = generator.get_state()
+            state.plateau = dataclasses.asdict(plateau)
             if metric < best:
                 best = metric
                 if save_fn is not None:

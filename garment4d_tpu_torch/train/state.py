@@ -13,6 +13,7 @@ update (`parallel.average_gradients`).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -34,13 +35,19 @@ def make_optimizer(model: torch.nn.Module, lr: float,
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer, the step count and the plateau schedule's
-    learning-rate multiplier (applied to the base rate at every step)."""
+    learning-rate multiplier (applied to the base rate at every step).
+    `fit` keeps the state of its dropout generator and of its plateau
+    schedule here at the end of each epoch (`generator_state`, `plateau`:
+    None before the first), so that a checkpoint carries them and a
+    resumed `fit` continues both."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     lr: float
     step: int = 0
     lr_scale: float = 1.0
+    generator_state: Optional[torch.Tensor] = None
+    plateau: Optional[dict] = None
 
     def apply_gradients(self) -> None:
         """One optimizer step on the gradients in the parameters' `.grad`,

@@ -169,11 +169,10 @@ def cloth3d_batches(args, cfg, npoints, body_models, device, logger, loaders,
 def _make_state(args, cfg, assets, body_model, device, logger):
     """The model on `device` with its weights (--pretrained_model, then the
     canonical bootstrap, both before the optimizer is built over the
-    parameters left trainable), its train state (in a process group every
-    rank reads the same files), and the auto-resume from
+    parameters left trainable) and its train state (in a process group
+    every rank reads the same files), and the checkpoint path
     `<output_dir>/ckpt/<ckpt_name>` (reference build(),
-    `train_temporal.py:136-156`; `fit` counts epochs from 0 again after
-    it, as the JAX package's does)."""
+    `train_temporal.py:136-156`), which `_resume` reads."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the initial weights, as JAX's PRNGKey(0)
         if args.GarmentPCALBS and args.MGN:
@@ -196,12 +195,22 @@ def _make_state(args, cfg, assets, body_model, device, logger):
                     f"({len(report['loaded'])} tensors)")
     state = make_state_for(model, lr=args.lr,
                            freeze_canonical=bool(args.fix_PCA and args.GarmentPCALBS))
-    ckpt_path = os.path.join(args.output_dir, "ckpt", args.ckpt_name)
-    if os.path.isfile(ckpt_path) and not args.only_eval:
-        state, start_epoch, other = ckpt_lib.restore_checkpoint(ckpt_path, state)
-        logger.info(f"auto-resumed from {ckpt_path} at epoch {start_epoch} "
-                    f"(best {other.get('best_v_l2')})")
-    return state, ckpt_path
+    return state, os.path.join(args.output_dir, "ckpt", args.ckpt_name)
+
+
+def _resume(args, state, ckpt_path, logger):
+    """The auto-resume from `ckpt_path` where it exists (not under
+    --only_eval): -> (state, the epoch to start at, the best metric so
+    far). A checkpoint written after epoch e resumes at e + 1 with its
+    best, its dropout generator and its plateau schedule; the JAX package
+    starts again at epoch 0."""
+    if not os.path.isfile(ckpt_path) or args.only_eval:
+        return state, 0, float("inf")
+    state, saved_epoch, other = ckpt_lib.restore_checkpoint(ckpt_path, state)
+    best = float(other.get("best_v_l2", float("inf")))
+    logger.info(f"auto-resumed from {ckpt_path} (epoch {saved_epoch}, best {best}); "
+                f"continuing at epoch {saved_epoch + 1}")
+    return state, saved_epoch + 1, best
 
 
 def main(argv=None, device=_device.DEFAULT):
@@ -281,6 +290,7 @@ def _run(args, cfg, dist_info):
 
         # ---------------- model, state, steps ----------------
         state, ckpt_path = _make_state(args, cfg, assets, body_model, device, logger)
+        state, start_epoch, best = _resume(args, state, ckpt_path, logger)
         model = state.model
         if args.GarmentPCALBS:
             train_step, eval_step = make_posed_steps(model, assets, body_model.faces, cfg.LOSS)
@@ -306,7 +316,7 @@ def _run(args, cfg, dist_info):
             state, train_batches, eval_batches, train_step, eval_step,
             epochs=args.epoch_num, output_dir=args.output_dir if main_process else None,
             use_plateau=bool(args.lr_sche), eval_metric=eval_metric,
-            save_fn=save_fn, logger=logger)
+            save_fn=save_fn, logger=logger, start_epoch=start_epoch, best=best)
         return history
     finally:
         for loader in loaders:

@@ -16,6 +16,7 @@ CPU (`device="cpu"`: the plain torch versions).
 NPOINTS 512 and a 300-vertex body, as in tests/test_cli.py.
 """
 
+import json
 import os
 import pickle
 
@@ -117,10 +118,12 @@ def test_synthetic_canonical_epoch(tmp_path):
 
 
 def test_disk_fixture_chain(tmp_path, disk):
-    """Canonical checkpoint -> posed --fix_PCA epoch -> auto-resume ->
-    --only_eval: the canonical stage bitwise the bootstrap's through both
-    epochs, the resume picking up the saved state, the eval pass equal to
-    the eval of the epoch its checkpoint holds."""
+    """Canonical checkpoint -> posed --fix_PCA epoch -> auto-resume with
+    --epoch_num 2 -> --only_eval: the canonical stage bitwise the
+    bootstrap's through both epochs, the resume picking up the saved state
+    and running epoch 1 only (a checkpoint written after epoch e resumes
+    at e + 1), its `Train/*` scalars at the restored step count, the eval
+    pass equal to the eval of the epoch its checkpoint holds."""
     torch.manual_seed(0)
     canonical = CanonicalGarmentModel(GarmentAssets.from_files(
         "Skirt", disk["template"], disk["pca"]))
@@ -143,17 +146,24 @@ def test_disk_fixture_chain(tmp_path, disk):
     for k, v in want.items():
         assert torch.equal(first["model_state"][f"canonical.{k}"], v), k
 
-    resumed = train_temporal.main(posed_args, device="cpu")
+    resumed = train_temporal.main(posed_args + ["--epoch_num", "2"], device="cpu")
+    assert [h["epoch"] for h in resumed] == [1] and _finite(resumed[0]["train"])
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        steps = [json.loads(l)["step"] for l in f if '"Train/' in l]
+    n_keys = len(steps) // 2
+    assert steps == [0] * n_keys + [1] * n_keys  # epoch 0's step, then the restored count
     second = saved()
-    assert second["other_state"]["step"] == 2  # one step on top of the restored one
-    assert _finite(resumed[0]["train"])
+    if second["epoch"] == 1:  # epoch 1 a new best: saved on top of the restored step
+        assert second["other_state"]["step"] == 2
+    else:
+        assert second["epoch"] == 0 and second["other_state"]["step"] == 1
     for k, v in want.items():
         assert torch.equal(second["model_state"][f"canonical.{k}"], v), k
 
     means = train_temporal.main(
         _disk_args(disk, str(tmp_path / "eval"), "--GarmentPCALBS", "1", "--only_eval", "1",
                    "--pretrained_model", posed_ckpt), device="cpu")
-    logged = resumed[second["epoch"]]["eval"]
+    logged = {h["epoch"]: h for h in hist + resumed}[second["epoch"]]["eval"]
     assert sorted(means) == sorted(logged)
     for k, v in logged.items():
         assert means[k] == pytest.approx(v, rel=1e-6, abs=1e-9), k

@@ -3,22 +3,25 @@
 - The loop against the JAX package's with scripted steps: the same loss
   dicts and `valid_mask`s through both packages' `fit` (and so
   `train_one_epoch` / `eval_one_epoch`) give the same history, the same
-  `metrics.jsonl` lines (the plateau's `LR` scales among them) and the same
-  `save_fn` calls.
+  `metrics.jsonl` lines (the plateau's `LR` scales among them; the port
+  writes `Train/*` at the step count, epoch * steps + i, where the JAX
+  package writes i) and the same `save_fn` calls.
 - Checkpoints on the port's real canonical and posed models (8 x 12 ring,
   300-vertex body): save -> restore bitwise on weights, BatchNorm
   statistics, Adam's moments and step counts, `step`, `lr_scale`, `epoch`
   and `other_state`; `load_pretrained` with a `module.` prefix, from a Flax
   npz, and its refusal when no tensor matches; `bootstrap_canonical`, and
   its refusal of another PCADIM or an `--only_seg` checkpoint.
-- Resume: `fit` for two epochs equals one epoch, its saved checkpoint
-  restored into a fresh state, and one more epoch, bitwise (a small
-  stand-in model without dropout: `fit` reseeds its dropout generator on
-  every call, as the JAX package's does, so a model with dropout repeats
-  the first epoch's draws after a resume).
+- Resume: `fit` for three epochs equals one epoch, its saved checkpoint
+  restored into a fresh state, and `fit` again from the epoch after the
+  checkpoint's with the same data functions, bitwise: weights, Adam, the
+  dropout generator (a stand-in model with seeded dropout), the plateau,
+  the history and the `Train/*` step indices. Here the port differs from
+  the JAX package, whose `fit` counts from epoch 0 again.
 - The loader threads give the items of a synchronous read, bitwise.
 """
 
+import dataclasses
 import json
 import os
 
@@ -40,7 +43,7 @@ from garment4d_tpu_torch.nn.layers import BatchNorm
 from garment4d_tpu_torch.train import checkpoint as ckpt
 from garment4d_tpu_torch.train import loop
 from garment4d_tpu_torch.train.convert import load_npz
-from garment4d_tpu_torch.train.state import TrainState
+from garment4d_tpu_torch.train.state import PlateauScheduler, TrainState
 from garment4d_tpu_torch.train.step import make_state_for
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -82,6 +85,7 @@ def _run_torch(plan, out):
     def train_step(st, batch, generator):
         assert st is state and isinstance(generator, torch.Generator)
         generators.add((id(generator), str(generator.device)))
+        st.step += 1  # as `apply_gradients`
         return {k: torch.from_numpy(np.asarray(v)) for k, v in batch["losses"].items()}
 
     def eval_step(st, batch):
@@ -139,7 +143,16 @@ def test_loop_matches_jax_with_scripted_steps(tmp_path):
     t_scale, t_hist, t_saved = _run_torch(plan, tout)
     j_scale, j_hist, j_saved = _run_jax(plan, jout)
     assert t_hist == j_hist
-    assert _jsonl(tout) == _jsonl(jout)
+    t_lines = [json.loads(l) for l in _jsonl(tout)]
+    j_lines = [json.loads(l) for l in _jsonl(jout)]
+    assert [(l["tag"], l["value"]) for l in t_lines] == [(l["tag"], l["value"]) for l in j_lines]
+    epoch = 0
+    for t, j in zip(t_lines, j_lines):
+        if t["tag"].startswith("Train/"):  # 2 train batches an epoch
+            assert t["step"] == epoch * 2 + j["step"], (t, j)
+        else:
+            assert t["step"] == j["step"] == epoch, (t, j)
+            epoch += t["tag"] == "LR"
     assert [s[:2] for s in t_saved] == [s[:2] for s in j_saved] == [(0, 5.0), (1, 4.0)]
     assert t_scale == pytest.approx(0.1, rel=1e-12) and j_scale == pytest.approx(0.1, rel=1e-6)
     lr = [json.loads(l)["value"] for l in _jsonl(tout) if json.loads(l)["tag"] == "LR"]
@@ -318,7 +331,9 @@ class StandIn(torch.nn.Module):
 def _stand_in_steps():
     def train_step(state, batch, generator):
         state.model.train()
-        loss = ((state.model(batch["x"]) - batch["y"]) ** 2).mean()
+        # seeded dropout on the inputs: the generator's draws reach the loss
+        keep = torch.rand(batch["x"].shape, generator=generator) >= 0.3
+        loss = ((state.model(batch["x"] * keep / 0.7) - batch["y"]) ** 2).mean()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.apply_gradients()
@@ -343,27 +358,56 @@ def _stand_in_state(seed):
     return make_state_for(StandIn(), lr=1e-2)
 
 
+def _train_lines(out):
+    return [(l["tag"], l["value"], l["step"]) for l in map(json.loads, _jsonl(out))
+            if l["tag"].startswith("Train/")]
+
+
 def test_resume_equals_straight_run(tmp_path):
-    """`fit` counts epochs from 0 on every call (as the JAX package's
-    does), so the resumed call is given the data of epoch 1 explicitly."""
+    """Three epochs straight equal one epoch, its checkpoint restored into
+    a fresh state, and `fit` from the epoch after the checkpoint's with the
+    same data functions: the restored run continues the dropout
+    generator, the plateau (patience 0: epoch 2 does not improve on epoch
+    1, so the resumed part cuts the scale) and the step count (`Train/*` at
+    epoch * 3 + i)."""
     train_step, eval_step = _stand_in_steps()
-    straight, _ = loop.fit(_stand_in_state(0), lambda e: _batches(e, "train"),
-                           lambda e: _batches(e, "eval"), train_step, eval_step, epochs=2,
-                           use_plateau=True)
+    train_fn, eval_fn = (lambda e: _batches(e, "train")), (lambda e: _batches(e, "eval"))
+
+    def run(state, out, epochs, save_fn=None, **resume):
+        plateau = PlateauScheduler(patience=0)
+        if state.plateau is None:
+            state.plateau = dataclasses.asdict(plateau)
+        return loop.fit(state, train_fn, eval_fn, train_step, eval_step, epochs=epochs,
+                        use_plateau=True, output_dir=str(out), save_fn=save_fn, seed=7,
+                        **resume)
+
+    straight, s_hist = run(_stand_in_state(0), tmp_path / "straight", 3)
 
     path = str(tmp_path / "ckpt" / "model.ckpt")
-    first, _ = loop.fit(
-        _stand_in_state(0), lambda e: _batches(e, "train"), lambda e: _batches(e, "eval"),
-        train_step, eval_step, epochs=1, use_plateau=True,
-        save_fn=lambda st, e, best: ckpt.save_checkpoint(path, st, e, {"best_v_l2": best}))
-    resumed, epoch, _ = ckpt.restore_checkpoint(path, _stand_in_state(1))
+    saves = []
+
+    def save_fn(st, e, best):
+        saves.append(e)
+        ckpt.save_checkpoint(path, st, e, {"best_v_l2": best})
+
+    first, f_hist = run(_stand_in_state(0), tmp_path / "resumed", 1, save_fn)
+    assert saves == [0]
+    resumed, epoch, other = ckpt.restore_checkpoint(path, _stand_in_state(1))
     assert epoch == 0 and resumed.step == 3
-    resumed, _ = loop.fit(resumed, lambda e: _batches(e + 1, "train"),
-                          lambda e: _batches(e + 1, "eval"), train_step, eval_step, epochs=1,
-                          use_plateau=True)
-    assert resumed.step == straight.step == 6
+    assert torch.equal(resumed.generator_state, first.generator_state)
+    assert resumed.plateau == first.plateau
+    resumed, r_hist = run(resumed, tmp_path / "resumed", 3, start_epoch=epoch + 1,
+                          best=other["best_v_l2"])
+    assert [h["epoch"] for h in r_hist] == [1, 2]
+    assert f_hist + r_hist == s_hist
+    assert resumed.step == straight.step == 9
+    assert resumed.lr_scale == straight.lr_scale == pytest.approx(0.1, rel=1e-12)
+    assert resumed.plateau == straight.plateau
+    assert torch.equal(resumed.generator_state, straight.generator_state)
     _assert_state_dicts_equal(resumed.model.state_dict(), straight.model.state_dict())
     _assert_optimizers_equal(resumed.optimizer, straight.optimizer)
+    assert _train_lines(tmp_path / "resumed") == _train_lines(tmp_path / "straight")
+    assert [s for _, _, s in _train_lines(tmp_path / "straight")] == list(range(9))
 
 
 # ---- loader threads ---------------------------------------------------------------
