@@ -313,7 +313,28 @@ then:
    parameters (seed 0), and the fit through a K=3 correspondence to a
    jittered 3000-vertex subset, each mean vertex residual within 0.02;
    wall ms of each;
-13. prints a JSON line of the kernels (each row read from the costliest
+13. the Trousers and Tshirt classes (`GarmentAssets.synthetic(name=...)`,
+   the Vg=2000 ring) from `posed_synth.npz` at phase 4's shape: the
+   parameter tree the Skirt model's; one counted posed forward each
+   (every forward kernel launched, finite) and how many points the
+   garment selection finds a frame; Trousers, whose garment samples are
+   (32, 8, 4): every chain launch at S=4 held as phase 4 holds its cases
+   (the kernel pads S to its 8-row tile), each refinement iteration
+   teacher-forced against the CPU plain path within 1e-5, then its posed
+   train step at phase 5's shape: counted, losses within 1e-3 of the plain
+   path's, each iteration's backward within 1e-4 relative L2
+   (`teacher_forced_grads`), every PE backward at S=4 held as phase 5
+   holds its cases with its unmasked gradient differences printed, and
+   the S=4 dtable half on a tie of slot 0 with an equal row
+   (`check_padded_tie`);
+14. the tracing tool: `tools/profile_posed.py` for `posed`, `canonical`
+   and `train` at `--iters 2` (its step time and its per-kernel device ms,
+   held against the launch counters by `utils/profiling.profile_device`);
+15. the demos at their defaults, each through its gate: the GCN node
+   demo (accuracy > 0.9), the PointNet++ segmentation demo (accuracy > 0.8;
+   FPS, ball query, row gather, scatter-add and 3-NN launched; ms a step)
+   and the SMPL demo (its OBJ, PNG and PLY written);
+16. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -366,7 +387,6 @@ builds' ptxas lines.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import json
 import logging
@@ -485,86 +505,24 @@ def wall_s(fn, runs: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-# Each launch counter of the port (`ops.launch_counts`): the names under
-# which torch.profiler lists its CUDA kernels, the counters that launch
-# them, and the kernels one counted launch runs (the PE backward: its pass
-# and its ordered sum; the scatter-add: its sort and its segmented sum; the
-# flat query's, the 3-NN's and the 1-NN's sort pre-passes count under
-# `ball_query_sort`, `three_nn_sort` and `nn1_sort`, where their plans run
-# them); the names of an earlier design stay listed, for the parent
-# checkout of an `--ab` run
-PROFILED = {
-    "fused_chain": (("fused_chain_kernel",), ("fused_chain", "group_pe_max", "group_pe_max_nv"),
-                    1),
-    "gcn_stack": (("gcn_tile_kernel", "gcn_narrow_kernel"), ("gcn_stack",), 1),
-    "knn_transfer": (("knn_transfer_kernel",), ("knn_transfer",), 1),
-    "ball_query_grouped": (("ball_query_grouped_kernel",), ("ball_query_grouped",), 1),
-    "ball_query": (("ball_query_flat_kernel", "ball_query_lane_kernel", "flat_sort_kernel",
-                    "ball_query_kernel<"), ("ball_query", "ball_query_sort"), 1),
-    "fps": (("fps_kernel", "fps_far_kernel"), ("fps",), 1),
-    "coverage": (("coverage_kernel",), ("coverage",), 1),
-    "three_nn": (("three_nn_kernel", "three_nn_sort_kernel"), ("three_nn", "three_nn_sort"), 1),
-    "gather_rows": (("gather_rows_kernel",), ("gather_rows",), 1),
-    "pe_bwd": (("pe_bwd_kernel", "pe_bwd_reduce_kernel"), ("pe_bwd",), 2),
-    "banded": (("banded_kernel",), ("banded",), 1),
-    "nn1": (("nn1_kernel", "nn1_nearest_kernel", "nn1_sort_kernel"), ("nn1", "nn1_sort"), 1),
-    "scatter_add": (("scatter_sort_kernel", "segment_sum_kernel"), ("scatter_add",), 2),
-}
+def load_profiling():
+    """The package's profiler (`garment4d_tpu_torch/utils/profiling.py`:
+    `profile_device`, `print_profile`) loaded from this checkout's file
+    under a name of its own: an `--ab` run's `--time-kernels` process
+    imports the package of a parent checkout, which may predate the module,
+    and the profiler reads the launch counters of whichever package is
+    imported."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "g4d_profiling", REPO / "garment4d_tpu_torch" / "utils" / "profiling.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-PROFILE_TRIES = 3
-
-
-def profile_device(fn, runs: int = 3):
-    """Device time of `fn` by kernel, from torch.profiler's CUDA activity
-    over `runs` calls after a warm-up call inside the session (a session
-    without one lost the first kernel events of its first call): (rows of
-    (ms per call, launches per call, kernel name), largest first; device
-    ms per call). A session whose kernel events of the port differ from
-    the launch counters (`PROFILED`) is profiled again, up to
-    PROFILE_TRIES sessions; then it fails."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    from garment4d_tpu_torch import ops
-
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
-        traces = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: traces.append(p.events())) as prof:
-            fn()  # the warm-up step: tracing starts, its events are not kept
-            torch.cuda.synchronize()
-            prof.step()
-            before = collections.Counter(ops.launch_counts)
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        counted = collections.Counter(ops.launch_counts)
-        counted.subtract(before)
-        per_kernel = collections.defaultdict(lambda: [0.0, 0])
-        for e in traces[0]:
-            # the step's own range on the device is no kernel
-            if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
-                per_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / runs
-                per_kernel[e.name][1] += 1
-        short = {}
-        for key, (names, counters, per_launch) in PROFILED.items():
-            want = per_launch * sum(counted[c] for c in counters)
-            got = sum(n for name, (_, n) in per_kernel.items() if any(k in name for k in names))
-            if got != want:
-                short[key] = (got, want)
-        if not short:
-            rows = sorted(((ms, n / runs, name) for name, (ms, n) in per_kernel.items()),
-                          reverse=True)
-            return rows, sum(r[0] for r in rows)
-        print(f"profile: kernel events (profiled, counted) {short} in session "
-              f"{attempt + 1} of {PROFILE_TRIES}", flush=True)
-    raise RuntimeError(f"chip_smoke: the profiler recorded other kernel launches than the "
-                       f"counters in {PROFILE_TRIES} sessions: {short}")
+PROFILING = load_profiling()
+profile_device, print_profile = PROFILING.profile_device, PROFILING.print_profile
 
 
 def kernel_ms(fn, reps: int = 10) -> float:
@@ -583,16 +541,6 @@ def kernel_ms(fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def print_profile(label, rows, device_ms, wall_ms, top=15):
-    idle = 1 - device_ms / wall_ms
-    print(f"{label}: device time per call (torch.profiler) {device_ms:.3f} ms "
-          f"in {sum(r[1] for r in rows):.0f} launches; idle share of the "
-          f"{wall_ms:.2f} ms wall: {idle:.3f}")
-    for ms, n, name in rows[:top]:
-        print(f"  {ms:8.3f} ms {n:6.1f} x  {name[:100]}")
-    return idle
 
 
 def capture_inputs(model, names):
@@ -1202,6 +1150,35 @@ def max_abs(a, b) -> float:
 
 
 @torch.inference_mode()
+def check_chain_case(case, row, count, res: Results, label="posed forward", path=None):
+    """One recorded chain launch (`chain_launches`), standing for the
+    `count` launches of its shape: the kernel within CHAIN_TOL of its plain
+    version and of its float64 version, two launches bitwise equal, timed
+    beside its bound (on the call's own slots: S before the kernel's
+    padding to its 8-row tile) and its plain version."""
+    from garment4d_tpu_torch.ops import pemax
+
+    args, kwargs = row["args"], row["kwargs"]
+    table, idx, centers, ws, bs, relus, name = args[:7]
+    out_k = pemax._chain_kernel(*args, **kwargs)
+    require(torch.equal(out_k, pemax._chain_kernel(*args, **kwargs)),
+            f"chain {case}: two launches differ")
+    out_p = chain_plain(table, idx, centers, ws, bs, relus)
+    ref = chain_float64(table, idx, centers, ws, bs, relus)
+    err, err64 = max_abs(out_k, out_p), max_abs(out_k, ref)
+    require(torch.allclose(out_k, out_p, **CHAIN_TOL),
+            f"chain {case}: max abs err {err} beyond {CHAIN_TOL}")
+    require(torch.allclose(out_k.double(), ref, **CHAIN_TOL),
+            f"chain {case}: max abs err {err64} to float64 beyond {CHAIN_TOL}")
+    del ref
+    res.record(name, f"{label} {case} x{count}", err,
+               lambda: pemax._chain_kernel(*args, **kwargs),
+               lambda: chain_plain(table, idx, centers, ws, bs, relus),
+               nbytes(table, idx, centers, out_k, *ws, *bs), chain_ops(idx, table, ws),
+               err_float64=err64, launches_per_forward=count, path=path)
+
+
+@torch.inference_mode()
 def check_chain_gcn(recon, pcd, body_in, res: Results):
     """Every chain and GCN-stack launch of one posed forward, recorded with
     its inputs: the summed bounds printed, and at each distinct shape the
@@ -1209,7 +1186,7 @@ def check_chain_gcn(recon, pcd, body_in, res: Results):
     version, two launches bitwise equal, timed beside its bound and its
     plain version. Returns the two summed bounds (ms)."""
     from garment4d_tpu_torch import ops
-    from garment4d_tpu_torch.ops import graph, pemax
+    from garment4d_tpu_torch.ops import graph
 
     ccalls, gcalls = record_chain_gcn(recon, pcd, body_in)
     chains, stacks = chain_launches(ccalls), gcn_launches(gcalls)
@@ -1217,24 +1194,7 @@ def check_chain_gcn(recon, pcd, body_in, res: Results):
     sums = dict(chain=print_launch_bounds("chain", chains),
                 gcn=print_launch_bounds("gcn_stack", stacks, 4))
     for case, (row, count) in by_case(chains).items():
-        args, kwargs = row["args"], row["kwargs"]
-        table, idx, centers, ws, bs, relus, name = args[:7]
-        out_k = pemax._chain_kernel(*args, **kwargs)
-        require(torch.equal(out_k, pemax._chain_kernel(*args, **kwargs)),
-                f"chain {case}: two launches differ")
-        out_p = chain_plain(table, idx, centers, ws, bs, relus)
-        ref = chain_float64(table, idx, centers, ws, bs, relus)
-        err, err64 = max_abs(out_k, out_p), max_abs(out_k, ref)
-        require(torch.allclose(out_k, out_p, **CHAIN_TOL),
-                f"chain {case}: max abs err {err} beyond {CHAIN_TOL}")
-        require(torch.allclose(out_k.double(), ref, **CHAIN_TOL),
-                f"chain {case}: max abs err {err64} to float64 beyond {CHAIN_TOL}")
-        del ref
-        res.record(name, f"posed forward {case} x{count}", err,
-                   lambda: pemax._chain_kernel(*args, **kwargs),
-                   lambda: chain_plain(table, idx, centers, ws, bs, relus),
-                   nbytes(table, idx, centers, out_k, *ws, *bs), chain_ops(idx, table, ws),
-                   err_float64=err64, launches_per_forward=count)
+        check_chain_case(case, row, count, res)
     for case, (row, count) in by_case(stacks).items():
         xs, ws, bs, vals, offsets, relus, hidden_layer = args = row["args"]
         adj = band_matrix(vals, offsets)
@@ -2003,7 +1963,7 @@ def check_train_kernels(calls, res: Results):
     """The train step's banded product and PE backward against their plain
     versions, on the inputs recorded from one train step (the 1-NN:
     `check_nn1`)."""
-    from garment4d_tpu_torch.ops import graph, pemax, pointcloud as pc
+    from garment4d_tpu_torch.ops import graph
 
     # banded: the GCN recompute (C=128) and its transpose, the loss (C=3)
     fwd = [a for a, _, _ in calls["banded"]]
@@ -2033,56 +1993,73 @@ def check_train_kernels(calls, res: Results):
         shapes.setdefault((a[0].shape[2], a[1].shape[2]), a[:7])
     failed = []
     for (C, S), args in sorted(shapes.items()):
-        table, idx, centers, k0, b0, k1, cot = args
-        case = (f"{'body' if C == 6 else 'garment'} {tuple(idx.shape)} widths "
-                f"{[C, k0.shape[1], k1.shape[1]]}")
-        # a zero cotangent where the max may fall on another slot in another
-        # summation order; the unmasked difference is printed beside
-        near = pe_near_ties(*args[:6])
-        share = near.float().mean().item()
-        masked = (*args[:6], cot * ~near)
-        got = pemax._pe_bwd_kernel(*masked)
-        again = pemax._pe_bwd_kernel(*masked)
-        want = pemax._pe_bwd_plain(*masked)
-        routing = pe_routing(*args[:6])
-        exact = pe_bwd_float64(*masked, routing)
-        bits = all(torch.equal(g, a) for g, a in zip(got, again))
-        vs_plain, vs_f64 = pe_grad_errors(got, want), pe_grad_errors(got, exact)
-        plain_vs_f64 = pe_grad_errors(want, exact)
-        checks = ((share <= NEAR_TIE_CAP, f"near-tie share {share} > {NEAR_TIE_CAP}"),
-                  (bits, "two launches differ"),
-                  (pe_grads_agree(got, want), f"beyond tolerance of plain: {vs_plain}"),
-                  (pe_grads_agree(got, exact), f"beyond tolerance of float64: {vs_f64}"))
-        failed += [f"pe_bwd {case}: {what}" for ok, what in checks if not ok]
-        del exact
-        unmasked = pe_grad_errors(pemax._pe_bwd_kernel(*args), pemax._pe_bwd_plain(*args))
-        # how often fp32 itself routes otherwise than exact arithmetic would
-        tie64 = pe_routing(*[t.double() if t.is_floating_point() else t for t in args[:6]])[0]
-        flips = (tie64 != routing[0]).any(dim=2).float().mean().item()
-        del tie64
-        print(f"pe_bwd {case}: near-tie share {share:.2e}; max err / max, kernel vs plain "
-              f"{max(vs_plain.values()):.2e} (unmasked {max(unmasked.values()):.2e}), vs "
-              f"float64 with the plain routing {max(vs_f64.values()):.2e} (plain "
-              f"{max(plain_vs_f64.values()):.2e}); fp32 routes {flips:.2e} of the (center, "
-              f"channel) pairs otherwise than float64; two launches bitwise {bits}",
-              flush=True)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        res.record("pe_bwd", case, err,
-                   lambda: pemax._pe_bwd_kernel(*args), lambda: pemax._pe_bwd_plain(*args),
-                   nbytes(*args, *got), pe_bwd_ops(idx, k0, k1, routing[0]),
-                   near_tie_share=share, err_vs_plain=vs_plain, err_vs_float64=vs_f64,
-                   unmasked_err_vs_plain=unmasked, fp32_routing_differs_from_float64=flips)
+        failed += check_pe_case(args, res)
     failed += check_pe_dtable(shapes[(67, 32)], res)
     return failed
 
 
-def check_pe_dtable(args, res: Results):
+@torch.no_grad()
+def check_pe_case(args, res: Results, label="", path=None):
+    """One recorded PE backward (the table, idx, centers, k0, b0, k1 and
+    cotangent of a `_pe_bwd_kernel` call): with a zero cotangent at the
+    near-tie pairs (`pe_near_ties`), the kernel against its plain version
+    and the float64 witness (`pe_grads_agree`), two launches bitwise;
+    unmasked, each gradient's difference printed; timed beside its bound
+    (on the call's own slots) and its plain version. -> failures."""
+    from garment4d_tpu_torch.ops import pemax
+
+    table, idx, centers, k0, b0, k1, cot = args
+    C = table.shape[-1]
+    case = (f"{label}{'body' if C == 6 else 'garment'} {tuple(idx.shape)} widths "
+            f"{[C, k0.shape[1], k1.shape[1]]}")
+    # a zero cotangent where the max may fall on another slot in another
+    # summation order; the unmasked difference is printed beside
+    near = pe_near_ties(*args[:6])
+    share = near.float().mean().item()
+    masked = (*args[:6], cot * ~near)
+    got = pemax._pe_bwd_kernel(*masked)
+    again = pemax._pe_bwd_kernel(*masked)
+    want = pemax._pe_bwd_plain(*masked)
+    routing = pe_routing(*args[:6])
+    exact = pe_bwd_float64(*masked, routing)
+    bits = all(torch.equal(g, a) for g, a in zip(got, again))
+    vs_plain, vs_f64 = pe_grad_errors(got, want), pe_grad_errors(got, exact)
+    plain_vs_f64 = pe_grad_errors(want, exact)
+    checks = ((share <= NEAR_TIE_CAP, f"near-tie share {share} > {NEAR_TIE_CAP}"),
+              (bits, "two launches differ"),
+              (pe_grads_agree(got, want), f"beyond tolerance of plain: {vs_plain}"),
+              (pe_grads_agree(got, exact), f"beyond tolerance of float64: {vs_f64}"))
+    failed = [f"pe_bwd {case}: {what}" for ok, what in checks if not ok]
+    del exact
+    unmasked = pe_grad_errors(pemax._pe_bwd_kernel(*args), pemax._pe_bwd_plain(*args))
+    # how often fp32 itself routes otherwise than exact arithmetic would
+    tie64 = pe_routing(*[t.double() if t.is_floating_point() else t for t in args[:6]])[0]
+    flips = (tie64 != routing[0]).any(dim=2).float().mean().item()
+    del tie64
+    print(f"pe_bwd {case}: near-tie share {share:.2e}; max err / max, kernel vs plain "
+          f"{max(vs_plain.values()):.2e} (unmasked {max(unmasked.values()):.2e}), vs "
+          f"float64 with the plain routing {max(vs_f64.values()):.2e} (plain "
+          f"{max(plain_vs_f64.values()):.2e}); fp32 routes {flips:.2e} of the (center, "
+          f"channel) pairs otherwise than float64; two launches bitwise {bits}; unmasked "
+          f"by gradient {', '.join(f'{k} {v:.2e}' for k, v in unmasked.items())}", flush=True)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    res.record("pe_bwd", case, err,
+               lambda: pemax._pe_bwd_kernel(*args), lambda: pemax._pe_bwd_plain(*args),
+               nbytes(*args, *got), pe_bwd_ops(idx, k0, k1, routing[0]),
+               near_tie_share=share, err_vs_plain=vs_plain, err_vs_float64=vs_f64,
+               unmasked_err_vs_plain=unmasked, fp32_routing_differs_from_float64=flips,
+               path=path)
+    return failed
+
+
+def check_pe_dtable(args, res: Results, label="garment pe0 unsplit"):
     """The PE backward's dtable half (`table_grad=True`: the slots' row
-    gradients, summed by the scatter-add kernel) at garment pe0 unsplit,
-    67-32-32 at S=32, with the table treated as trainable: all six
-    gradients against the plain version and the float64 witness with the
-    near-tie mask (dtable, like the weight gradients, within 1e-4 of its
-    largest magnitude), two launches bitwise equal."""
+    gradients, summed by the scatter-add kernel) of a recorded PE backward
+    (phase 5: garment pe0 unsplit, 67-32-32 at S=32), with the table
+    treated as trainable: all six gradients against the plain version and
+    the float64 witness with the near-tie mask (dtable, like the weight
+    gradients, within 1e-4 of its largest magnitude), two launches bitwise
+    equal. -> failures."""
     from garment4d_tpu_torch.ops import pemax
 
     table, idx, centers, k0, b0, k1, cot = args
@@ -2106,19 +2083,19 @@ def check_pe_dtable(args, res: Results):
                     **pe_grad_errors(a[1:], b[1:]))
 
     vs_plain, vs_f64 = errs(got, want), errs(got, exact)
-    failed = [f"pe_bwd dtable half: {what}" for ok, what in (
+    failed = [f"pe_bwd dtable half, {label}: {what}" for ok, what in (
         (bits, "two launches differ"),
         (agree(got, want), f"beyond tolerance of plain: {vs_plain}"),
         (agree(got, exact), f"beyond tolerance of float64: {vs_f64}")) if not ok]
     del exact
-    print(f"pe_bwd dtable half, garment pe0 {tuple(idx.shape)} widths "
+    print(f"pe_bwd dtable half, {label} {tuple(idx.shape)} widths "
           f"{[table.shape[-1], k0.shape[1], k1.shape[1]]}: max err / max, kernel vs plain "
           f"{max(vs_plain.values()):.2e} (dtable {vs_plain['dtable']:.2e}), vs float64 "
           f"{max(vs_f64.values()):.2e}; two launches bitwise {bits}", flush=True)
     Bt, M, S = idx.shape
     C, F = k0.shape
     won = int(routing[0].any(dim=-1).sum())
-    res.record("pe_bwd_dtable", f"garment pe0 unsplit {tuple(idx.shape)} widths "
+    res.record("pe_bwd_dtable", f"{label} {tuple(idx.shape)} widths "
                f"{[C, F, k1.shape[1]]}, table_grad=True",
                max(float((g - w).abs().max()) for g, w in zip(got, want)),
                lambda: pemax._pe_bwd_kernel(*args, table_grad=True),
@@ -2341,9 +2318,8 @@ def scatter_case(case, grads, idx, n, out, res: Results, path=None, wrap=False):
     require(torch.equal(out.cpu(), cpu),
             f"scatter_add {case}: not bitwise the CPU's ascending-order sum")
     del plain, cpu
-    # the rows the function reads: those of indices in [0, n), after the wrap
+    valid = scatter_valid(idx, n, wrap)
     into = torch.where(idx < 0, idx + n, idx) if wrap else idx
-    valid = (into >= 0) & (into < n)
     flat = torch.where(valid, into.long() + n * torch.arange(Bs, device=idx.device)[:, None],
                        Bs * n).reshape(-1)
     rows, lib_out = grads.reshape(-1, C), torch.zeros(Bs * n + 1, C, device=grads.device)
@@ -2352,6 +2328,22 @@ def scatter_case(case, grads, idx, n, out, res: Results, path=None, wrap=False):
                int(valid.sum()) * C * 4 + nbytes(idx, out), float(valid.sum()) * C, reps_k=10,
                library=lambda: lib_out.index_add_(0, flat, rows), path=path,
                bitwise_cpu=True, bitwise_repeat=True)
+
+
+def scatter_valid(idx, n, wrap=False):
+    """The rows a scatter-add reads: those of indices in [0, n), after the
+    wrap."""
+    into = torch.where(idx < 0, idx + n, idx) if wrap else idx
+    return (into >= 0) & (into < n)
+
+
+def scatter_bound(args, _kwargs, out) -> float:
+    """A scatter-add's bound (ms), as `scatter_case` reckons it: the rows
+    it reads, its indices and its output (a recording's `keep`)."""
+    grads, idx, n, *wrap = args
+    valid = scatter_valid(idx, n, *wrap)
+    return bound(int(valid.sum()) * grads.shape[-1] * 4 + nbytes(idx, out),
+                 float(valid.sum()) * grads.shape[-1])[0]
 
 
 def check_scatter_add(calls, res: Results):
@@ -3710,6 +3702,7 @@ def check_lever_kernels(label, calls, res: Results) -> dict:
                    lambda: pc._covered_mask_plain(xyz, centers, r), row["nbytes"], row["ops"],
                    reps_p=1, path="levers", bytes_ms=row["bytes_ms"])
     grouped = query_launches(calls["grouped"], True)
+    print_launch_bounds(f"{label} ball_query_grouped", grouped, per=f"{label} forward")
     for case, (row, count) in by_case(grouped).items():
         for other in (r for r in grouped if r["case"] == case):
             radii, nsamples, xyz, new_xyz, n_valid = args = other["args"][:5]
@@ -3936,7 +3929,7 @@ def lever_train_step(assets, body, weights, margin, res: Results) -> dict:
     from garment4d_tpu_torch import ops
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
-    from garment4d_tpu_torch.ops import pemax
+    from garment4d_tpu_torch.ops import pemax, pointcloud as pc
     from garment4d_tpu_torch.train import make_posed_steps, make_state_for
 
     dev = torch.device("cuda")
@@ -3954,7 +3947,8 @@ def lever_train_step(assets, body, weights, margin, res: Results) -> dict:
     trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
     canonical = {k: v.clone() for k, v in model.canonical.state_dict().items()}
     with recording(model, "refine") as steps, \
-            recording(pemax, "_compact_candidates", keep=lambda a, k, r: r[1]) as builds:
+            recording(pemax, "_compact_candidates", keep=lambda a, k, r: r[1]) as builds, \
+            recording(pc, "_scatter_add_rows_kernel", keep=scatter_bound) as scatters:
         losses, launches = counted("levers train", lambda: train_step(state, batch),
                                    POSED_TRAIN_KERNELS + ["scatter_add"])
     print(f"levers train step: {len(builds)} candidate builds, overflows {builds}", flush=True)
@@ -3990,11 +3984,12 @@ def lever_train_step(assets, body, weights, margin, res: Results) -> dict:
                                                                        "scatter_add")}
     print(f"levers posed train step: {TRAIN_F / step_s:.2f} frames/s; device ms a step: "
           + ", ".join(f"{k} {ms:.4f} in {launches.get(k, 0)} launches"
-                      for k, ms in kernel_ms_.items()), flush=True)
+                      for k, ms in kernel_ms_.items())
+          + f" (the scatter-adds' summed bound {sum(scatters):.4f})", flush=True)
     return dict(launches=launches, builds=len(builds), overflows=sum(builds),
                 loss_rel_err=loss_err, forced=forced,
                 frames_per_sec=TRAIN_F / step_s, device_ms_per_step=dev_ms, idle_share=idle,
-                kernel_device_ms=kernel_ms_)
+                kernel_device_ms=kernel_ms_, scatter_add_summed_bound_ms=sum(scatters))
 
 
 def lever_entry_point(root: Path, tree: dict, margin: float) -> dict:
@@ -4433,6 +4428,333 @@ def postprocess_phase(recon, pcd, body_in, assets, body, res: Results) -> dict:
                 projection=proj, fits=fits, phase_s=phase_s)
 
 
+# ---- phase 13: the Trousers and Tshirt classes ---------------------------------
+
+CLASSES = ("Trousers", "Tshirt")
+
+
+def garment_selection(out, label: int, n: int) -> dict:
+    """How many points of each frame the canonical stage labels as the
+    class's garment (argmax of its segmentation logits), of which its
+    selection keeps the first `n` and zero-pads the rest."""
+    found = (out.canonical.backbone.sem_logits.argmax(-1) == label).sum(-1)
+    return dict(min=int(found.min()), median=float(found.float().median()),
+                max=int(found.max()), n=n, frames=found.numel(),
+                frames_padded=int((found < n).sum()), frames_none=int((found == 0).sum()))
+
+
+@torch.no_grad()
+def slot0_foreign_ties(args) -> float:
+    """The share of a PE backward's (center, channel) pairs whose max slot
+    0 ties exactly with a slot that reads another table row: the ties in
+    which the kernel's padding copies of slot 0 would take a share."""
+    table, idx, centers, k0, b0, k1 = args[:6]
+    tie, _ = pe_routing(table, idx, centers, k0, b0, k1)
+    other = (idx[:, :, 1:] != idx[:, :, :1])[..., None]
+    return float((tie[:, :, 0] & (tie[:, :, 1:] & other).any(dim=2)).float().mean())
+
+
+PADDED_TIE_CASES = ((387, 4), (6, 4), (67, 12))  # (C, S): S off the kernel's 8-row tile
+PE_NAMES = ("dtable",) + PE_GRADS
+
+
+def padded_tie_case(C: int, S: int, seed: int = 28, device="cuda"):
+    """PE-backward inputs (B=2, N=700, M=300, F=G=32; half the slots
+    repeat slot 0, as the ball query's first-hit replication does) in which
+    slot 0 ties exactly with another row of equal content: row j + 350 is
+    row j, slot 0 reads j < 350 and slot 2 reads its copy. -> [table, idx,
+    centers, k0, b0, k1, cot]."""
+    B, N, M, F, G = 2, 700, 300, 32, 32
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn(B, N, C, generator=g)
+    idx = torch.randint(0, N, (B, M, S), generator=g, dtype=torch.int32)
+    idx[:, :, S // 2:] = idx[:, :, :1]
+    centers = torch.randn(B, M, 3, generator=g)
+    k0 = 0.3 * torch.randn(C, F, generator=g)
+    b0 = 0.1 * torch.randn(F, generator=g)
+    k1 = 0.3 * torch.randn(F, G, generator=g)
+    cot = torch.randn(B, M, G, generator=g)
+    half = N // 2
+    table[:, half:] = table[:, :half]
+    idx[:, :, 0] %= half
+    idx[:, :, 2] = idx[:, :, 0] + half
+    return [t.to(device) for t in (table, idx, centers, k0, b0, k1, cot)]
+
+
+@torch.no_grad()
+def padded_tie_errors(pemax) -> dict:
+    """The package's PE backward with its dtable half on each
+    `padded_tie_case`, unmasked: each output's max |kernel - plain| over
+    max |plain|."""
+    out = {}
+    for C, S in PADDED_TIE_CASES:
+        args = padded_tie_case(C, S)
+        got = pemax._pe_bwd_kernel(*args, table_grad=True)
+        want = pemax._pe_bwd_plain(*args, table_grad=True)
+        out[f"C={C} S={S}"] = {n: float((a - b).abs().max() / b.abs().max())
+                               for n, a, b in zip(PE_NAMES, got, want)}
+    return out
+
+
+@torch.no_grad()
+def check_padded_tie(args, res: Results) -> list:
+    """The S=4 PE backward (padded with slot 0 to the kernel's 8-row tile)
+    on a tie of slot 0 with another row of equal content: the recorded
+    call's table doubled (row j + N equal to row j) and slot 2 moved to the
+    copy of slot 0's row, so that a center's max ties exactly between two
+    rows wherever slot 0 or slot 2 holds it; then `check_pe_dtable` (all
+    six gradients, dtable with the table trainable). JAX splits such a tie
+    evenly between the two rows; a kernel that counted the pads among the
+    tied slots would give slot 0's row 5/6 of the share. -> failures."""
+    table, idx, centers, k0, b0, k1, cot = args
+    tied = idx.clone()
+    tied[:, :, 2] = idx[:, :, 0] + table.shape[1]
+    case = (torch.cat([table, table], dim=1), tied, centers, k0, b0, k1, cot)
+    print(f"padded tie: slot 0 ties another row in {slot0_foreign_ties(case):.3e} of the "
+          f"(center, channel) pairs", flush=True)
+    return check_pe_dtable(case, res, label="S=4, slot 0 tied to an equal row")
+
+
+def class_train_step(assets, body, weights, res: Results) -> dict:
+    """The Trousers posed train step at phase 5's shape (B=4, seed 1, Adam
+    at 1e-3, the canonical stage frozen, `posed_synth.npz`): one counted
+    step, finite losses, the plain path's losses within LOSS_TOL, each
+    iteration's backward within GRAD_TOL of the plain versions'
+    (`teacher_forced_grads`); every PE backward at S=4 held as phase 5
+    holds its cases (`check_pe_case`), its unmasked gradients printed, and
+    the padded tie (`check_padded_tie`); the step's wall frames/s and a
+    profile."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.ops import pemax
+    from garment4d_tpu_torch.train import make_posed_steps, make_state_for
+
+    dev = torch.device("cuda")
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+
+    def new_state():
+        model = GarmentReconstructor.from_npz(assets, body, weights, device=dev).model
+        return make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
+
+    state, state_plain = new_state(), new_state()
+    train_step, _ = make_posed_steps(state.model, assets, body.faces)
+    train_plain, _ = make_posed_steps(state_plain.model, assets, body.faces)
+    with recording(pemax, "_pe_bwd_kernel") as pe_calls, \
+            recording(state.model, "refine") as steps:
+        losses, launches = counted(f"{assets.name} train", lambda: train_step(state, batch),
+                                   POSED_TRAIN_KERNELS)
+    require(launches["pe_bwd"] == TRAIN_LAUNCHES["pe_bwd"],
+            f"{assets.name}: {launches['pe_bwd']} PE backwards in a train step")
+    for k, v in losses.items():
+        require(bool(torch.isfinite(v).all()), f"{assets.name} loss {k} is not finite")
+    ops.reset_counts()
+    with ops.plain_ops():
+        losses_plain = train_plain(state_plain, batch)
+    torch.cuda.synchronize()
+    require(not any(ops.launch_counts.values()), "the plain train step launched kernels")
+    loss_err = {k: float(((losses[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                for k, v in losses_plain.items()}
+    worst = max(loss_err, key=loss_err.get)
+    print(f"{assets.name} train step losses, kernel vs plain path: largest relative "
+          f"difference {loss_err[worst]:.3e} ({worst})", flush=True)
+    require(loss_err[worst] <= LOSS_TOL, f"{assets.name} loss {worst}: relative "
+            f"{loss_err[worst]} > {LOSS_TOL}")
+    cases = {}
+    for a, _, _ in pe_calls:
+        if a[1].shape[2] == 4:
+            cases.setdefault((a[0].shape[2], a[1].shape[1]), a[:7])
+    del pe_calls[:]
+    require(cases, f"{assets.name}: no PE backward at S=4")
+    failed, foreign = [], {}
+    for args in cases.values():
+        failed += check_pe_case(args, res, label=f"{assets.name} ", path="trousers")
+        foreign[f"{tuple(args[1].shape)}"] = slot0_foreign_ties(args)
+        print(f"{assets.name} PE backward {tuple(args[1].shape)}: slot 0 ties another row in "
+              f"{foreign[f'{tuple(args[1].shape)}']:.3e} of the (center, channel) pairs",
+              flush=True)
+        failed += check_padded_tie(args, res)
+    forced, forced_failed = teacher_forced_grads(state.model, steps)
+    del steps[:]
+    require(not failed + forced_failed, "; ".join(failed + forced_failed))
+    step_s = wall_s(lambda: train_step(state, batch), runs=3, warmup=1)
+    print(f"{assets.name} posed train step, kernel path: {TRAIN_F / step_s:.2f} frames/s "
+          f"({step_s * 1e3:.2f} ms)", flush=True)
+    rows, dev_ms = profile_device(lambda: train_step(state, batch), runs=1)
+    idle = print_profile(f"{assets.name} train", rows, dev_ms, step_s * 1e3, top=6)
+    return dict(launches=launches, loss_rel_err=loss_err, forced=forced,
+                slot0_foreign_ties=foreign, frames_per_sec=TRAIN_F / step_s,
+                device_ms=dev_ms, idle_share=idle)
+
+
+def classes_phase(recon, pcd, body_in, body, weights, res: Results) -> dict:
+    """Phase 13: the Trousers and Tshirt classes from `posed_synth.npz` at
+    phase 4's shape (the Vg=2000 ring under the class's name). Each: the
+    parameter tree the Skirt model's, one counted posed forward (every
+    forward kernel launched), finite, and how many points its garment
+    selection finds a frame. Trousers (garment samples (32, 8, 4)): every
+    chain launch at S=4 held as phase 4 holds its cases
+    (`check_chain_case`), each refinement iteration teacher-forced against
+    the CPU plain path within FORCED_TOL, its wall frames/s and a profile;
+    then its train step (`class_train_step`)."""
+    from garment4d_tpu_torch.api import GarmentReconstructor
+    from garment4d_tpu_torch.models import GarmentAssets
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    skirt_tree = {k: tuple(v.shape) for k, v in recon.model.state_dict().items()}
+    out = {}
+    for name in CLASSES:
+        assets = GarmentAssets.synthetic(name=name, num_rings=RINGS, ring_size=RING_SIZE)
+        crecon = GarmentReconstructor.from_npz(assets, body, weights, device=dev)
+        tree = {k: tuple(v.shape) for k, v in crecon.model.state_dict().items()}
+        require(tree == skirt_tree, f"{name}: the parameter tree is not the Skirt model's")
+        radii = crecon.model.radii
+        print(f"{name}: label {assets.label}, {radii}; the Skirt model's parameter tree "
+              f"({len(tree)} tensors)", flush=True)
+        with recording(crecon.model, "refine") as steps:
+            fwd, launches = counted(name, lambda: crecon.posed(pcd, body_in, return_all=True),
+                                    FORWARD_KERNELS)
+        require(tuple(fwd.iter_garment_v[-1].shape) == (B, T, VG, 3), f"{name} posed shape")
+        require(all(bool(torch.isfinite(v).all()) for v in fwd.iter_garment_v),
+                f"non-finite {name} posed garment")
+        sel = garment_selection(fwd, assets.label, N // 4)
+        print(f"{name}: the garment selection finds {sel['min']}-{sel['max']} points a frame "
+              f"(median {sel['median']:.0f}) and keeps up to {sel['n']}; "
+              f"{sel['frames_padded']} of {sel['frames']} frames zero-padded, "
+              f"{sel['frames_none']} with none", flush=True)
+        row = dict(label=assets.label, radii=radii, launches=launches, selection=sel)
+        del fwd
+        if name == "Trousers":
+            recon_cpu = GarmentReconstructor.from_npz(assets, body, weights, device="cpu")
+            row["forced"] = teacher_forced_forward(steps, recon_cpu, label=f"{name} ")
+            del recon_cpu
+            chains = [r for r in chain_launches(record_chain_gcn(crecon, pcd, body_in)[0])
+                      if r["args"][1].shape[2] == 4]
+            require(chains, f"{name}: no chain launch at S=4")
+            for case, (r, count) in by_case(chains).items():
+                check_chain_case(case, r, count, res, label=f"{name} forward", path="trousers")
+            del chains
+            posed_s = wall_s(lambda: crecon.posed(pcd, body_in), runs=3)
+            print(f"{name} posed forward, kernel path: {F / posed_s:.2f} frames/s", flush=True)
+            rows, dev_ms = profile_device(lambda: crecon.posed(pcd, body_in), runs=2)
+            row.update(frames_per_sec=F / posed_s, device_ms=dev_ms,
+                       idle_share=print_profile(f"{name} posed", rows, dev_ms, posed_s * 1e3,
+                                                top=6))
+        del steps, crecon
+        torch.cuda.empty_cache()
+        if name == "Trousers":
+            row["train"] = class_train_step(assets, body, weights, res)
+        out[name] = row
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"classes phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---- phase 14: the tracing tool ----------------------------------------------
+
+
+def tools_phase() -> dict:
+    """Phase 14: `python -m garment4d_tpu_torch.tools.profile_posed` for
+    each of its paths on the card at `--iters 2`, through its `main`: the
+    step time and frames/s, then the device ms a step by kernel, which
+    `profile_device` holds against the launch counters (it raises after
+    PROFILE_TRIES short sessions); the port's kernels must be in it."""
+    from garment4d_tpu_torch.tools import profile_posed
+
+    t0 = time.perf_counter()
+    names = sum((v[0] for v in PROFILING.PROFILED.values()), ())
+    out = {}
+    for which in profile_posed.WHICH:
+        print(f"profile_posed {which} --iters 2:", flush=True)
+        r = profile_posed.main([which, "--iters", "2", "--top", "12"])
+        port_ms = device_ms_of(r["rows"], names)
+        require(port_ms > 0, f"profile_posed {which}: no kernel of the port in its table")
+        out[which] = dict(frames_per_sec=r["frames_per_sec"], step_ms=r["step_ms"],
+                          device_ms=r["total_ms"], idle_share=r["idle_share"],
+                          launches=r["launches"], port_kernels_ms=port_ms)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"tools phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---- phase 15: the demos --------------------------------------------------------
+
+SEG_DEMO_KERNELS = ["fps", "ball_query", "gather_rows", "three_nn", "scatter_add"]
+
+
+def demos_phase() -> dict:
+    """Phase 15: the three demos on the card at their defaults, through
+    their `main`s, each passing its own gate (GCN accuracy > 0.9,
+    segmentation accuracy > 0.8, the SMPL files written): the segmentation
+    demo with the launch counters at 0 before it, each of its kernels
+    launched, its median ms a step after the first."""
+    import numpy as np
+
+    from garment4d_tpu_torch.demos import gcn_node_demo, pointcloud_seg_demo, smpl_demo
+
+    def gated(label, fn):
+        try:
+            return fn()
+        except SystemExit as e:
+            raise RuntimeError(f"chip_smoke: {label}: {e}") from None
+
+    t0 = time.perf_counter()
+    gcn = gated("gcn_node_demo", lambda: gcn_node_demo.main([]))
+    times = []
+    seg, launches = counted("pointcloud_seg_demo", lambda: gated(
+        "pointcloud_seg_demo", lambda: pointcloud_seg_demo.main([], step_times=times)),
+        SEG_DEMO_KERNELS)
+    seg_ms = statistics.median(times[1:]) * 1e3
+    print(f"pointcloud_seg_demo: {seg_ms:.2f} ms a step (median of {len(times) - 1} after "
+          f"the first)", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="g4d_smpl_demo_")
+    try:
+        verts, joints = gated("smpl_demo", lambda: smpl_demo.main(
+            ["--plot-joints", "--pose", "random", "--out", out_dir]))
+        for f in ("body.obj", "body_preview.png", "joints.ply"):
+            require(os.path.getsize(os.path.join(out_dir, f)) > 0, f"smpl_demo: no {f}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    require(bool(np.isfinite(verts).all() and np.isfinite(joints).all()),
+            "smpl_demo: non-finite output")
+    out = dict(gcn_accuracy=gcn[-1][1], seg_accuracy=seg[-1][1], seg_loss=(seg[0][0], seg[-1][0]),
+               seg_ms_per_step=seg_ms, seg_launches=launches,
+               phase_s=time.perf_counter() - t0)
+    print(f"demos phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+@torch.inference_mode()
+def teacher_forced_forward(steps, recon_cpu, label=""):
+    """Each recorded refinement iteration of a posed forward on the card
+    (`recording(model, "refine")`), run by the CPU plain path on the card's
+    own inputs for sequence 0 (same centers: no boundary flips): its vertex
+    offsets and hidden features held to FORCED_TOL everywhere. -> rows."""
+    forced = []
+    for args, _, (h_gpu, hid_gpu) in steps:
+        it, cur, hidden, g_xyz, g_feat, b_v, b_vn = args[:7]
+
+        def seq0(t):
+            return None if t is None else t[:T].cpu()
+
+        h_cpu, hid_cpu = recon_cpu.model.refine(
+            it, seq0(cur), seq0(hidden), [seq0(t) for t in g_xyz],
+            [seq0(t) for t in g_feat], seq0(b_v), seq0(b_vn), 1, T)
+        diff = (h_cpu - h_gpu[:T].cpu()).abs().amax(-1)
+        forced.append(dict(iteration=it, within_1e3=(diff <= 1e-3).float().mean().item(),
+                           max_abs=diff.max().item(),
+                           hidden_max_abs=(hid_cpu - hid_gpu[:T].cpu()).abs().max().item()))
+        print(f"{label}teacher-forced iteration {it}: offsets within 1e-3 "
+              f"{forced[-1]['within_1e3']:.6f}, max abs diff {forced[-1]['max_abs']:.3e}, "
+              f"hidden max abs diff {forced[-1]['hidden_max_abs']:.3e}", flush=True)
+        for key in ("max_abs", "hidden_max_abs"):
+            require(forced[-1][key] <= FORCED_TOL,
+                    f"{label}teacher-forced iteration {it}: {key} {forced[-1][key]} "
+                    f"> {FORCED_TOL}")
+    return forced
+
+
 def counted(label, fn, names):
     """Run the main path `fn` once with the launch counters at 0 before it;
     require each kernel in `names` to have launched."""
@@ -4846,6 +5168,7 @@ def time_kernels(root: Path) -> int:
             pemax._pe_bwd_kernel(*args, table_grad=True)
         (dqg, idx, n), _, _ = calls[0]
         out["dtable_scatter_ms"] = cuda_ms(lambda: pc._scatter_add_rows_kernel(dqg, idx, n), 10)
+    out["padded_tie"] = padded_tie_errors(pemax)
     del shapes, args, calls, dqg, idx
     torch.cuda.empty_cache()
 
@@ -4967,11 +5290,19 @@ def ab(parent: Path) -> int:
             row.update({k: v for c in runs[1][1][kernel] if c["case"] == case
                         for k, v in c.items() if k in ("bound_ms", "scan_bound_ms")})
             summary[f"{kernel} {case}"] = row
+    # the PE backward's padded tie, each output unmasked against its plain
+    # version (a checkout whose run has none leaves it out)
+    for case, errs in runs[1][1].get("padded_tie", {}).items():
+        for name in errs:
+            summary[f"padded_tie {case} {name} err"] = {
+                lab: mean(lab, lambda r: r["padded_tie"][case][name])
+                for lab in ("parent", "change")}
     for label in ("parent", "change"):
         for line in next(r for lab, r in runs if lab == label)["ptxas"]:
             print(f"{label} ptxas: {line}", flush=True)
     for key, row in summary.items():
-        print(f"A/B {key}: " + ", ".join(f"{k} {v:.3e}" if "err" in k else f"{k} {v:.4f}"
+        print(f"A/B {key}: " + ", ".join(f"{k} {v:.3e}" if "err" in k or "err" in key
+                                          else f"{k} {v:.4f}"
                                           for k, v in row.items()), flush=True)
     print(json.dumps({"ab": summary, "card": card}))
     print(card)
@@ -5110,31 +5441,7 @@ def main() -> int:
     print(f"CPU plain path {cpu_s:.1f} s; label agreement {agree:.6f}, tpose_garment max "
           f"abs diff {tpose_err:.3e}, LBS posed garment max abs diff {lbs_err:.3e}",
           flush=True)
-    # teacher-forced: each refinement iteration of the CPU plain path fed
-    # the card's own inputs for it (same centers: no boundary flips); its
-    # vertex offsets and hidden features are held to FORCED_TOL everywhere
-    forced = []
-    with torch.inference_mode():
-        for args, _, (h_gpu, hid_gpu) in steps:
-            it, cur, hidden, g_xyz, g_feat, b_v, b_vn = args[:7]
-
-            def seq0(t):
-                return None if t is None else t[:T].cpu()
-
-            h_cpu, hid_cpu = recon_cpu.model.refine(
-                it, seq0(cur), seq0(hidden), [seq0(t) for t in g_xyz],
-                [seq0(t) for t in g_feat], seq0(b_v), seq0(b_vn), 1, T)
-            diff = (h_cpu - h_gpu[:T].cpu()).abs().amax(-1)
-            forced.append(dict(iteration=it, within_1e3=(diff <= 1e-3).float().mean().item(),
-                               max_abs=diff.max().item(),
-                               hidden_max_abs=(hid_cpu - hid_gpu[:T].cpu()).abs().max().item()))
-            print(f"teacher-forced iteration {it}: offsets within 1e-3 "
-                  f"{forced[-1]['within_1e3']:.6f}, max abs diff {forced[-1]['max_abs']:.3e}, "
-                  f"hidden max abs diff {forced[-1]['hidden_max_abs']:.3e}", flush=True)
-            for key in ("max_abs", "hidden_max_abs"):
-                require(forced[-1][key] <= FORCED_TOL,
-                        f"teacher-forced iteration {it}: {key} {forced[-1][key]} "
-                        f"> {FORCED_TOL}")
+    forced = teacher_forced_forward(steps, recon_cpu)
     require(agree >= 0.999, f"label agreement {agree} < 0.999")
     require(tpose_err <= 1e-3, f"tpose_garment diff {tpose_err} > 1e-3")
     require(lbs_err <= 1e-4, f"LBS posed garment diff {lbs_err} > 1e-4")
@@ -5202,10 +5509,22 @@ def main() -> int:
     # ---- 12. post-processing and body fitting -----------------------------------
     torch.cuda.empty_cache()
     post = postprocess_phase(recon, pcd, body_in, assets, body, res)
+
+    # ---- 13. the Trousers and Tshirt classes -------------------------------------
+    torch.cuda.empty_cache()
+    classes = classes_phase(recon, pcd, body_in, body, weights, res)
+
+    # ---- 14. the tracing tool ----------------------------------------------------
+    torch.cuda.empty_cache()
+    tools = tools_phase()
+
+    # ---- 15. the demos ---------------------------------------------------------------
+    torch.cuda.empty_cache()
+    demos = demos_phase()
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
 
-    # ---- 13. results -------------------------------------------------------
+    # ---- 16. results -------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -5225,6 +5544,9 @@ def main() -> int:
             launches_spatial=levers["forwards"]["spatial"]["launches"].get(name, 0),
             launches_both_levers=levers["forwards"]["both"]["launches"].get(name, 0),
             launches_postprocess=post["launches"].get(name, 0),
+            launches_trousers=classes["Trousers"]["launches"].get(name, 0),
+            launches_trousers_train_step=classes["Trousers"]["train"]["launches"].get(name, 0),
+            launches_seg_demo=demos["seg_launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -5288,6 +5610,9 @@ def main() -> int:
         "levers": levers,
         "determinism": determinism,
         "postprocess": post,
+        "classes": classes,
+        "tools": tools,
+        "demos": demos,
         "build_s": build_s,
         "total_s": total_s}))
     print(card)

@@ -2,8 +2,9 @@
 
 Counterpart of `garment4d_tpu/models/backbone.py` (reference Pointnet2MSGSEG):
 3 MSG set-abstraction stages (1024/256/64 centres), 3 feature-propagation
-stages and a Conv-Dropout-Conv head over 7 classes, as the canonical model
-uses it (no global stage: `global_feat=False`). Channel-last throughout.
+stages and a Conv-Dropout-Conv head over `num_classes` classes (7, the
+point-cloud classes, by default), as the canonical model uses it (no global
+stage: `global_feat=False`). Channel-last throughout.
 The head's dropout draws from the `torch.Generator` the caller passes.
 """
 
@@ -25,7 +26,7 @@ class BackboneOutput(NamedTuple):
 
 
 class PointNet2SegBackbone(nn.Module):
-    def __init__(self):
+    def __init__(self, num_classes: int = CLASS_NUM):
         super().__init__()
         # widths and radii per reference `pointnet2encoder.py:41-101`
         self.sa1 = SAModuleMSG(1024, (0.05, 0.1), (16, 32),
@@ -39,7 +40,7 @@ class PointNet2SegBackbone(nn.Module):
         self.fp3 = FPModule((512, 256), 384 + 192)
         self.head0 = ConvBNRelu(64, 32, bn=True)
         self.dropout = Dropout(0.5)
-        self.head1 = ConvBNRelu(32, CLASS_NUM, bn=False, relu=False)
+        self.head1 = ConvBNRelu(32, num_classes, bn=False, relu=False)
 
     def forward(self, pointcloud: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> BackboneOutput:

@@ -68,7 +68,7 @@ _SIGNATURES = {
                          _I, _P, _P, _P, _P),
     "g4d_gcn_layer": (_PP, _IP, _I, _IP, _I, _I, _I, _I, _P, _IP, _IP, _I, _I, _I, _P, _P,
                       _I, _I, _I, _I, _I, _P, _P),
-    "g4d_pe_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "g4d_pe_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "g4d_banded": (_P, _IP, _I, _P, _I, _I, _I, _P, _P),
     "g4d_nn1": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),

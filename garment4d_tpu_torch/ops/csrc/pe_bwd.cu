@@ -73,8 +73,9 @@ constexpr int kThreads = 256;
 
 struct PeDims {
   // row pitches HP = F + 4 and W2 = max(F, G) + 4 (float4 rows whose
-  // neighbours start on other banks); nw = 32-bit words of a slot mask
-  int N, C, Pc, M, S, F, G, Gc, HP, W2, nw;
+  // neighbours start on other banks); nw = 32-bit words of a slot mask;
+  // Sr <= S the real slots, the wrapper's padding past them repeats slot 0
+  int N, C, Pc, M, S, F, G, Gc, HP, W2, nw, Sr;
 };
 
 // A weight gradient sum_r (copies[r] * a[r, :])^T b[r, :] over listed rows
@@ -265,7 +266,7 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
               int* __restrict__ idx_w) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int C = d.C, Pc = d.Pc, F = d.F, G = d.G, S = d.S, M = d.M, Gc = d.Gc;
+  const int C = d.C, Pc = d.Pc, F = d.F, G = d.G, S = d.S, M = d.M, Gc = d.Gc, Sr = d.Sr;
   const int HP = d.HP, W2 = d.W2, nw = d.nw, G32 = (G + 31) / 32;
   const int R = Gc * S, F4 = F / 4;
   // k0 in shared memory, except for a wide table (D0 = 4), whose k0 the
@@ -365,7 +366,7 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
       int s1 = s, cnt = 0;
       for (int s2 = 0; s2 < S; ++s2) {
         const bool eq = jrow[gi * S + s2] == j;
-        cnt += eq;
+        cnt += eq && s2 < Sr;  // a pad slot is no copy of its own
         if (eq && s2 < s1) s1 = s2;
       }
       copies[r] = (gi * S + s1) << 16 | (s1 == s ? cnt : 0);
@@ -401,11 +402,12 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
       const float* col = h2 + gi * S * W2 + g;
       const float ct = gi < n_m ? __ldg(cot + ((size_t)b * M + m0 + gi) * G + g) : 0.f;
       // the slots at the max as bit masks, one word of 32 slots at a time
-      // (one pass for S <= 32; NaN never wins)
+      // (one pass for S <= 32; NaN never wins); over the real slots only,
+      // so that a pad's copy of slot 0 takes no share of a tie
       float mx = __int_as_float(0xff800000);  // -inf
       unsigned bits0 = 0;
       if (nw == 1) {
-        for (int s = 0; s < S; ++s) {
+        for (int s = 0; s < Sr; ++s) {
           const float v = col[s * W2];
           if (v > mx) {
             mx = v;
@@ -415,12 +417,12 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
           }
         }
       } else {
-        for (int s = 0; s < S; ++s) mx = fmaxf(mx, col[s * W2]);
+        for (int s = 0; s < Sr; ++s) mx = fmaxf(mx, col[s * W2]);
       }
       auto at_max = [&](int w) {
         if (nw == 1) return bits0;
         unsigned bits = 0;
-        for (int s = w * 32; s < min(S, w * 32 + 32); ++s)
+        for (int s = w * 32; s < min(Sr, w * 32 + 32); ++s)
           bits |= (unsigned)(col[s * W2] == mx) << (s - w * 32);
         return bits;
       };
@@ -549,14 +551,15 @@ pe_bwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
         const int r = e / C;
         const int c = e - r * C;
         const int rr = copies[r] >> 16;
-        if (!bit(wonm, rr)) continue;
+        if (r - by_s.div(r) * S >= Sr || !bit(wonm, rr)) continue;
         const float* dh = h2 + rr * W2;
         float a = 0.f;
         for (int f = 0; f < F; ++f) a = fmaf(dh[f], __ldg(k0t + (size_t)f * Pc + c), a);
         dqg[(((size_t)b * M + m0) * S + r) * C + c] = a;
       }
       for (int r = tid; r < n_m * S; r += kThreads)
-        idx_w[((size_t)b * M + m0) * S + r] = bit(wonm, copies[r] >> 16) ? jrow[r] : -1;
+        idx_w[((size_t)b * M + m0) * S + r] =
+            r - by_s.div(r) * S < Sr && bit(wonm, copies[r] >> 16) ? jrow[r] : -1;
     }
     __syncthreads();
 
@@ -619,7 +622,9 @@ cudaError_t launch(const float* table, const int* idx, const float* centers,
 
 }  // namespace
 
-// table (B, N, C), idx (B, M, S) i32, centers (B, M, 3), k0 (Pc, F) with
+// table (B, N, C), idx (B, M, S) i32 whose slots past S_real repeat slot 0
+// (the wrapper's padding to the 8-row tile; they take no share of a tie and
+// write no dtable row), centers (B, M, 3), k0 (Pc, F) with
 // Pc = C rounded up to 4 (zero rows past C), b0 (F), k1 (F, G), cot
 // (B, M, G); F and G multiples of 4, F <= 256, Pc*F/16 <= 4*256,
 // F*G <= 16*256; Gc centers per tile; n_blocks blocks of the first kernel;
@@ -634,19 +639,20 @@ cudaError_t launch(const float* table, const int* idx, const float* centers,
 extern "C" int g4d_pe_bwd(const float* table, const int* idx,
                           const float* centers, const float* k0,
                           const float* b0, const float* k1, const float* cot,
-                          int B, int N, int C, int M, int S, int F, int G,
+                          int B, int N, int C, int M, int S, int S_real, int F, int G,
                           int Gc, int n_blocks, int smem_bytes, float* dcenters,
                           float* partials, float* sums, const float* k0t,
                           float* dqg, int* idx_w, cudaStream_t stream) {
   const int Pc = (C + 3) & ~3;
   const int items0 = Pc / 4 * (F / 4);
-  if (C < 3 || S < 1 || F < 4 || G < 4 || F % 4 || G % 4 || F > kThreads ||
+  if (C < 3 || S < 1 || S_real < 1 || S_real > S || F < 4 || G < 4 || F % 4 || G % 4 || F > kThreads ||
       (dqg != nullptr) != (k0t != nullptr) || (dqg != nullptr) != (idx_w != nullptr) ||
       Gc < 1 || n_blocks < 1 || items0 > 4 * kThreads || F * G > 16 * kThreads)
     return (int)cudaErrorInvalidValue;
   const int n_acc = C * F + F + F * G + G;
   const int n_tiles = B * ((M + Gc - 1) / Gc);
-  const PeDims d = {N, C, Pc, M, S, F, G, Gc, F + 4, (F > G ? F : G) + 4, (S + 31) / 32};
+  const PeDims d = {N, C, Pc, M, S, F, G, Gc, F + 4, (F > G ? F : G) + 4, (S + 31) / 32,
+                    S_real};
   const bool wide0 = items0 > kThreads, wide1 = F * G > 4 * kThreads;
   cudaError_t err;
   if (!wide0 && !wide1)

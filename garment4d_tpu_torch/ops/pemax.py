@@ -480,8 +480,11 @@ def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot, table_grad=False):
         raise ValueError(f"pe_bwd: table {tuple(table.shape)}, idx {tuple(idx.shape)}, "
                          f"centers {tuple(centers.shape)}, k0 {tuple(k0.shape)}, "
                          f"k1 {tuple(k1.shape)}, cot {tuple(cot.shape)}")
-    # a repeated slot 0 is an exact tie of slot 0: the even split hands
-    # each copy its share, and the copies' contributions sum to slot 0's
+    # the pads repeat slot 0 up to the 8-row tile; the kernel is told the
+    # real slot count, so that a pad takes no share of a tie (with slot 0's
+    # copies counted in the split, a tie of slot 0 with another row whose
+    # content is equal would hand slot 0's row more than its share of dtable)
+    S_real = idx.shape[2]
     idx = _pad_slots(idx)
     S = idx.shape[2]
     gc, smem = _pe_bwd_plan(C, S, F, G)
@@ -505,7 +508,7 @@ def _pe_bwd_kernel(table, idx, centers, k0, b0, k1, cot, table_grad=False):
     _build.launch_counts["pe_bwd"] += 1
     _build.check(lib.g4d_pe_bwd(
         table.data_ptr(), idx.data_ptr(), centers.data_ptr(), k0.data_ptr(),
-        b0.data_ptr(), k1.data_ptr(), cot.data_ptr(), B, N, C, M, S, F, G, gc,
+        b0.data_ptr(), k1.data_ptr(), cot.data_ptr(), B, N, C, M, S, S_real, F, G, gc,
         blocks, smem, dcenters.data_ptr(), partials.data_ptr(), sums.data_ptr(),
         *(None, None, None) if not table_grad else
         (k0t.data_ptr(), dqg.data_ptr(), idx_w.data_ptr()),

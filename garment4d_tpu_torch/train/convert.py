@@ -72,6 +72,7 @@ def load_npz_subtree(path: str, subtree: str) -> Dict[str, torch.Tensor]:
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """The state_dict of the whole variable tree of a Flax variables npz,
-    e.g. the posed model's from `ckpt_synth/posed_synth.npz`."""
+    e.g. the posed model's from `ckpt_synth/posed_synth.npz`. A key without
+    a "/" names no variable (`{collection}/{path}`) and is skipped."""
     with np.load(path) as data:
-        return flax_to_torch({key: data[key] for key in data.files})
+        return flax_to_torch({key: data[key] for key in data.files if "/" in key})

@@ -1558,6 +1558,29 @@ def test_pe_bwd_dtable(dev, C, S, M):
         torch.testing.assert_close(g, a, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("C,S", [(387, 4), (6, 4), (67, 12)])
+def test_pe_bwd_padded_tie(dev, C, S):
+    """S off the kernel's 8-row tile (padded with copies of slot 0) with
+    slot 0 tied exactly to another row of equal content
+    (`chip_smoke.padded_tie_case`): the pads take no share of the tie, so
+    both halves match the plain version, which splits each tie evenly
+    between the two rows as JAX does (dtable and the weight gradients
+    within 1e-4 of their largest magnitude, dcenters within rtol 1e-4 /
+    atol 1e-5, near-tie cotangents zeroed). Counting the pads among the
+    tied slots gave slot 0's row 5/6 of an S=4 tie's share."""
+    from chip_smoke import padded_tie_case, pe_near_ties
+
+    args = padded_tie_case(C, S)
+    args[-1] = args[-1] * ~pe_near_ties(*args[:6])
+    got = pemax._pe_bwd_kernel(*args, table_grad=True)
+    want = pemax._pe_bwd_plain(*args, table_grad=True)
+    rows = args[1][:, :, 0].long()
+    assert want[0].gather(1, rows[..., None].expand(-1, -1, C)).abs().sum() > 0  # ties live
+    torch.testing.assert_close(got[1], want[1], **PE_TOL)
+    for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
 @pytest.mark.parametrize("case", ["all tied", "one winner", "S=1", "zero cotangent"])
 @pytest.mark.parametrize("C", [6, 67])
 def test_pe_bwd_edge_cases(dev, case, C):
