@@ -334,7 +334,31 @@ then:
    demo (accuracy > 0.9), the PointNet++ segmentation demo (accuracy > 0.8;
    FPS, ball query, row gather, scatter-add and 3-NN launched; ms a step)
    and the SMPL demo (its OBJ, PNG and PLY written);
-16. prints a JSON line of the kernels (each row read from the costliest
+16. the flags the JAX package serves, `--bf16`, `--remat` and
+   `--debug_nans`, at phases 4-6's shapes from `posed_synth.npz`: the
+   canonical forward (B=8) at compute_dtype bf16, counted (FPS, flat
+   query, row gather and 3-NN launched, the chain kernel not: its SA stages
+   run unfused, as the JAX package's do under bf16), every FPS, flat-query,
+   gather and 3-NN launch held bitwise to its plain version and each case
+   timed, the outputs against the card's plain bf16 path teacher-forced on
+   the same labels (within 2 bf16 ulps + 1e-3), 99% of the labels fp32's,
+   and, fed fp32's labels, within the JAX package's `TestBf16Mode` bounds
+   of the fp32 forward (garment summary rtol 0.15 / atol 0.3, T-pose
+   garment 0.2; on its own labels printed), both forwards' frames/s,
+   device ms and idle share; the canonical train step (B=20) in bf16,
+   counted, its losses finite and within 1e-2 of the card's plain bf16
+   step, and beside the fp32 step: frames/s, device ms, idle share and the
+   train-mode BatchNorms' device ms replayed alone on the step's inputs;
+   the posed forward (B=8) and train step (B=4) with a bf16 stage 1 beside
+   fp32's; the posed train step's peak device memory and device ms at B=4
+   and B=8 (the JAX package's `--remat` is for a B=8 step that does not
+   fit; on the port `--remat 1` is a logged no-op); one posed
+   train step with the NaN tripwire bitwise one without, its overhead in
+   ms, then a parameter set to NaN, which must raise FloatingPointError
+   naming it; each flag through `train_temporal.main` on phase 7's tree
+   for one epoch (`--bf16` canonical, `--remat` and `--debug_nans` posed):
+   finite losses, the kernels launched;
+17. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
    80-frame forward, not from the train steps' cases; the scatter-add from
    the canonical train step, not from the op-level dtable check), then the
@@ -4725,6 +4749,439 @@ def demos_phase() -> dict:
     return out
 
 
+# ---- phase 16: --bf16, --remat, --debug_nans ---------------------------------
+# TestBf16Mode's bounds (tests/test_models.py), bf16 against fp32
+BF16_SUMMARY_TOL = dict(rtol=0.15, atol=0.3)
+BF16_TPOSE_TOL = 0.2
+BF16_LABELS = 0.99  # least share of the points labelled alike in bf16 and fp32
+BF16_LOSS_TOL = 1e-2  # the bf16 canonical train step's losses, kernel vs plain path, relative
+BF16_ULPS = 2  # the bf16 canonical forward, kernel vs plain path: ulps, + 1e-3
+NAN_PARAMETER = "garment_pe1.linear0.weight"  # the --debug_nans phase's injection
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x|."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_ulps_apart(got, want) -> float:
+    """The largest difference of two fp32 tensors of bf16 results beyond
+    1e-3, in ulps of bf16 at the larger magnitude."""
+    excess = ((got - want).abs() - 1e-3).clamp_min(0)
+    return float((excess / torch.maximum(bf16_ulp(got), bf16_ulp(want))).max())
+
+
+@contextlib.contextmanager
+def forced_labels(labels):
+    """The canonical forward's garment selection fed `labels` (B*T, N)
+    instead of its own argmax: the teacher-forced comparison of two paths
+    whose labels could differ at a near tie."""
+    from garment4d_tpu_torch.models import canonical
+
+    select = canonical.select_garment_points
+
+    def forced(xyz, features, _labels, garment_label, n):
+        return select(xyz, features, labels, garment_label, n)
+
+    canonical.select_garment_points = forced
+    try:
+        yield
+    finally:
+        canonical.select_garment_points = select
+
+
+def canonical_of(assets, state_dict, dtype, dev):
+    from garment4d_tpu_torch.models import CanonicalGarmentModel
+
+    model = CanonicalGarmentModel(assets, compute_dtype=dtype).to(dev)
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def timed_path(label, fn, frames, runs=3):
+    """frames/s (median of `runs` after a warm-up), the profiler's device
+    ms a call and the idle share, printed."""
+    wall = wall_s(fn, runs=runs)
+    rows, dev_ms = profile_device(fn, runs=1)
+    idle = print_profile(label, rows, dev_ms, wall * 1e3, top=6)
+    print(f"{label}: {frames / wall:.2f} frames/s ({wall * 1e3:.2f} ms per {frames} frames), "
+          f"device {dev_ms:.3f} ms", flush=True)
+    return dict(frames_per_sec=frames / wall, wall_ms=wall * 1e3, device_ms=dev_ms, idle_share=idle)
+
+
+@torch.inference_mode()
+def bf16_canonical_forward(assets, pcd, state_dict, res: Results) -> dict:
+    """The canonical forward (B=8, T=10) at compute_dtype bf16: counted
+    (FPS, flat query, row gather and 3-NN launched, the chain kernel not:
+    the SA stages run unfused, as the JAX package's do under bf16); every
+    FPS, flat-query, gather and 3-NN launch held bitwise to its plain
+    version and each case timed; the outputs against the card's plain bf16
+    path teacher-forced on the same labels (within BF16_ULPS ulps + 1e-3);
+    the labels against fp32's (BF16_LABELS agree at least) and the outputs
+    on fp32's labels within TestBf16Mode's bounds of the fp32 forward's
+    (on their own labels printed: at these trained weights a few flipped
+    labels move the garment selection past those bounds); both forwards'
+    frames/s, device ms and idle share."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    dev = pcd.device
+    model16 = canonical_of(assets, state_dict, torch.bfloat16, dev).eval()
+    model32 = canonical_of(assets, state_dict, None, dev).eval()
+    with recording(pc, "_fps_kernel") as fcalls, recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_three_nn_kernel") as tcalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gcalls:
+        out16, launches = counted("bf16 canonical forward", lambda: model16(pcd),
+                                  ["fps", "ball_query", "gather_rows", "three_nn"])
+    require(launches.get("fused_chain", 0) == 0, "the bf16 SA stages launched the chain kernel")
+    check_fps("bf16 canonical forward", fcalls, res, path="bf16")
+    check_flat("bf16 canonical forward", bcalls, res, path="bf16")
+    check_three_nn("bf16 canonical forward", tcalls, res, path="bf16")
+    gather_bound_ms = record_gathers("bf16 canonical forward", gcalls, res, path="bf16")
+    del fcalls[:], bcalls[:], tcalls[:], gcalls[:]
+
+    labels = out16.backbone.sem_logits.argmax(-1)
+    with ops.plain_ops(), forced_labels(labels):
+        out_plain = model16(pcd)
+    out32 = model32(pcd)
+    # a label that bf16 flips moves the garment selection, and with it the
+    # encoder's neighbourhoods: the bounds hold on fp32's labels
+    with forced_labels(out32.backbone.sem_logits.argmax(-1)):
+        out16_forced = model16(pcd)
+
+    def outputs(o):
+        return {"sem_logits": o.backbone.sem_logits, "features0": o.backbone.features[0],
+                "garment_summary": o.garment_summary, "pca_coeff": o.pca_coeff,
+                "tpose_garment": o.tpose_garment}
+
+    got, plain = outputs(out16), outputs(out_plain)
+    ulps = {k: bf16_ulps_apart(got[k], plain[k]) for k in got}
+    bitwise = {k: torch.equal(got[k], plain[k]) for k in got}
+    labels_plain = float((out_plain.backbone.sem_logits.argmax(-1) == labels).float().mean())
+    labels_fp32 = float((out32.backbone.sem_logits.argmax(-1) == labels).float().mean())
+
+    def vs_fp32(o):
+        return dict(summary=float((o.garment_summary - out32.garment_summary).abs().max()),
+                    summary_within=torch.allclose(o.garment_summary, out32.garment_summary,
+                                                  **BF16_SUMMARY_TOL),
+                    tpose=float((o.tpose_garment - out32.tpose_garment).abs().max()))
+
+    forced, own = vs_fp32(out16_forced), vs_fp32(out16)
+    print(f"bf16 canonical forward vs its plain path (teacher-forced labels; plain's own "
+          f"agree {labels_plain:.6f}): ulps beyond 1e-3 {ulps}, bitwise {bitwise}", flush=True)
+    print(f"bf16 canonical forward vs fp32: labels agree {labels_fp32:.6f}; on fp32's labels "
+          f"{forced}, on its own {own}", flush=True)
+    for k, u in ulps.items():
+        require(u <= BF16_ULPS, f"bf16 canonical forward {k}: {u} ulps from the plain path")
+    require(labels_fp32 >= BF16_LABELS, f"bf16 labels agree with fp32's on {labels_fp32}")
+    require(forced["summary_within"], f"bf16 garment_summary beyond {BF16_SUMMARY_TOL} of fp32")
+    require(forced["tpose"] < BF16_TPOSE_TOL, f"bf16 tpose_garment {forced['tpose']} from fp32")
+    require(all(t.dtype == torch.float32 for t in got.values()), "bf16 outputs not fp32")
+    del out16, out_plain, out32, out16_forced, got, plain
+    timing = {label: timed_path(f"{label} canonical forward (B={B})", lambda m=m: m(pcd), F)
+              for label, m in (("fp32", model32), ("bf16", model16))}
+    return dict(launches=launches, ulps_vs_plain=ulps, bitwise_vs_plain=bitwise,
+                labels_vs_fp32=labels_fp32, vs_fp32_forced=forced, vs_fp32_own_labels=own,
+                gather_summed_bound_ms=gather_bound_ms, **timing)
+
+
+def batchnorm_inputs(model, run):
+    """The inputs of every BatchNorm of `model` in training during `run()`
+    (a forward without autograd), each beside a copy of its module."""
+    import copy
+
+    from garment4d_tpu_torch.nn import BatchNorm
+
+    got, handles = [], []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            handles.append(m.register_forward_hook(
+                lambda mod, args, _out: got.append((mod, args[0].detach()))))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    # copied once their hooks are gone (a copy would copy the hook's list)
+    return [(copy.deepcopy(m), x) for m, x in got]
+
+
+def batchnorm_device_ms(model, run) -> tuple:
+    """The train-mode BatchNorms of one step replayed alone, forward and
+    backward (a cotangent of ones), on the inputs they had: (their count,
+    the profiler's device ms)."""
+    inputs = batchnorm_inputs(model, run)
+
+    def replay():
+        for bn, x in inputs:
+            x = x.requires_grad_(True)
+            y = bn(x)
+            y.backward(torch.ones_like(y))
+            x.grad = None
+
+    _, dev_ms = profile_device(replay, runs=1)
+    n = len(inputs)
+    del inputs
+    return n, dev_ms
+
+
+def bf16_canonical_train_step(assets, body, state_dict) -> dict:
+    """The canonical train step at B=20 in bf16 and fp32 from the same
+    weights and dropout seed: the bf16 step counted (its kernels launched),
+    every loss finite and within BF16_LOSS_TOL of the card's plain bf16
+    step, every gradient finite; both steps' frames/s, device ms and idle
+    share, and the BatchNorms' device ms replayed alone on each step's
+    inputs (`batchnorm_device_ms`)."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.train import make_canonical_steps, make_state_for
+
+    dev = torch.device("cuda")
+    batch = make_batch(assets, body, batch_size=CANON_B, T=T, npoints=N, seed=1, device=dev)
+
+    def new_state(dtype):
+        model = canonical_of(assets, state_dict, dtype, dev)
+        return make_state_for(model, lr=TRAIN_LR), make_canonical_steps(model, assets,
+                                                                       body.faces)[0]
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(1)
+
+    state16, step16 = new_state(torch.bfloat16)
+    losses, launches = counted("bf16 canonical train",
+                               lambda: step16(state16, batch, generator()), CANON_TRAIN_KERNELS)
+    for k, v in losses.items():
+        require(bool(torch.isfinite(v).all()), f"bf16 canonical loss {k} is not finite")
+    for n, p in state16.model.named_parameters():
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"bf16 canonical {n}: no finite gradient")
+    plain_state, plain_step = new_state(torch.bfloat16)
+    ops.reset_counts()
+    with ops.plain_ops():
+        losses_plain = plain_step(plain_state, batch, generator())
+    torch.cuda.synchronize()
+    require(not any(ops.launch_counts.values()), "the plain bf16 step launched kernels")
+    loss_err = {k: float(((losses[k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                for k, v in losses_plain.items()}
+    print(f"bf16 canonical train step losses: " + ", ".join(
+        f"{k} {v.item():.6g}" for k, v in losses.items()) + f"; vs the plain bf16 step "
+        f"within {max(loss_err.values()):.3e} relative", flush=True)
+    require(max(loss_err.values()) <= BF16_LOSS_TOL,
+            f"bf16 canonical train losses, kernel vs plain path: {loss_err}")
+    del plain_state, plain_step, losses_plain
+    torch.cuda.empty_cache()
+    out = dict(launches=launches, loss_rel_err_vs_plain=loss_err)
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        state, step = (state16, step16) if dtype else new_state(None)
+        out[label] = timed_path(f"{label} canonical train step (B={CANON_B})",
+                                lambda: step(state, batch, generator()), CANON_F)
+        state.model.train()
+        n_bn, bn_ms = batchnorm_device_ms(state.model, lambda: state.model(batch["pcd"],
+                                                                           generator()))
+        out[label].update(batchnorms=n_bn, batchnorm_device_ms=bn_ms,
+                          batchnorm_share=bn_ms / out[label]["device_ms"])
+        print(f"{label} canonical train step: {n_bn} train-mode BatchNorms, forward and "
+              f"backward replayed alone {bn_ms:.3f} device ms "
+              f"({bn_ms / out[label]['device_ms']:.3f} of the step's)", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def posed_model(assets, body, weights, dev, compute_dtype=None):
+    """The posed model from `posed_synth.npz` at `compute_dtype`."""
+    from garment4d_tpu_torch.models import PosedGarmentModel
+    from garment4d_tpu_torch.train.convert import load_npz
+
+    model = PosedGarmentModel(assets, body.faces, compute_dtype=compute_dtype)
+    model.load_state_dict(load_npz(weights), strict=True)
+    return model.to(dev)
+
+
+def posed_state(assets, body, weights, dev, compute_dtype=None, tripwire=False):
+    """A posed train state from `posed_synth.npz` (canonical stage frozen),
+    the model at `compute_dtype`, and its train step, with the
+    NaN tripwire on it under `tripwire`: (state, train step, tripwire or
+    None)."""
+    from garment4d_tpu_torch.train import make_posed_steps, make_state_for
+    from garment4d_tpu_torch.utils.debug_nans import NanTripwire
+
+    model = posed_model(assets, body, weights, dev, compute_dtype)
+    state = make_state_for(model, lr=TRAIN_LR, freeze_canonical=True)
+    wire = NanTripwire(model) if tripwire else None
+    return state, make_posed_steps(model, assets, body.faces, tripwire=wire)[0], wire
+
+
+def bf16_posed(assets, body, weights, pcd, body_in) -> dict:
+    """The posed forward (B=8) and train step (B=4) with a bf16 stage 1,
+    beside the fp32 ones: finite outputs and losses, the kernels launched,
+    frames/s, device ms and idle share."""
+    from garment4d_tpu_torch.data.synthetic import make_batch
+
+    dev = pcd.device
+    out = {}
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        model = posed_model(assets, body, weights, dev, dtype).eval()
+
+        @torch.inference_mode()
+        def forward():
+            return model(pcd, body_in).iter_garment_v[-1]
+
+        posed, launches = counted(f"{label} posed forward", forward,
+                                  ["fps", "ball_query", "gather_rows", "three_nn", "coverage",
+                                   "ball_query_grouped", "group_pe_max", "knn_transfer",
+                                   "gcn_stack"])
+        require(bool(torch.isfinite(posed).all()), f"{label} posed forward: not finite")
+        fwd = timed_path(f"{label} stage 1, posed forward (B={B})", forward, F)
+        del model, posed
+        state, step, _ = posed_state(assets, body, weights, dev, compute_dtype=dtype)
+        # a bf16 stage 1 runs its SA stages unfused: no chain launch but the PE blocks'
+        names = [k for k in POSED_TRAIN_KERNELS if not (dtype and k == "fused_chain")]
+        losses, train_launches = counted(f"{label} stage 1, posed train step",
+                                         lambda: step(state, batch), names)
+        require(all(bool(torch.isfinite(v).all()) for v in losses.values()),
+                f"{label} posed train step: non-finite losses")
+        train = timed_path(f"{label} stage 1, posed train step (B={TRAIN_B})",
+                           lambda: step(state, batch), TRAIN_F)
+        out[label] = dict(forward=fwd, forward_launches=launches, train=train,
+                          train_launches=train_launches)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def posed_memory_phase(assets, body, weights) -> dict:
+    """The posed train step at B=4 and B=8 from a fresh state: the peak
+    device memory of its first step, in all and above the state and batch,
+    and its device ms."""
+    from garment4d_tpu_torch.data.synthetic import make_batch
+
+    dev = torch.device("cuda")
+    out = {}
+    for batch_size in (TRAIN_B, B):
+        batch = make_batch(assets, body, batch_size=batch_size, T=T, npoints=N, seed=1,
+                           device=dev)
+        state, step, _ = posed_state(assets, body, weights, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses = step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        require(all(bool(torch.isfinite(v).all()) for v in losses.values()),
+                f"posed train step B={batch_size}: non-finite losses")
+        label = f"posed train step B={batch_size}"
+        out[f"B{batch_size}"] = dict(
+            peak_gib=peak / 2 ** 30, step_peak_gib=(peak - base) / 2 ** 30,
+            **timed_path(label, lambda: step(state, batch), batch_size * T))
+        print(f"{label}: peak device memory {peak / 2 ** 30:.3f} GiB "
+              f"({(peak - base) / 2 ** 30:.3f} GiB above the state and batch)", flush=True)
+        del state, step, losses, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def debug_nans_phase(assets, body, weights) -> dict:
+    """One posed train step (B=4) with the NaN tripwire and one without,
+    from fresh states of the same weights: losses and gradients bitwise
+    equal, the tripwire's overhead (wall ms a step, median); then one step
+    with NAN_PARAMETER's first element set to NaN, which must raise
+    FloatingPointError naming it."""
+    from garment4d_tpu_torch.data.synthetic import make_batch
+
+    dev = torch.device("cuda")
+    batch = make_batch(assets, body, batch_size=TRAIN_B, T=T, npoints=N, seed=1, device=dev)
+    runs = {}
+    for wired in (False, True):
+        state, step, wire = posed_state(assets, body, weights, dev, tripwire=wired)
+        losses = step(state, batch)
+        runs[wired] = dict(record=step_record(state, losses),
+                           wall_ms=wall_s(lambda: step(state, batch), runs=3) * 1e3,
+                           state=state, step=step, wire=wire)
+    differ = records_equal(runs[False]["record"], runs[True]["record"])
+    require(not differ, f"--debug_nans changed the step: {differ[:5]}")
+    overhead = runs[True]["wall_ms"] - runs[False]["wall_ms"]
+    print(f"--debug_nans: a clean posed train step bitwise the step without it; "
+          f"{runs[True]['wall_ms']:.2f} ms against {runs[False]['wall_ms']:.2f} ms a step "
+          f"(+{overhead:.2f} ms, {runs[True]['wire'].modules} modules watched)", flush=True)
+    state, step = runs[True]["state"], runs[True]["step"]
+    with torch.no_grad():
+        dict(state.model.named_parameters())[NAN_PARAMETER].view(-1)[0] = float("nan")
+    try:
+        step(state, batch)
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise RuntimeError(f"chip_smoke: --debug_nans: no FloatingPointError with "
+                           f"{NAN_PARAMETER} set to NaN")
+    require(NAN_PARAMETER in message, f"--debug_nans raised without naming {NAN_PARAMETER}: "
+            f"{message}")
+    print(f"--debug_nans: {NAN_PARAMETER} set to NaN raised FloatingPointError: {message}",
+          flush=True)
+    runs[True]["wire"].close()
+    return dict(wall_ms=runs[True]["wall_ms"], wall_ms_without=runs[False]["wall_ms"],
+                overhead_ms=overhead, modules=runs[True]["wire"].modules, raised=message)
+
+
+def flags_entry_point(root: Path, tree: dict) -> dict:
+    """Each flag once through `train_temporal.main` on phase 7's tree, one
+    epoch: --bf16 1 on the canonical stage (B=20), --remat 1 and
+    --debug_nans 1 on the posed stage (B=4, --fix_PCA 1 from phase 7's
+    canonical checkpoint); finite losses, the kernels of the path launched."""
+    from garment4d_tpu_torch import train_temporal
+
+    common = ["--config", tree["cfg"], "--smpl_model_dir", tree["smpl_dir"], "--T", str(T),
+              "--lr", str(TRAIN_LR), "--epoch_num", "1"]
+    posed = ["--GarmentPCALBS", "1", "--fix_PCA", "1", "--GarmentPCA_pretrain",
+             str(root / "canonical" / "ckpt" / "model.ckpt"), "--batch_size", str(TRAIN_B)]
+    runs = {"bf16": (["--GarmentPCA", "1", "--batch_size", str(CANON_B), "--bf16", "1"],
+                     CANON_TRAIN_KERNELS),
+            "remat": (posed + ["--remat", "1"], POSED_TRAIN_KERNELS),
+            "debug_nans": (posed + ["--debug_nans", "1"], POSED_TRAIN_KERNELS)}
+    out = {}
+    for flag, (argv, names) in runs.items():
+        t0 = time.perf_counter()
+        hist, launches = counted(f"entry point --{flag} 1", lambda: train_temporal.main(
+            common + argv + ["--output_dir", str(root / f"flag_{flag}")]), names)
+        for split in ("train", "eval"):
+            require(all(math.isfinite(v) for v in hist[0][split].values()),
+                    f"entry point --{flag} 1: non-finite {split} losses {hist[0][split]}")
+        out[flag] = dict(seconds=time.perf_counter() - t0, train=hist[0]["train"],
+                         launches=launches)
+        print(f"entry point --{flag} 1: one epoch {out[flag]['seconds']:.2f} s, "
+              f"{hist[0]['train']}", flush=True)
+    return out
+
+
+def flags_phase(assets, body, weights, pcd, body_in, root: Path, tree: dict,
+                res: Results) -> dict:
+    """Phase 16: --bf16 (canonical forward and train step, posed paths
+    with a bf16 stage 1), the posed train step's peak memory (what --remat
+    is for in the JAX package), --debug_nans, and each flag through the
+    entry point."""
+    from garment4d_tpu_torch.train.convert import load_npz_subtree
+
+    t0 = time.perf_counter()
+    canonical_sd = load_npz_subtree(weights, "canonical")
+    out = dict(bf16_canonical_forward=bf16_canonical_forward(assets, pcd, canonical_sd, res))
+    torch.cuda.empty_cache()
+    out["bf16_canonical_train"] = bf16_canonical_train_step(assets, body, canonical_sd)
+    torch.cuda.empty_cache()
+    out["bf16_posed"] = bf16_posed(assets, body, weights, pcd, body_in)
+    torch.cuda.empty_cache()
+    out["posed_memory"] = posed_memory_phase(assets, body, weights)
+    torch.cuda.empty_cache()
+    out["debug_nans"] = debug_nans_phase(assets, body, weights)
+    torch.cuda.empty_cache()
+    out["entry_point"] = flags_entry_point(root, tree)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"flags phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 @torch.inference_mode()
 def teacher_forced_forward(steps, recon_cpu, label=""):
     """Each recorded refinement iteration of a posed forward on the card
@@ -5499,32 +5956,36 @@ def main() -> int:
         torch.cuda.empty_cache()
         levers = levers_phase(recon, recon_cpu, pcd, body_in, steps4, assets, body, weights,
                               entry_root, tree, res)
+
+        # ---- 11. determinism ---------------------------------------------------
+        torch.cuda.empty_cache()
+        determinism = determinism_phase(recon, pcd, body_in, assets, body, weights)
+
+        # ---- 12. post-processing and body fitting -------------------------------
+        torch.cuda.empty_cache()
+        post = postprocess_phase(recon, pcd, body_in, assets, body, res)
+
+        # ---- 13. the Trousers and Tshirt classes ---------------------------------
+        torch.cuda.empty_cache()
+        classes = classes_phase(recon, pcd, body_in, body, weights, res)
+
+        # ---- 14. the tracing tool ------------------------------------------------
+        torch.cuda.empty_cache()
+        tools = tools_phase()
+
+        # ---- 15. the demos -----------------------------------------------------------
+        torch.cuda.empty_cache()
+        demos = demos_phase()
+
+        # ---- 16. --bf16, --remat, --debug_nans (the entry point on phase 7's tree)
+        torch.cuda.empty_cache()
+        flags = flags_phase(assets, body, weights, pcd, body_in, entry_root, tree, res)
     finally:
         shutil.rmtree(entry_root, ignore_errors=True)
-
-    # ---- 11. determinism -------------------------------------------------------
-    torch.cuda.empty_cache()
-    determinism = determinism_phase(recon, pcd, body_in, assets, body, weights)
-
-    # ---- 12. post-processing and body fitting -----------------------------------
-    torch.cuda.empty_cache()
-    post = postprocess_phase(recon, pcd, body_in, assets, body, res)
-
-    # ---- 13. the Trousers and Tshirt classes -------------------------------------
-    torch.cuda.empty_cache()
-    classes = classes_phase(recon, pcd, body_in, body, weights, res)
-
-    # ---- 14. the tracing tool ----------------------------------------------------
-    torch.cuda.empty_cache()
-    tools = tools_phase()
-
-    # ---- 15. the demos ---------------------------------------------------------------
-    torch.cuda.empty_cache()
-    demos = demos_phase()
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
 
-    # ---- 16. results -------------------------------------------------------
+    # ---- 17. results -------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -5547,6 +6008,7 @@ def main() -> int:
             launches_trousers=classes["Trousers"]["launches"].get(name, 0),
             launches_trousers_train_step=classes["Trousers"]["train"]["launches"].get(name, 0),
             launches_seg_demo=demos["seg_launches"].get(name, 0),
+            launches_bf16_canonical=flags["bf16_canonical_forward"]["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -5613,6 +6075,7 @@ def main() -> int:
         "classes": classes,
         "tools": tools,
         "demos": demos,
+        "flags": flags,
         "build_s": build_s,
         "total_s": total_s}))
     print(card)

@@ -7,7 +7,9 @@ garment encoder with a global summary, temporal max-pool, and a small head
 regressing PCA coefficients of the canonical garment mesh. With `only_seg`
 the forward stops after the segmentation. In training (`train()`) the
 BatchNorms use batch statistics and the head's dropout draws from the
-generator passed to `forward`.
+generator passed to `forward`. With `compute_dtype` (bf16 under `--bf16`)
+the backbone and the garment encoder compute their dense stacks in it, as
+the JAX package's; the PCA head, the geometry and every output are fp32.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from garment4d_tpu_torch.models.assets import GarmentAssets
 from garment4d_tpu_torch.models.backbone import BackboneOutput, PointNet2SegBackbone
 from garment4d_tpu_torch.nn import ConvBNRelu, SAModuleMSG
+from garment4d_tpu_torch.nn.pointnet import max_over
 
 
 def select_garment_points(xyz: torch.Tensor, features: torch.Tensor,
@@ -57,19 +60,21 @@ class CanonicalGarmentModel(nn.Module):
     Submodules are named by the Flax paths (`pointnet.sa1.mlp0.layer0.conv`,
     `garment_sa1`, `pca_head0`, ...)."""
 
-    def __init__(self, assets: GarmentAssets, only_seg: bool = False):
+    def __init__(self, assets: GarmentAssets, only_seg: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.garment_label = assets.label
         self.only_seg = only_seg
-        self.pointnet = PointNet2SegBackbone()
+        self.compute_dtype = d = compute_dtype
+        self.pointnet = PointNet2SegBackbone(compute_dtype=d)
         if not only_seg:  # unused there, so absent, as in the Flax model
             # garment encoder widths per reference `mesh_encoder.py:54-78`
             self.garment_sa1 = SAModuleMSG(512, (0.05, 0.1), (16, 32),
-                                           ((32, 32), (64, 64)), 64)
+                                           ((32, 32), (64, 64)), 64, d)
             self.garment_sa2 = SAModuleMSG(64, (0.2, 0.4), (32, 64),
-                                           ((128, 128), (256, 256)), 96)
+                                           ((128, 128), (256, 256)), 96, d)
             self.garment_summarize = SAModuleMSG(None, (None,), (None,),
-                                                 ((512, 512),), 384)
+                                                 ((512, 512),), 384, d)
             # the reference's raw Conv1d keeps its bias under the BatchNorm
             self.pca_head0 = ConvBNRelu(512, 128, bn=True, bias=True)
             self.pca_head1 = ConvBNRelu(128, 64, bn=True, bias=True)
@@ -110,7 +115,11 @@ class CanonicalGarmentModel(nn.Module):
         _, summary = self.garment_summarize(g_xyz[-1], g_feat[-1])
         summary = summary.reshape(B, T, 512)
 
-        pooled = summary.max(dim=1).values  # temporal max-pool (B, 512)
+        pooled = max_over(summary, 1, self.compute_dtype)  # temporal max-pool (B, 512)
+        if self.compute_dtype is not None:
+            # the PCA head and the outputs are fp32
+            summary, pooled = summary.float(), pooled.float()
+            g_feat = [f.float() for f in g_feat]
         coeff = self.pca_head2(self.pca_head1(self.pca_head0(pooled)))
         return CanonicalOutput(
             backbone=backbone,

@@ -32,6 +32,12 @@ names; the parameters are the same either way):
   (`ops.query_group_pe_multi`). Exact alone; under `spatial_sample` a
   widened coverage that overflows the table where the plain one would not
   samples that query in index order, not in Morton order.
+
+`compute_dtype` (bf16 under `--bf16`), off by default, goes to the frozen
+stage 1 only: the refinement stays fp32, as in the JAX model. The JAX
+model's `remat` has no counterpart here: its PE blocks' autograd Functions
+already save only their inputs (`ops/pemax.py`), and the entry point takes
+`--remat 1` as a no-op.
 """
 
 from __future__ import annotations
@@ -130,14 +136,15 @@ class PosedGarmentModel(FrozenCanonicalStage):
 
     def __init__(self, assets: GarmentAssets, body_faces: np.ndarray,
                  lbs_k: int = 256, iterations: int = ITERATIONS,
-                 spatial_sample: bool = False, candidate_reuse_margin: float = 0.0):
+                 spatial_sample: bool = False, candidate_reuse_margin: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.assets = assets
         self.lbs_k = lbs_k
         self.iterations = iterations
         self.spatial_sample = bool(spatial_sample)
         self.candidate_reuse_margin = float(candidate_reuse_margin)
-        self.canonical = CanonicalGarmentModel(assets)
+        self.canonical = CanonicalGarmentModel(assets, compute_dtype=compute_dtype)
         r = self.radii
         self.body_radius, self.body_nsample = r["body_radius"], r["body_nsample"]
         for i in range(3):

@@ -9,6 +9,11 @@ parameter paths (`layer0.conv`, `layer0.bn`, `linear0`), so a Flax
 checkpoint maps onto them by renaming (`train/convert.py`). `MLP` is a
 plain Linear/ReLU stack and `GraphConvolution` one pygcn layer, dense or
 banded.
+
+`BatchNorm`, `ConvBNRelu` and `SharedMLP` take a computation `dtype`
+(`torch.bfloat16` under `--bf16`; None is fp32), as Flax's `Dense` and
+`BatchNorm` take theirs: the parameters stay fp32 `nn.Parameter`s, so
+state_dicts and checkpoints are the same either way.
 """
 
 from __future__ import annotations
@@ -33,18 +38,41 @@ class BatchNorm(nn.BatchNorm1d):
     torch's, on the running statistics. The parameters and buffers are
     torch's, so state_dicts keep their names.
 
+    With a computation `dtype` (Flax's `BatchNorm(dtype=...)` with its
+    float32 reductions): the statistics are taken over the fp32 rows, the
+    running statistics update in fp32, and y is computed in fp32 by the
+    formula above, in eval mode too (on the running statistics), then cast
+    to `dtype`. In training the rows are cast to fp32 twice, for the
+    statistics and for the normalisation, as Flax's `_compute_stats` casts
+    and its `x - mean` promotes: the backward rounds each path's
+    cotangent to `dtype` and adds them there, as JAX's does.
+
     In a process group (`parallel.in_group`) the train-mode moments are
     the global batch's, from one differentiable all-reduce
     (`parallel.global_moments`), as the JAX package's BatchNorm takes them
     over a sharded batch: every rank then normalises alike and updates its
     running statistics alike."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__(features, eps=1e-5, momentum=0.1)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        dtype = self.compute_dtype
+        if dtype is None and not self.training:
             return super().forward(x)
+        if self.training:
+            mean, var = self._batch_moments(x if dtype is None else x.float())
+        else:
+            mean, var = self.running_mean, self.running_var
+        if dtype is not None:
+            x = x.float()
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y if dtype is None else y.to(dtype)
+
+    def _batch_moments(self, x: torch.Tensor):
+        """The batch's mean and biased variance; the running statistics
+        updated with them."""
         if in_group():
             mean, mean_sq = global_moments(x)
         else:
@@ -55,13 +83,14 @@ class BatchNorm(nn.BatchNorm1d):
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
             self.num_batches_tracked += 1
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return mean, var
 
 
 class Dropout(nn.Module):
     """Flax's `nn.Dropout` with its random bits from an explicit
     `torch.Generator` (no global RNG): in training each element is kept
-    where a uniform draw falls below 1 - p and scaled by 1 / (1 - p), else
+    where a uniform draw (fp32, or the input's dtype where wider) falls
+    below 1 - p and scaled by 1 / (1 - p) in the input's dtype, else
     zeroed; in eval, and at p = 0, the identity. In a process group the
     draws are the global batch's (`parallel.global_rows`), of which this
     rank keeps its rows: the masks are the single-process ones."""
@@ -77,29 +106,41 @@ class Dropout(nn.Module):
             raise ValueError("dropout in training draws from an explicit torch.Generator; "
                              "none was given")
         keep_prob = 1.0 - self.p
+        dtype = torch.promote_types(x.dtype, torch.float32)
         if in_group():
-            u = global_rows(x.shape, generator, x.dtype, x.device)
+            u = global_rows(x.shape, generator, dtype, x.device)
         else:
-            u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            u = torch.rand(x.shape, generator=generator, dtype=dtype, device=x.device)
         keep = u < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class ConvBNRelu(nn.Module):
     """Linear + optional BatchNorm + optional ReLU over the last axis; the
-    Linear has a bias only when BN is off unless `bias` says otherwise."""
+    Linear has a bias only when BN is off unless `bias` says otherwise.
+    With a computation `dtype` (Flax's `Dense(dtype=...)`) the input, the
+    weight and the bias are cast to it, the product comes out in it and the
+    bias is added in it; the BatchNorm computes as `BatchNorm` says."""
 
     def __init__(self, in_features: int, features: int, bn: bool = True,
-                 relu: bool = True, bias: Optional[bool] = None):
+                 relu: bool = True, bias: Optional[bool] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         use_bias = bias if bias is not None else not bn
         self.conv = nn.Linear(in_features, features, bias=use_bias)
         nn.init.kaiming_normal_(self.conv.weight)
-        self.bn = BatchNorm(features) if bn else None
+        self.bn = BatchNorm(features, dtype) if bn else None
         self.relu = relu
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        dtype = self.compute_dtype
+        if dtype is None:
+            x = self.conv(x)
+        else:
+            x = nn.functional.linear(x.to(dtype), self.conv.weight.to(dtype))
+            if self.conv.bias is not None:
+                x = x + self.conv.bias.to(dtype)
         if self.bn is not None:
             lead = x.shape[:-1]
             x = self.bn(x.reshape(-1, x.shape[-1])).reshape(*lead, -1)
@@ -122,14 +163,15 @@ class ConvBNRelu(nn.Module):
 
 class SharedMLP(nn.Module):
     """A stack of BatchNorm'd, ReLU'd ConvBNRelu blocks named layer0,
-    layer1, ..."""
+    layer1, ..., each computing in `dtype`."""
 
-    def __init__(self, in_features: int, widths: Sequence[int]):
+    def __init__(self, in_features: int, widths: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.widths = tuple(int(w) for w in widths)
         c = in_features
         for i, w in enumerate(self.widths):
-            self.add_module(f"layer{i}", ConvBNRelu(c, w))
+            self.add_module(f"layer{i}", ConvBNRelu(c, w, dtype=dtype))
             c = w
 
     def blocks(self):

@@ -383,7 +383,17 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     [0, N) and gives zero rows outside it). Differentiable in `points`: the
     backward is `scatter_add_rows` with `wrap` (the deterministic
     scatter-add kernel on the card), which sends a wrapped index's
-    cotangent to row idx + N and drops the others, as JAX's VJP."""
+    cotangent to row idx + N and drops the others, as JAX's VJP.
+
+    A half-precision table (bf16 features under `--bf16`; of the port's
+    paths only `three_interpolate` gathers one) goes through the kernel as
+    fp32 and its rows come back in the table's dtype, as the JAX package's
+    `take_along_axis` gives them (a gather is exact, so the values are the
+    table's). The backward thus rounds each row's cotangent to that dtype
+    before the fp32 scatter-add and casts the sum once, as the JAX
+    package's backward on the TPU does (on the CPU it sums in bf16)."""
+    if points.dtype in (torch.bfloat16, torch.float16):
+        return _GatherRows.apply(points.float(), idx).to(points.dtype)
     return _GatherRows.apply(points, idx)
 
 

@@ -18,6 +18,13 @@ global batch's, the gradients are averaged over the ranks before the
 update, and the train step's loss dict holds the global batch's values
 (`parallel.mean_over_ranks`). The eval step stays per rank;
 `train/loop.py` reduces its means.
+
+With a `tripwire` (`utils/debug_nans.NanTripwire`, `--debug_nans 1`) the
+steps raise FloatingPointError at the first NaN: in a module's output (its
+hooks), in the loss terms, in the backward or in a gradient; a NaN that
+an update writes into a parameter is named by the next forward's check of
+the model's state. The checks only read: a step computes the same bits
+with a tripwire as without one.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from garment4d_tpu_torch.ops.graph import bandwidth_permutation, cyclic_diagonal
 from garment4d_tpu_torch.parallel.data import broadcast_module, mean_over_ranks
 from garment4d_tpu_torch.parallel.launch import in_group
 from garment4d_tpu_torch.train.state import TrainState, make_optimizer
+from garment4d_tpu_torch.utils.debug_nans import NanTripwire
 
 
 def body_inputs_from_batch(batch: Dict[str, torch.Tensor]) -> BodyInputs:
@@ -47,6 +55,22 @@ def body_inputs_from_batch(batch: Dict[str, torch.Tensor]) -> BodyInputs:
     )
 
 
+def _backward_and_update(state: TrainState, losses: Dict[str, torch.Tensor],
+                         tripwire: Optional[NanTripwire]) -> None:
+    """The total loss's backward and one Adam step; with a tripwire the
+    loss terms and the gradients are checked."""
+    state.optimizer.zero_grad(set_to_none=True)
+    if tripwire is None:
+        losses["total_loss"].backward()
+        state.apply_gradients()
+        return
+    tripwire.check("loss", losses)
+    tripwire.backward(losses["total_loss"])
+    tripwire.check("the gradient of", {n: p.grad for n, p in state.model.named_parameters()
+                                       if p.requires_grad})
+    state.apply_gradients()
+
+
 def _step_losses(state: TrainState, losses: Dict[str, torch.Tensor]):
     """The train step's detached loss dict; the global batch's in a process
     group."""
@@ -56,12 +80,14 @@ def _step_losses(state: TrainState, losses: Dict[str, torch.Tensor]):
 
 def make_canonical_steps(model, assets, body_faces: np.ndarray,
                          weights: Optional[L.LossWeights] = None,
-                         only_seg: bool = False) -> Tuple[Callable, Callable]:
+                         only_seg: bool = False,
+                         tripwire: Optional[NanTripwire] = None) -> Tuple[Callable, Callable]:
     """-> (train_step(state, batch, generator), eval_step(state, batch)),
     each returning the loss dict (detached). `generator` is the
     `torch.Generator` on the batch's device that the dropout draws from
     (JAX's `dropout_rng`). The loss-side constants live on the device of
-    the model's buffers when this is called."""
+    the model's buffers when this is called. `tripwire`: the NaN checks
+    of `--debug_nans` (module docstring)."""
     weights = weights or L.LossWeights()
     device = model.pca_mean.device
     faces_tri = torch.as_tensor(np.asarray(assets.faces_tri), dtype=torch.long, device=device)
@@ -75,28 +101,31 @@ def make_canonical_steps(model, assets, body_faces: np.ndarray,
                    generator: torch.Generator):
         state.model.train()
         losses = loss_dict(state.model(batch["pcd"], generator), batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
-        state.apply_gradients()
+        _backward_and_update(state, losses, tripwire)
         return _step_losses(state, losses)
 
     @torch.inference_mode()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.eval()
-        return loss_dict(state.model(batch["pcd"]), batch, valid=batch.get("valid_mask"))
+        losses = loss_dict(state.model(batch["pcd"]), batch, valid=batch.get("valid_mask"))
+        if tripwire is not None:
+            tripwire.check("eval loss", losses)
+        return losses
 
     return train_step, eval_step
 
 
 def make_posed_steps(model, assets, body_faces: np.ndarray,
-                     weights: Optional[L.LossWeights] = None
+                     weights: Optional[L.LossWeights] = None,
+                     tripwire: Optional[NanTripwire] = None
                      ) -> Tuple[Callable, Callable]:
     """-> (train_step(state, batch, generator=None), eval_step(state,
     batch)), each returning the loss dict (detached). The train step takes
     the canonical stage's `generator` argument and ignores it (the posed
     stage draws no random numbers), so a loop calls both stages alike. The
     loss-side constants live on the device of the model's parameters when
-    this is called."""
+    this is called. `tripwire`: the NaN checks of `--debug_nans` (module
+    docstring)."""
     weights = weights or L.LossWeights()
     device = next(model.parameters()).device
     lap_adj = np.asarray(assets.lap_adj)
@@ -119,16 +148,17 @@ def make_posed_steps(model, assets, body_faces: np.ndarray,
         state.model.train()
         out = state.model(batch["pcd"], body_inputs_from_batch(batch))
         losses = loss_dict(out, batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
-        state.apply_gradients()
+        _backward_and_update(state, losses, tripwire)
         return _step_losses(state, losses)
 
     @torch.inference_mode()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.eval()
         out = state.model(batch["pcd"], body_inputs_from_batch(batch))
-        return loss_dict(out, batch, valid=batch.get("valid_mask"))
+        losses = loss_dict(out, batch, valid=batch.get("valid_mask"))
+        if tripwire is not None:
+            tripwire.check("eval loss", losses)
+        return losses
 
     return train_step, eval_step
 

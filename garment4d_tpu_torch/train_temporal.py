@@ -23,6 +23,14 @@ Counterpart of the repo's `train_temporal.py`, with its flags
                              sampling (models/posed.py)
   --candidate_reuse_margin M posed stage: reuse the body query's candidates
                              while the vertices move less than M
+  --bf16 1           the canonical stage's dense stacks (the canonical
+                     model, the posed model's frozen stage 1) compute in
+                     bf16; parameters, geometry and outputs stay fp32;
+                     the MGN variant ignores it, as in the JAX package
+  --remat 1          accepted and logged, a no-op: the port's PE blocks
+                     already save only their inputs for the backward
+  --debug_nans 1     stop at the first NaN with FloatingPointError naming
+                     the module or tensor (utils/debug_nans.py)
   --launcher pytorch|slurm  data-parallel training over a process group
                      (torchrun's environment, or Slurm's with --tcp_port);
                      --batch_size is the global batch; BatchNorm statistics
@@ -76,21 +84,7 @@ from garment4d_tpu_torch.train.step import (
     make_state_for,
 )
 from garment4d_tpu_torch.utils.config import parse_args
-
-# flags with no counterpart in the port: (set?, why)
-_UNPORTED = (
-    (lambda a: a.bf16, "--bf16 1: no counterpart in the port (fp32 throughout; ROADMAP)"),
-    (lambda a: a.remat, "--remat 1: no counterpart in the port (ROADMAP)"),
-    (lambda a: a.debug_nans, "--debug_nans 1: no counterpart in the port (ROADMAP)"),
-)
-
-
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for the first flag set that has no
-    counterpart in the port."""
-    for is_set, what in _UNPORTED:
-        if is_set(args):
-            raise NotImplementedError(what)
+from garment4d_tpu_torch.utils.debug_nans import NanTripwire
 
 
 def _body_models(args, device):
@@ -173,17 +167,25 @@ def _make_state(args, cfg, assets, body_model, device, logger):
     every rank reads the same files), and the checkpoint path
     `<output_dir>/ckpt/<ckpt_name>` (reference build(),
     `train_temporal.py:136-156`), which `_resume` reads."""
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+    if args.remat:
+        logger.info("--remat 1: a no-op on the port (its PE blocks save only their "
+                    "inputs for the backward)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the initial weights, as JAX's PRNGKey(0)
         if args.GarmentPCALBS and args.MGN:
+            if args.bf16:
+                logger.info("--bf16 1: the MGN variant takes no --bf16, as in the JAX package")
             model = MgnGarmentModel(assets, body_model.faces)
         elif args.GarmentPCALBS:
             model = PosedGarmentModel(assets, body_model.faces, lbs_k=cfg.NETWORK.LBSK,
                                       iterations=cfg.NETWORK.ITERATION,
                                       spatial_sample=bool(args.spatial_sample),
-                                      candidate_reuse_margin=args.candidate_reuse_margin)
+                                      candidate_reuse_margin=args.candidate_reuse_margin,
+                                      compute_dtype=compute_dtype)
         else:
-            model = CanonicalGarmentModel(assets, only_seg=bool(args.only_seg))
+            model = CanonicalGarmentModel(assets, only_seg=bool(args.only_seg),
+                                          compute_dtype=compute_dtype)
     model = model.to(device)
     if args.pretrained_model:
         report = ckpt_lib.load_pretrained(args.pretrained_model, model)
@@ -218,7 +220,6 @@ def main(argv=None, device=_device.DEFAULT):
     eval means with --only_eval. With --launcher it joins the process group
     first and ends it after."""
     args, cfg = parse_args(argv)
-    _refuse_unported(args)
     if not (args.GarmentPCA or args.GarmentPCALBS):
         raise SystemExit("select a stage: --GarmentPCA 1 or --GarmentPCALBS 1")
     if args.GarmentPCA_pretrain and not args.GarmentPCALBS:
@@ -269,7 +270,7 @@ def _run(args, cfg, dist_info):
         npoints = cfg.NETWORK.NPOINTS
     body_model = body_models["male"]
 
-    loaders = []
+    loaders, tripwire = [], None
     try:
         # ---------------- data ----------------
         if args.synthetic_data:
@@ -292,12 +293,17 @@ def _run(args, cfg, dist_info):
         state, ckpt_path = _make_state(args, cfg, assets, body_model, device, logger)
         state, start_epoch, best = _resume(args, state, ckpt_path, logger)
         model = state.model
+        if args.debug_nans:
+            tripwire = NanTripwire(model)
+            logger.info(f"--debug_nans 1: NaN tripwire on {tripwire.modules} modules")
         if args.GarmentPCALBS:
-            train_step, eval_step = make_posed_steps(model, assets, body_model.faces, cfg.LOSS)
+            train_step, eval_step = make_posed_steps(model, assets, body_model.faces, cfg.LOSS,
+                                                     tripwire=tripwire)
             eval_metric = "lbs_garment_msre"
         else:
             train_step, eval_step = make_canonical_steps(
-                model, assets, body_model.faces, cfg.LOSS, only_seg=bool(args.only_seg))
+                model, assets, body_model.faces, cfg.LOSS, only_seg=bool(args.only_seg),
+                tripwire=tripwire)
             eval_metric = "garment_msre" if not args.only_seg else "total_loss"
 
         if args.only_eval:
@@ -321,6 +327,8 @@ def _run(args, cfg, dist_info):
     finally:
         for loader in loaders:
             loader.close()
+        if tripwire is not None:
+            tripwire.close()
 
 
 @torch.inference_mode()

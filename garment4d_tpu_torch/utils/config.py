@@ -142,9 +142,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_data", type=int, default=0,
                    help="use the synthetic fixture dataset (no CLOTH3D needed)")
     p.add_argument("--bf16", type=int, default=0,
-                   help="bf16 computation for the encoder dense stacks (params/geometry stay f32)")
+                   help="bf16 computation for the encoder dense stacks (params/geometry stay "
+                        "f32): the canonical model, the posed model's frozen stage 1; the MGN "
+                        "variant takes no --bf16, as in the JAX package")
     p.add_argument("--remat", type=int, default=0,
-                   help="rematerialise posed-stage PE blocks in the backward (fits batch>=8 training in HBM)")
+                   help="accepted for the JAX package's recipes and logged; a no-op on the "
+                        "port, whose PE blocks already save only their inputs")
     p.add_argument("--spatial_sample", type=int, default=0,
                    help="Morton-ordered neighbourhood sampling for the posed-stage "
                         "refinement queries (faster; a different but equally "
@@ -158,8 +161,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "coverage that overflows samples in index order; "
                         "rebuilds on drift - pays off with trained weights)")
     p.add_argument("--debug_nans", type=int, default=0,
-                   help="stop at the first NaN (JAX's jax_debug_nans; no "
-                        "counterpart in the port)")
+                   help="stop at the first NaN, raising FloatingPointError that names the "
+                        "module or tensor (JAX's jax_debug_nans; utils/debug_nans.py)")
     return p
 
 

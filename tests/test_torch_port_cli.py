@@ -8,7 +8,8 @@ CPU (`device="cpu"`: the plain torch versions).
   bootstrapped by `--GarmentPCA_pretrain` from a canonical checkpoint that
   `save_checkpoint` wrote, an auto-resume from its checkpoint, then
   `--only_eval 1 --pretrained_model`;
-- every flag with no counterpart in the port raises before any step;
+- `--bf16` and `--debug_nans` reach the model and its steps, `--remat` is
+  logged as a no-op;
 - one canonical eval epoch over a disk-fixture batch against the JAX
   package's, at identical weights (a JAX init through `flax_to_torch`):
   every mean within 1e-4 relative.
@@ -17,6 +18,7 @@ NPOINTS 512 and a 300-vertex body, as in tests/test_cli.py.
 """
 
 import json
+import logging
 import os
 import pickle
 
@@ -169,14 +171,43 @@ def test_disk_fixture_chain(tmp_path, disk):
         assert means[k] == pytest.approx(v, rel=1e-6, abs=1e-9), k
 
 
-@pytest.mark.parametrize("flag", [["--bf16", "1"], ["--remat", "1"], ["--debug_nans", "1"]],
-                         ids=lambda f: f[0][2:])
-def test_unported_flag_raises(tmp_path, flag):
-    out = str(tmp_path / "out")
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        train_temporal.main(["--config", "cfgs/skirt.yaml", "--synthetic_data", "1",
-                             "--GarmentPCALBS", "1", "--output_dir", out] + flag, device="cpu")
-    assert not os.path.exists(out)  # refused before anything ran
+@pytest.mark.parametrize("flag,stage", [("--bf16", "--GarmentPCA"), ("--remat", "--GarmentPCALBS"),
+                                        ("--debug_nans", "--GarmentPCALBS")],
+                         ids=["bf16", "remat", "debug_nans"])
+def test_flag_reaches_the_model(tmp_path, monkeypatch, caplog, flag, stage):
+    """`--bf16 1`, `--remat 1` and `--debug_nans 1` through `main` on
+    synthetic data, one epoch: the model the steps get computes in bf16,
+    is the plain fp32 posed model (`--remat` logged as a no-op), or
+    carries the NaN tripwire's hooks (and the steps its checks); the
+    epoch's losses are finite."""
+    built = {}
+
+    def recorder(make):
+        def wrapped(model, *args, **kwargs):
+            wire = kwargs.get("tripwire")
+            built.update(model=model, watched=wire.modules if wire else None)
+            return make(model, *args, **kwargs)
+        return wrapped
+
+    for name in ("make_canonical_steps", "make_posed_steps"):
+        monkeypatch.setattr(train_temporal, name, recorder(getattr(train_temporal, name)))
+    with caplog.at_level(logging.INFO, logger="garment4d_tpu_torch"):
+        hist = train_temporal.main(
+            ["--config", "cfgs/skirt.yaml", "--synthetic_data", "1", stage, "1", flag, "1",
+             "--batch_size", "1", "--T", "2", "--npoints", "512", "--epoch_num", "1",
+             "--output_dir", str(tmp_path / "out")], device="cpu")
+    assert len(hist) == 1 and _finite(hist[0]["train"]) and _finite(hist[0]["eval"])
+    model = built["model"]
+    if flag == "--bf16":
+        assert model.compute_dtype == torch.bfloat16
+        assert model.pointnet.sa1.mlp0.layer0.bn.compute_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+    elif flag == "--remat":
+        assert type(model).__name__ == "PosedGarmentModel" and built["watched"] is None
+        assert model.canonical.compute_dtype is None
+        assert "--remat 1: a no-op" in caplog.text
+    else:
+        assert built["watched"] == len(list(model.modules()))
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -278,6 +278,46 @@ def test_gather_scatter_wrap(dev):
     assert torch.equal(dt.cpu(), pc._scatter_add_rows_plain(grads, wrapped, N))
 
 
+def test_gather_bf16_table(dev):
+    """A bf16 table (an FP stage's features under --bf16, fp2's shape: 3 x
+    1024 rows from 256 of 128 channels) through `gather_points`: the gather
+    kernel on its fp32 cast, the rows back in bf16, bitwise the plain
+    version's rows and the table's own values; the backward rounds each
+    row's cotangent to bf16 and the scatter-add kernel sums them in fp32
+    before one cast to bf16, bitwise the CPU's ascending-order sum, and
+    within one bf16 rounding of the card's plain path (its `index_add_`
+    sums in another order). The kernel itself still refuses a bf16
+    table."""
+    g = torch.Generator().manual_seed(7)
+    B, N, R, C = 4, 256, 3 * 1024, 128
+    table = torch.randn(B, N, C, generator=g).bfloat16()
+    idx = torch.randint(0, N, (B, R), generator=g, dtype=torch.int32)
+    cot = torch.randn(B, R, C, generator=g)
+
+    def run(device, plain):
+        t = table.to(device).clone().requires_grad_(True)
+        ops.reset_counts()
+        with ops.plain_ops() if plain else contextlib.nullcontext():
+            out = ops.gather_points(t, idx.to(device))
+            (dt,) = torch.autograd.grad((out * cot.to(device)).sum(), t)
+        torch.cuda.synchronize()
+        return out.detach(), dt, dict(ops.launch_counts)
+
+    out, dt, launches = run(dev, False)
+    assert launches["gather_rows"] == 1 and launches["scatter_add"] == 1
+    assert out.dtype == torch.bfloat16 and dt.dtype == torch.bfloat16
+    out_plain, dt_plain, launches_plain = run(dev, True)
+    assert not any(launches_plain.values())
+    assert torch.equal(out, out_plain)
+    rows = torch.gather(table, 1, idx.long()[..., None].expand(B, R, C))
+    assert torch.equal(out.cpu(), rows)
+    _, dt_cpu, _ = run("cpu", True)
+    assert torch.equal(dt.cpu(), dt_cpu)
+    torch.testing.assert_close(dt_plain.float(), dt.float(), rtol=2 ** -7, atol=1e-6)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pc._gather_rows_kernel(table.to(dev), idx.to(dev))
+
+
 def _chain_inputs(seed, B, N, M, S, C, widths, device="cuda"):
     g = torch.Generator().manual_seed(seed)
     table = torch.randn(B, N, C, generator=g).to(device)
