@@ -358,11 +358,27 @@ then:
    naming it; each flag through `train_temporal.main` on phase 7's tree
    for one epoch (`--bf16` canonical, `--remat` and `--debug_nans` posed):
    finite losses, the kernels launched;
-17. prints a JSON line of the kernels (each row read from the costliest
+17. the JAX package's own shapes: the FPS kernel at more centers than
+   points ((80, 512) -> 1024, (80, 128) -> 512, (80, 384) -> 512, (4, 5)
+   -> 12, an all-equal (2, 300) -> 1024, a frame of pairwise duplicates)
+   and past shared memory ((10, 20000) and (10, 65536) -> 1024, the wide
+   kernel), each raising the `fps` counter by one, bitwise its plain
+   version and timed beside its bound; `canonical` / `segment` on one
+   sequence (B=1, T=10) of 512, 1536 and 20000 points, counted, every
+   FPS, flat-query and 3-NN case bitwise and timed, every gather bitwise,
+   every chain within rtol 1e-4 / atol 1e-5, the labels bitwise the
+   card's plain path's (a near tie, within twice the paths' largest logit
+   difference, is counted and printed), the outputs fed the kernel path's
+   labels within 1e-5 of each tensor's scale; the posed forward at 512
+   points, each refinement iteration teacher-forced on the card's plain
+   path within 1e-5; the entry point `--synthetic_data 1 --npoints 512`,
+   two epochs of the canonical stage, then of the posed stage from its
+   checkpoint: counted, FPS launched past N, losses finite and moved;
+18. prints a JSON line of the kernels (each row read from the costliest
    case, by plain ms, of the kernel's own main path: FPS from sa1 of the
-   80-frame forward, not from the train steps' cases; the scatter-add from
-   the canonical train step, not from the op-level dtable check), then the
-   card line,
+   80-frame forward, not from the train steps' or phase 17's cases; the
+   scatter-add from the canonical train step, not from the op-level dtable
+   check), then the card line,
    then as the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero without the last line; so
@@ -389,7 +405,8 @@ per step, the PE backward's and the scatter-add's), the PE backward at
 each of its six shapes and its dtable half, and the scatter-add at each of
 its 12 shapes beside one `index_add_`, on inputs recorded from the steps;
 each coverage launch of the posed forward and each distinct FPS, flat
-ball-query and 3-NN case of the posed forward and both train steps (3-NN
+ball-query and 3-NN case of the posed forward and both train steps (FPS
+also at phase 17's frames past shared memory; 3-NN
 beside `torch.cdist` and a top-3), their sums over the posed forward;
 each distinct 1-NN case of the posed train step and the canonical train
 and eval steps beside `cdist_min`, their sum over the
@@ -458,6 +475,7 @@ KERNELS = {
     "pe_bwd_dtable": ("pe_bwd.cu", "fusedpe.py:559", None),
     "group_pe_max_nv": ("fused_chain.cu", "fusedpe.py:289", None),
 }
+CANONICAL_KERNELS = [k for k, v in KERNELS.items() if v[2] == "canonical"]
 FORWARD_KERNELS = [k for k, v in KERNELS.items() if v[2] in ("canonical", "posed")]
 POSED_TRAIN_KERNELS = FORWARD_KERNELS + [k for k, v in KERNELS.items() if v[2] == "train"]
 # the canonical train step: the recipe's shape (scripts/train/train_skirt_canonical.sh)
@@ -851,7 +869,8 @@ def coverage_launches(calls):
 
 def fps_work(xyz, npoint, idx) -> tuple:
     """(distance updates, box tests) that the FPS kernel needs on this data,
-    given its output `idx` (B, npoint): every point each step, but in the
+    given its output `idx` (B, npoint), npoint above N included: every
+    point each step (the register, staged and wide instances), but in the
     kernel that skips far warps (`_fps_plan`'s `far`), where each warp's run
     of 32 x ppt points along the frame's curve (`curve_order`) takes a box
     test a step after the first and is updated only where the bound from
@@ -4790,6 +4809,13 @@ def forced_labels(labels):
         canonical.select_garment_points = select
 
 
+def canonical_outputs(o) -> dict:
+    """The canonical forward's outputs that phases 16 and 17 compare."""
+    return {"sem_logits": o.backbone.sem_logits, "features0": o.backbone.features[0],
+            "garment_summary": o.garment_summary, "pca_coeff": o.pca_coeff,
+            "tpose_garment": o.tpose_garment}
+
+
 def canonical_of(assets, state_dict, dtype, dev):
     from garment4d_tpu_torch.models import CanonicalGarmentModel
 
@@ -4849,12 +4875,7 @@ def bf16_canonical_forward(assets, pcd, state_dict, res: Results) -> dict:
     with forced_labels(out32.backbone.sem_logits.argmax(-1)):
         out16_forced = model16(pcd)
 
-    def outputs(o):
-        return {"sem_logits": o.backbone.sem_logits, "features0": o.backbone.features[0],
-                "garment_summary": o.garment_summary, "pca_coeff": o.pca_coeff,
-                "tpose_garment": o.tpose_garment}
-
-    got, plain = outputs(out16), outputs(out_plain)
+    got, plain = canonical_outputs(out16), canonical_outputs(out_plain)
     ulps = {k: bf16_ulps_apart(got[k], plain[k]) for k in got}
     bitwise = {k: torch.equal(got[k], plain[k]) for k in got}
     labels_plain = float((out_plain.backbone.sem_logits.argmax(-1) == labels).float().mean())
@@ -5179,6 +5200,269 @@ def flags_phase(assets, body, weights, pcd, body_in, root: Path, tree: dict,
     out["entry_point"] = flags_entry_point(root, tree)
     out["phase_s"] = time.perf_counter() - t0
     print(f"flags phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---- phase 17: the JAX package's shapes ------------------------------------------
+
+# FPS cases (kind, frames, points, centers): more centers than points (SA1 at
+# npoints 512; the garment encoder's 512 from the 128 and 384 points its
+# selection keeps at npoints 512 and 1536), few points, every point equal,
+# each point twice (the copies at i + N // 2), and frames past shared memory
+# (the wide kernel)
+JAX_FPS_CASES = (("random", 80, 512, 1024), ("random", 80, 128, 512), ("random", 80, 384, 512),
+                 ("random", 4, 5, 12), ("all_equal", 2, 300, 1024), ("pairs", 80, 512, 1024),
+                 ("random", 10, 20000, 1024), ("random", 10, 65536, 1024))
+# points a frame of the canonical calls (B=1, T=10): SA1 and the garment
+# encoder past N, only the garment encoder past N, past shared memory; the
+# posed forward at the first
+JAX_POINTS = (512, 1536, 20000)
+# the entry point as the JAX package's synthetic run takes it
+# (train_temporal.py's `--synthetic_data 1 --npoints 512`), two epochs of two
+# steps a stage
+JAX_ENTRY = ["--config", "cfgs/skirt.yaml", "--synthetic_data", "1", "--npoints", "512",
+             "--batch_size", "2", "--T", "4", "--epoch_num", "2", "--lr", str(TRAIN_LR)]
+# its posed stage's kernels: the synthetic 400-vertex body is under the
+# 1024 rows from which the body query compacts its table, so the flat query
+# serves it (as in the JAX package) and coverage and the grouped query stay idle
+JAX_ENTRY_POSED_KERNELS = [k for k in POSED_TRAIN_KERNELS
+                           if k not in ("coverage", "ball_query_grouped")]
+
+
+def fps_instance(plan: dict) -> str:
+    """The FPS kernel instance that `_fps_plan`'s plan launches."""
+    if plan["wide"]:
+        return "wide, distances in device memory"
+    if plan["far"]:
+        return "far-skipping, 8 a thread"
+    return f"{'staged' if plan['staged'] else 'registers'}, {plan['ppt']} a thread"
+
+
+@torch.inference_mode()
+def jax_fps_cases(res: Results) -> list:
+    """Each of JAX_FPS_CASES on a seeded cloud on the card: one call of
+    `furthest_point_sample`, which must raise the `fps` counter by one (no
+    shape goes to the plain version), bitwise `_fps_plain` on the same
+    input, then timed (`kernel_ms`) beside its bound (`fps_ops`: every
+    point each step) and the plain version. -> the rows."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for kind, Bf, Nf, npoint in JAX_FPS_CASES:
+        xyz = torch.rand(Bf, Nf, 3, generator=gen, device="cuda")
+        if kind == "all_equal":
+            xyz.fill_(0.5)
+        elif kind == "pairs":
+            xyz[:, Nf // 2:] = xyz[:, :Nf // 2]
+        case = f"{kind} ({Bf}, {Nf}) -> {npoint}"
+        before = ops.launch_counts["fps"]
+        got = ops.furthest_point_sample(xyz, npoint)
+        launched = ops.launch_counts["fps"] - before
+        require(launched == 1, f"fps {case}: {launched} kernel launches, 1 expected")
+        require(torch.equal(got, pc._fps_plain(xyz, npoint)), f"fps {case}: differs from plain")
+        instance = fps_instance(pc._fps_plan(Bf, Nf, npoint))
+        res.record("fps", f"jax shapes {case}", 0, lambda: pc._fps_kernel(xyz, npoint),
+                   lambda: pc._fps_plain(xyz, npoint), nbytes(xyz, got),
+                   fps_ops(xyz, npoint, got), reps_k=10, reps_p=1, queued=True,
+                   path="jax_shapes", launches=launched, instance=instance)
+        rows.append(res.cases["fps"][-1])
+        print(f"fps jax shapes {case} ({instance}): "
+              f"{1e3 * rows[-1]['ms'] / max(npoint - 1, 1):.3f} us a step", flush=True)
+    return rows
+
+
+def check_chains(label: str, ccalls) -> int:
+    """Each recorded chain launch (`recording(pemax, "_chain_kernel")`)
+    within CHAIN_TOL of its plain version on its inputs; -> the count."""
+    for i, (args, kwargs, out) in enumerate(ccalls):
+        table, idx, centers, ws, bs, relus = args[:6]
+        want = chain_plain(table, idx, centers, ws, bs, relus, kwargs.get("n_valid"))
+        require(torch.allclose(out, want, **CHAIN_TOL),
+                f"chain {label} launch {i} {args[6]} {tuple(idx.shape)}: max abs err "
+                f"{max_abs(out, want)} beyond {CHAIN_TOL}")
+    return len(ccalls)
+
+
+def scaled_err(got, want) -> float:
+    """The largest difference of two tensors over the larger of 1 and the
+    reference's largest magnitude."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def label_flips(label: str, logits, plain_logits) -> int:
+    """The kernel path's labels against the card's plain path's: bitwise,
+    but for points whose plain top-two logits lie within twice the paths'
+    largest logit difference of each other (a near tie that fp32 order may
+    flip), which are counted and printed; -> their count."""
+    differ = logits.argmax(-1) != plain_logits.argmax(-1)
+    if not bool(differ.any()):
+        return 0
+    top2 = plain_logits.topk(2, -1).values
+    gap = (top2[..., 0] - top2[..., 1])[differ]
+    slack = 2 * max_abs(logits, plain_logits)
+    n = int(differ.sum())
+    print(f"{label}: {n} labels differ from the plain path, top-two gaps "
+          f"{gap.tolist()[:10]} (slack {slack:.3e})", flush=True)
+    require(bool((gap <= slack).all()), f"{label}: {n} labels differ from the plain path, "
+            f"not all at near ties (gaps {gap.tolist()[:10]}, slack {slack})")
+    return n
+
+
+@torch.inference_mode()
+def jax_canonical(recon, assets, body, N: int, res: Results) -> dict:
+    """`canonical` and `segment` on one sequence of T frames of N points
+    (`make_batch`, seed N), counted (CANONICAL_KERNELS launched; every
+    FPS launch counted, none sent to the plain version): each FPS, flat
+    query and 3-NN case bitwise its plain version and timed, each row
+    gather bitwise as it runs (`gather_keep`), each chain launch within
+    CHAIN_TOL; the labels against the card's plain path (`label_flips`),
+    and its outputs, fed the kernel path's labels, within FORCED_TOL of
+    each tensor's scale (`scaled_err`; beside it each tensor's absolute
+    error and scale, its largest magnitude, are printed and returned)."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.ops import pemax, pointcloud as pc
+
+    label = f"jax shapes canonical N={N}"
+    pcd = make_batch(assets, body, batch_size=1, T=T, npoints=N, seed=N, device="cuda")["pcd"]
+    with recording(pc, "_fps_kernel") as fcalls, recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_three_nn_kernel") as tcalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gcalls, \
+            recording(pemax, "_chain_kernel") as ccalls:
+        out, launches = counted(label, lambda: recon.run(pcd), CANONICAL_KERNELS)
+    fps_shapes = [(a[0].shape[1], a[1]) for a, _, _ in fcalls]
+    require(launches["fps"] == len(fcalls), f"{label}: FPS launches {launches['fps']} against "
+            f"{len(fcalls)} calls of the kernel wrapper")
+    past_n = [s for s in fps_shapes if s[1] > s[0]]
+    require(bool(past_n) == (N < 2048), f"{label}: FPS calls past N {past_n}")
+    check_fps(label, fcalls, res, path="jax_shapes")
+    check_flat(label, bcalls, res, path="jax_shapes")
+    check_three_nn(label, tcalls, res, path="jax_shapes")
+    chains = check_chains(label, ccalls)
+    gathers = len(gcalls)
+    del fcalls[:], bcalls[:], tcalls[:], gcalls[:], ccalls[:]
+
+    labels = out.backbone.sem_logits.argmax(-1)
+    require(torch.equal(recon.segment(pcd), labels.reshape(1, T, N)),
+            f"{label}: segment differs from the forward's labels")
+    require(torch.equal(recon.canonical(pcd), out.tpose_garment),
+            f"{label}: canonical differs from the forward's T-pose garment")
+    with ops.plain_ops(), forced_labels(labels):
+        plain = recon.run(pcd)
+    flips = label_flips(label, out.backbone.sem_logits, plain.backbone.sem_logits)
+    got, want = canonical_outputs(out), canonical_outputs(plain)
+    errs = {k: scaled_err(got[k], want[k]) for k in got}
+    abs_errs = {k: max_abs(got[k], want[k]) for k in got}
+    scales = {k: float(want[k].abs().max()) for k in got}
+    garment = float((labels == assets.label).float().mean())
+    print(f"{label}: FPS {fps_shapes}, {chains} chain and {gathers} gather launches held; "
+          f"garment label share {garment:.4f}; against the card's plain path on the same "
+          f"labels (error over max(1, scale)): {errs}; absolute: {abs_errs}; scale: {scales}",
+          flush=True)
+    for k, e in errs.items():
+        require(e <= FORCED_TOL, f"{label} {k}: {e} beyond {FORCED_TOL} of its scale")
+        require(bool(torch.isfinite(got[k]).all()), f"{label} {k}: not finite")
+    return dict(launches=launches, fps=fps_shapes, label_flips=flips, scaled_err=errs,
+                abs_err=abs_errs, scale=scales, garment_share=garment, chain_launches=chains,
+                gather_launches=gathers)
+
+
+@torch.inference_mode()
+def jax_posed(recon, assets, body, res: Results) -> dict:
+    """The posed forward on one sequence of T frames of JAX_POINTS[0]
+    points: counted (FORWARD_KERNELS launched), its flat queries bitwise
+    their plain versions and timed, its row gathers bitwise as they run;
+    each refinement iteration run again by the card's plain path on the
+    kernel path's own inputs, offsets and hidden features within
+    FORCED_TOL (phase 4's teacher-forced gate)."""
+    from garment4d_tpu_torch import ops
+    from garment4d_tpu_torch.data.synthetic import make_batch
+    from garment4d_tpu_torch.ops import pointcloud as pc
+    from garment4d_tpu_torch.train.step import body_inputs_from_batch
+
+    N0 = JAX_POINTS[0]
+    label = f"jax shapes posed N={N0}"
+    batch = make_batch(assets, body, batch_size=1, T=T, npoints=N0, seed=N0, device="cuda")
+    body_in = body_inputs_from_batch(batch)
+    with recording(recon.model, "refine") as steps, \
+            recording(pc, "_ball_query_kernel") as bcalls, \
+            recording(pc, "_gather_rows_kernel", keep=gather_keep) as gcalls:
+        out, launches = counted(label, lambda: recon.posed(batch["pcd"], body_in,
+                                                           return_all=True), FORWARD_KERNELS)
+    check_flat(label, bcalls, res, path="jax_shapes")
+    gathers = len(gcalls)
+    del bcalls[:], gcalls[:]
+    forced = []
+    for args, _, (h, hid) in steps:
+        with ops.plain_ops():
+            h_p, hid_p = recon.model.refine(*args[:9])
+        forced.append(dict(iteration=args[0], max_abs=max_abs(h, h_p),
+                           hidden_max_abs=max_abs(hid, hid_p)))
+        print(f"{label} teacher-forced iteration {args[0]} on the card's plain path: "
+              f"offsets max abs diff {forced[-1]['max_abs']:.3e}, hidden "
+              f"{forced[-1]['hidden_max_abs']:.3e}", flush=True)
+        for key in ("max_abs", "hidden_max_abs"):
+            require(forced[-1][key] <= FORCED_TOL,
+                    f"{label} iteration {args[0]}: {key} {forced[-1][key]} > {FORCED_TOL}")
+    require(len(forced) == 3, f"{label}: {len(forced)} refinement iterations")
+    require(all(bool(torch.isfinite(v).all()) for v in out.iter_garment_v),
+            f"{label}: non-finite posed garment")
+    return dict(launches=launches, forced=forced, gather_launches=gathers)
+
+
+def jax_entry_point(root: Path) -> dict:
+    """`train_temporal.main` with JAX_ENTRY, the canonical stage, then the
+    posed stage from its checkpoint, on the card: counted (the kernels of
+    phases 6 and 5's steps launched, JAX_ENTRY_POSED_KERNELS of the posed
+    stage's), FPS launched past N (SA1's 1024 centers
+    of 512 points; none sent to the plain version), losses finite in every
+    epoch and moved between the two."""
+    from garment4d_tpu_torch import train_temporal
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    runs = {"canonical": (["--GarmentPCA", "1"], CANON_TRAIN_KERNELS),
+            "posed": (["--GarmentPCALBS", "1", "--GarmentPCA_pretrain",
+                       str(root / "canonical" / "ckpt" / "model.ckpt")],
+                      JAX_ENTRY_POSED_KERNELS)}
+    out = {}
+    for stage, (argv, names) in runs.items():
+        label = f"jax shapes entry point --npoints 512 {stage}"
+        t0 = time.perf_counter()
+        with recording(pc, "_fps_kernel", keep=lambda a, _kw, _r: (a[0].shape[1], a[1])) as fc:
+            hist, launches = counted(label, lambda: train_temporal.main(
+                JAX_ENTRY + argv + ["--output_dir", str(root / stage)]), names)
+        past_n = sum(npoint > n for n, npoint in fc)
+        require(past_n > 0 and launches["fps"] == len(fc),
+                f"{label}: {past_n} FPS launches past N of {launches['fps']} ({len(fc)} calls)")
+        for epoch in hist:
+            for split in ("train", "eval"):
+                require(all(math.isfinite(v) for v in epoch[split].values()),
+                        f"{label}: non-finite {split} losses {epoch[split]}")
+        train = [epoch["train"] for epoch in hist]
+        require(len(train) == 2 and train[1] != train[0], f"{label}: losses {train}")
+        out[stage] = dict(seconds=time.perf_counter() - t0, train=train, launches=launches,
+                          fps_past_n=past_n)
+        print(f"{label}: {out[stage]['seconds']:.2f} s, train losses {train}", flush=True)
+    return out
+
+
+def jax_shapes_phase(recon, assets, body, root: Path, res: Results) -> dict:
+    """Phase 17: the FPS kernel at JAX_FPS_CASES, `canonical` / `segment`
+    at JAX_POINTS, the posed forward at JAX_POINTS[0] and the entry point
+    at `--npoints 512` (`jax_fps_cases`, `jax_canonical`, `jax_posed`,
+    `jax_entry_point`)."""
+    t0 = time.perf_counter()
+    out = dict(fps=jax_fps_cases(res))
+    for N in JAX_POINTS:
+        torch.cuda.empty_cache()
+        out[f"canonical_{N}"] = jax_canonical(recon, assets, body, N, res)
+    out["posed"] = jax_posed(recon, assets, body, res)
+    torch.cuda.empty_cache()
+    out["entry_point"] = jax_entry_point(root / "jax_shapes")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"jax shapes phase: {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -5511,7 +5795,8 @@ def time_kernels(root: Path) -> int:
     in the canonical step beside one `index_add_`, on inputs recorded from
     the steps (CUDA events); each coverage launch of the posed forward
     (CUDA events) and each distinct FPS case of the posed forward and both
-    train steps (`time_fps`), and the canonical train step's FPS device ms;
+    train steps and phase 17's frames past shared memory (`time_fps`), and
+    the canonical train step's FPS device ms;
     each distinct 1-NN case of the posed train step and the canonical train
     and eval steps (`time_nn1`). One JSON line."""
     root = root.resolve()
@@ -5520,7 +5805,7 @@ def time_kernels(root: Path) -> int:
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
     from garment4d_tpu_torch.models import CanonicalGarmentModel, GarmentAssets, skinning
-    from garment4d_tpu_torch.ops import pemax, pointcloud as pc
+    from garment4d_tpu_torch.ops import _build, pemax, pointcloud as pc
     from garment4d_tpu_torch.smpl import synthetic_smpl
     from garment4d_tpu_torch.train import (load_npz_subtree, make_canonical_steps,
                                            make_posed_steps, make_state_for)
@@ -5570,6 +5855,15 @@ def time_kernels(root: Path) -> int:
     out.update(case_sums(out["three_nn"], "posed forward", "three_nn"))
     out["knn"] = [time_knn("posed forward", kcalls[0][0])]
     out["fps"] = time_fps("posed forward", fcalls, own)
+    # phase 17's frames past shared memory (the wide instance), on seeded clouds
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    wide = []
+    for _, Bf, Nf, npoint in JAX_FPS_CASES:
+        if 16 * Nf > _build.SMEM_LIMIT:
+            xyz = torch.rand(Bf, Nf, 3, generator=gen, device="cuda")
+            wide.append(((xyz, npoint), {}, pc._fps_kernel(xyz, npoint)))
+    out["fps"] += time_fps("jax shapes", wide, own)
+    del wide
     out["coverage"] = time_coverage(ccalls, own)
     out["coverage_ms_sum"] = sum(c["ms"] for c in out["coverage"])
     if own:
@@ -5818,8 +6112,7 @@ def main() -> int:
     bound_sums.update(check_chain_gcn(recon, pcd, body_in, res))
 
     # ---- 3. canonical path -------------------------------------------------
-    canonical_names = [k for k, v in KERNELS.items() if v[2] == "canonical"]
-    out_c, canon_launches = counted("canonical", lambda: recon.run(pcd), canonical_names)
+    out_c, canon_launches = counted("canonical", lambda: recon.run(pcd), CANONICAL_KERNELS)
     require(tuple(out_c.tpose_garment.shape) == (B, VG, 3), "tpose shape")
     require(bool(torch.isfinite(out_c.tpose_garment).all()), "non-finite tpose_garment")
     canon_s = wall_s(lambda: recon.canonical(pcd), runs=3)
@@ -5980,12 +6273,16 @@ def main() -> int:
         # ---- 16. --bf16, --remat, --debug_nans (the entry point on phase 7's tree)
         torch.cuda.empty_cache()
         flags = flags_phase(assets, body, weights, pcd, body_in, entry_root, tree, res)
+
+        # ---- 17. the JAX package's shapes ------------------------------------------
+        torch.cuda.empty_cache()
+        jax_shapes = jax_shapes_phase(recon, assets, body, entry_root, res)
     finally:
         shutil.rmtree(entry_root, ignore_errors=True)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: all phases in {total_s:.1f} s (build {build_s:.1f} s)", flush=True)
 
-    # ---- 17. results -------------------------------------------------------
+    # ---- 18. results -------------------------------------------------------
     path_launches = {"canonical": launches, "posed": launches, "train": train["launches"],
                      "canonical_train": canon_train["launches"], None: {}}
     kernels = []
@@ -6009,6 +6306,8 @@ def main() -> int:
             launches_trousers_train_step=classes["Trousers"]["train"]["launches"].get(name, 0),
             launches_seg_demo=demos["seg_launches"].get(name, 0),
             launches_bf16_canonical=flags["bf16_canonical_forward"]["launches"].get(name, 0),
+            launches_jax_shapes_canonical_512=jax_shapes["canonical_512"]["launches"].get(name, 0),
+            launches_jax_shapes_posed_512=jax_shapes["posed"]["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -6076,6 +6375,7 @@ def main() -> int:
         "tools": tools,
         "demos": demos,
         "flags": flags,
+        "jax_shapes": jax_shapes,
         "build_s": build_s,
         "total_s": total_s}))
     print(card)

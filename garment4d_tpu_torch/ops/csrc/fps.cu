@@ -26,13 +26,21 @@
 // - the frame is staged in shared memory as three planes (12 x N bytes), so
 //   the winner's coordinates are three broadcast loads.
 // Padding slots (indices >= N) hold point 0's coordinates: their running
-// distance is point 0's, 0 after the first step, so they never win.
+// distance is point 0's, 0 after the first step, so they never win (where
+// every distance is 0, point 0's lower index takes the tie).
 //
 // Sets of 8 points a thread (4096 < N <= 8192: sa1's 6890) take
 // fps_far_kernel below, whose warps skip the steps whose new point is far
 // from all of their points. Sets past 32 warps x 8 points take fps_kernel
 // with 16 points a thread read from the planes every step (registers would
-// spill); no model path runs it.
+// spill), up to 16 N bytes of shared memory (N = 14528). Larger sets (a
+// denser scan, N = 20000 and up) take fps_wide_kernel: the coordinates are
+// read through L1/L2 every step (20000 points are 240 KB, resident in the
+// 50 MB L2) and the running distances kept in device memory.
+//
+// npoint may exceed N: the loop runs on with the same rule. Once every
+// running distance is 0 (every point taken) each step's argmax is index 0,
+// as in the plain version and the JAX package.
 #include <climits>
 
 #include "common.cuh"
@@ -270,7 +278,8 @@ fps_far_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict
     }
     if (!skip) {
       best = 0u;
-      bi = 0u;  // point 0: its running distance is 0 from the first step
+      bi = 0u;  // point 0: its running distance is 0 from the first step, so a
+                // lane whose distances are all 0 reports the block's tie winner
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const float m = g4d::min_nan(mind[k], g4d_sqdist(x[k] - lx, y[k] - ly, z[k] - lz));
@@ -292,45 +301,104 @@ fps_far_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict
   }
 }
 
+// Sets past the staged size, one block per frame: thread t owns points t,
+// t+T, ... (N >= T, so each owns point t), their coordinates read from
+// device memory every step through the read-only path (L1, then L2, where a
+// frame of 20000 points stays resident) and their running distances kept in
+// the frame's row of `scratch` (B, N) in device memory. Only the owner
+// reads or writes an entry, so no barrier guards them, and it writes one
+// back only where it dropped. What bounds it: each step streams the
+// frame through one SM (16-20 bytes a point from L1/L2) before the same
+// block-wide argmax as fps_kernel; one frame a block leaves most SMs idle
+// at a few frames (splitting a frame over a cluster is not done here).
+__global__ void __launch_bounds__(1024)
+fps_wide_kernel(const float* __restrict__ xyz, int N, int npoint, float* __restrict__ scratch,
+                int* __restrict__ out) {
+  __shared__ uint2 slots[2][32];  // per step parity and warp: (bits, index)
+
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int n_warps = T >> 5;
+  const float* p = xyz + (size_t)blockIdx.x * N * 3;
+  float* __restrict__ mind = scratch + (size_t)blockIdx.x * N;
+  int* o = out + (size_t)blockIdx.x * npoint;
+  for (int i = tid; i < N; i += T) mind[i] = 1e10f;
+  if (tid == 0) o[0] = 0;
+
+  float lx = __ldg(p), ly = __ldg(p + 1), lz = __ldg(p + 2);
+  for (int j = 1; j < npoint; ++j) {
+    // seeded with the thread's first point at bits 0: a thread whose
+    // running distances are all 0 reports its lowest index
+    unsigned best = 0u, bi = (unsigned)tid;
+#pragma unroll 8
+    for (int i = tid; i < N; i += T) {
+      const float old = mind[i];
+      const float m = g4d::min_nan(
+          old, g4d_sqdist(__ldg(p + 3 * i) - lx, __ldg(p + 3 * i + 1) - ly,
+                          __ldg(p + 3 * i + 2) - lz));
+      const unsigned u = __float_as_uint(m);
+      if (u != __float_as_uint(old)) mind[i] = m;
+      if (u > best) {  // strict: ascending indices keep ties on the lowest
+        best = u;
+        bi = (unsigned)i;
+      }
+    }
+    const unsigned win = block_best(warp_best(best, bi), slots[j & 1], n_warps);
+    if (tid == 0) o[j] = (int)win;
+    lx = __ldg(p + 3 * win);
+    ly = __ldg(p + 3 * win + 1);
+    lz = __ldg(p + 3 * win + 2);
+  }
+}
+
 constexpr int kStagedPPT = 16;
 
-template <typename K>
-int launch(K kernel, const float* xyz, int B, int N, int npoint, int threads, int smem, int* out,
-           cudaStream_t stream) {
+template <typename K, typename... Args>
+int launch(K kernel, int B, int threads, int smem, cudaStream_t stream, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, threads, smem, stream>>>(xyz, N, npoint, out);
+  kernel<<<B, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// xyz (B, N, 3) f32 -> out (B, npoint) i32, one block of `threads` threads
-// (a multiple of 32, at most 1024, threads x ppt >= N) per frame, `smem`
-// dynamic bytes (the planes; with `far` the sorted frame and the sort's
-// counts); ppt 1, 2, 4 or 8 (points in registers; 8 with `far`:
-// fps_far_kernel) or 16 (read from the planes), from pointcloud._fps_plan.
-// Returns a cudaError_t code.
+// xyz (B, N, 3) f32 -> out (B, npoint) i32 (npoint >= 1, any N >= 1), one
+// block of `threads` threads (a multiple of 32, at most 1024, threads x ppt
+// >= N) per frame, `smem` dynamic bytes (the planes; with `far` the sorted
+// frame and the sort's counts; 0 with `wide`); ppt 1, 2, 4 or 8 (points in
+// registers; 8 with `far`: fps_far_kernel), 16 (read from the planes) or,
+// with `wide` (fps_wide_kernel, N >= threads), the points a thread strides
+// over; `scratch` (B, N) f32 with `wide`, else null; from
+// pointcloud._fps_plan. Returns a cudaError_t code.
 extern "C" int g4d_fps(const float* xyz, int B, int N, int npoint, int threads, int ppt,
-                       int far, int smem, int* out, cudaStream_t stream) {
+                       int far, int wide, int smem, float* scratch, int* out,
+                       cudaStream_t stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || (long long)threads * ppt < N ||
+      N < 1 || npoint < 1)
+    return (int)cudaErrorInvalidValue;
+  if (wide) {
+    if (far || N < threads || scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch(fps_wide_kernel, B, threads, smem, stream, xyz, N, npoint, scratch, out);
+  }
   const long long need = far ? (16LL * N > 4 * g4d::kCodes ? 16LL * N : 4 * g4d::kCodes)
                              : 12LL * N;
-  if (threads < 32 || threads > 1024 || threads % 32 != 0 || (long long)threads * ppt < N ||
-      smem < need)
-    return (int)cudaErrorInvalidValue;
+  if (smem < need) return (int)cudaErrorInvalidValue;
   if (far) {
-    if (ppt == 8) return launch(fps_far_kernel<8>, xyz, B, N, npoint, threads, smem, out, stream);
+    if (ppt == 8)
+      return launch(fps_far_kernel<8>, B, threads, smem, stream, xyz, N, npoint, out);
     return (int)cudaErrorInvalidValue;
   }
   switch (ppt) {
-    case 1: return launch(fps_kernel<1, true>, xyz, B, N, npoint, threads, smem, out, stream);
-    case 2: return launch(fps_kernel<2, true>, xyz, B, N, npoint, threads, smem, out, stream);
-    case 4: return launch(fps_kernel<4, true>, xyz, B, N, npoint, threads, smem, out, stream);
-    case 8: return launch(fps_kernel<8, true>, xyz, B, N, npoint, threads, smem, out, stream);
+    case 1: return launch(fps_kernel<1, true>, B, threads, smem, stream, xyz, N, npoint, out);
+    case 2: return launch(fps_kernel<2, true>, B, threads, smem, stream, xyz, N, npoint, out);
+    case 4: return launch(fps_kernel<4, true>, B, threads, smem, stream, xyz, N, npoint, out);
+    case 8: return launch(fps_kernel<8, true>, B, threads, smem, stream, xyz, N, npoint, out);
     case kStagedPPT:
-      return launch(fps_kernel<kStagedPPT, false>, xyz, B, N, npoint, threads, smem, out,
-                    stream);
+      return launch(fps_kernel<kStagedPPT, false>, B, threads, smem, stream, xyz, N, npoint,
+                    out);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -113,11 +113,15 @@ _MORTON_CODES = _MORTON_CELLS ** 3
 # points), and the sets that one warp samples alone (no barrier).
 # `_FPS_PPT`: the points per thread where a set takes several warps (more
 # warps shorten a step's distance pass, fewer its reduction: 4 measured
-# best at 512-1722 points, PERF.md).
+# best at 512-1722 points, PERF.md). Sets past 16 N bytes of shared memory
+# take the wide kernel: `_FPS_WIDE_THREADS` threads, the running distances
+# in device memory; `_FPS_MAX_N`: its int offsets into a frame (3 N floats).
 _FPS_PPTS = (1, 2, 4, 8)
 _FPS_STAGED_PPT = 16
 _FPS_ONE_WARP = 32 * _FPS_PPTS[-1]
 _FPS_PPT = 4
+_FPS_WIDE_THREADS = 1024
+_FPS_MAX_N = (2 ** 31 - 1) // 3
 
 
 @functools.lru_cache(maxsize=64)
@@ -126,12 +130,18 @@ def _fps_plan(B: int, N: int, npoint: int) -> dict:
     thread owning `ppt` points (t, t + threads, ...), held in registers
     unless `staged` (read from the frame's planes each step); `far`: the
     kernel that orders the frame and skips warps far from a step's new
-    point (sets of 8 points a thread); `smem` dynamic bytes. Raises
-    ValueError where the parent kernel's limits did (1 <= npoint <= N,
-    16 * N <= SMEM_LIMIT)."""
-    if not 1 <= npoint <= N or 16 * N > _build.SMEM_LIMIT or B < 0:
-        raise ValueError(f"fps: B={B}, N={N}, npoint={npoint} (1 <= npoint <= N, "
-                         f"16 * N <= {_build.SMEM_LIMIT})")
+    point (sets of 8 points a thread); `wide`: sets past 16 N bytes of
+    shared memory, the kernel that reads the coordinates through L1/L2 each
+    step and keeps the running distances in a (B, N) scratch array in
+    device memory (`smem` 0); `smem` dynamic bytes. Any npoint >= 1 (past N the loop runs on: every distance 0, each
+    step takes index 0) and 1 <= N <= _FPS_MAX_N; raises ValueError for
+    the rest and for B < 0."""
+    if npoint < 1 or B < 0 or not 1 <= N <= _FPS_MAX_N:
+        raise ValueError(f"fps: B={B}, N={N}, npoint={npoint} (npoint >= 1, B >= 0, "
+                         f"1 <= N <= {_FPS_MAX_N})")
+    if 16 * N > _build.SMEM_LIMIT:
+        return dict(threads=_FPS_WIDE_THREADS, ppt=-(-N // _FPS_WIDE_THREADS), staged=False,
+                    far=False, wide=True, smem=0)
     staged = N > 32 * 32 * _FPS_PPTS[-1]
     if staged:
         ppt = _FPS_STAGED_PPT
@@ -143,7 +153,8 @@ def _fps_plan(B: int, N: int, npoint: int) -> dict:
     # sorted frame (float4) also holds the sort's counts (2 KB) at first
     far = not staged and ppt == _FPS_PPTS[-1] and N > 32 * 32 * _FPS_PPT
     smem = max(16 * N, 4 * _MORTON_CODES) if far else 12 * N
-    return dict(threads=32 * -(-N // (32 * ppt)), ppt=ppt, staged=staged, far=far, smem=smem)
+    return dict(threads=32 * -(-N // (32 * ppt)), ppt=ppt, staged=staged, far=far, wide=False,
+                smem=smem)
 
 
 def _fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -156,10 +167,13 @@ def _fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
     if B == 0:
         return out
+    # the wide kernel's running distances
+    scratch = torch.empty((B, N), dtype=torch.float32, device=dev) if plan["wide"] else None
     lib = _build.library()
     _build.launch_counts["fps"] += 1
     _build.check(lib.g4d_fps(xyz.data_ptr(), B, N, npoint, plan["threads"], plan["ppt"],
-                             int(plan["far"]), plan["smem"], out.data_ptr(),
+                             int(plan["far"]), int(plan["wide"]), plan["smem"],
+                             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
                              _build.stream_of(xyz)), "fps")
     return out
 
@@ -167,7 +181,9 @@ def _fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative furthest point sampling: xyz (B, N, 3) f32 -> (B, npoint)
     int32. Starts at index 0, running min-distance, argmax each step with
-    ties to the lowest index. Non-differentiable."""
+    ties to the lowest index; npoint may exceed N (the JAX package's rule:
+    once every point is taken, each further step takes index 0).
+    Non-differentiable."""
     xyz = xyz.detach()
     if use_kernel(xyz):
         return _fps_kernel(xyz.contiguous(), int(npoint))

@@ -38,7 +38,10 @@ radii, every instance the plan picks and bitmaps smaller than the frame;
 3-NN with three known points, all equal, a lattice of exact ties whose
 lower indices sit in later tiles, queries on (duplicated) known points,
 one query, fp1's shape at 2 and 200 frames, known points past the staged
-size and NaN known points and queries; the C entries refusing plans that
+size and NaN known points and queries; FPS with more centers than points
+in every instance (all points equal, each point twice, zero-padded garment
+frames) and on frames past shared memory (the wide kernel, its running
+distances in device memory); the C entries refusing plans that
 do not match them.
 Indices, masks, the 1-NN, the banded product and the scatter-add (against
 the CPU's ascending-order sum) must be bitwise equal; the fused chain, the GCN
@@ -82,8 +85,14 @@ def cloud(seed, B, N, dup=0, device="cuda"):
     return pts.to(device)
 
 
-@pytest.mark.parametrize("N,npoint", [(1, 1), (5, 5), (1000, 3), (2049, 512), (6890, 64)])
+@pytest.mark.parametrize("N,npoint", [(1, 1), (5, 5), (1000, 3), (2049, 512), (6890, 64),
+                                      (512, 1024), (128, 512), (384, 512), (5, 12),
+                                      (20000, 1024), (65536, 1024)])
 def test_fps(dev, N, npoint):
+    """Bitwise the plain version, also at the JAX package's shapes: more
+    centers than points (SA1 at 512 points, the garment encoder's 512 from
+    128 and 384) and sets past shared memory (the wide kernel, its running
+    distances in device memory)."""
     xyz = cloud(0, 3, N, dup=N // 4)
     got = pc._fps_kernel(xyz, npoint)
     torch.testing.assert_close(got, pc._fps_plain(xyz, npoint), rtol=0, atol=0)
@@ -95,29 +104,58 @@ def test_fps(dev, N, npoint):
     (2, 1722, 512, 4, False, False), (2, 4096, 300, 4, False, False),
     (2, 4097, 300, 8, False, True), (2, 8192, 100, 8, False, True),
     (2, 9000, 64, 16, True, False), (2, 14528, 16, 16, True, False),
-    (200, 6890, 64, 8, False, True)])
+    (200, 6890, 64, 8, False, True), (2, 14529, 64, 15, False, False),
+    (2, 300000, 8, 293, False, False)])
 def test_fps_plans(dev, B, N, npoint, ppt, staged, far):
     """Every instance the plan picks (one warp, several, 32 warps, the kernel
     that skips far warps from 4097 to 8192 points, the staged kernel up to
-    the largest set the kernel takes, more frames than SMs), bitwise the
-    plain version on clouds with duplicates."""
+    16 N bytes of shared memory, more frames than SMs, then the wide kernel
+    with its running distances in device memory), bitwise the plain version
+    on clouds with duplicates."""
     plan = pc._fps_plan(B, N, npoint)
     assert (plan["ppt"], plan["staged"], plan["far"]) == (ppt, staged, far)
+    assert plan["wide"] == (N > 14528) and (plan["smem"] == 0) == plan["wide"]
     xyz = cloud(22, B, N, dup=N // 3)
     torch.testing.assert_close(pc._fps_kernel(xyz, npoint), pc._fps_plain(xyz, npoint),
                                rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("case", ["padded", "far_padded", "all_equal", "far_equal", "one",
-                                  "grid", "far_grid", "nan", "far_nan"])
+                                  "grid", "far_grid", "nan", "far_nan", "equal_past_n",
+                                  "pairs_past_n", "far_pairs_past_n", "far_equal_past_n",
+                                  "staged_pairs_past_n", "wide_pairs_past_n", "wide_equal",
+                                  "wide_nan", "padded_past_n"])
 def test_fps_ties(dev, case):
     """Ties everywhere, to the lowest index: garment frames zero-padded by a
     quarter (as `select_garment_points` pads them), every point the same,
     one point, a lattice of equal distances, and a NaN point (a NaN running
     distance wins, as torch.argmax has it), at sizes of both register
-    kernels (`far`: past 4096 points); against the plain version on the
-    CPU."""
-    if case in ("padded", "far_padded"):
+    kernels (`far`: past 4096 points); then more centers than points, where
+    every running distance reaches 0 and each further step takes index 0
+    (all points equal, each point twice, the zero-padded garment frame),
+    in every instance (the far kernel's skipped warps keep keys of bits 0),
+    and the wide kernel's ties; against the plain version on the CPU."""
+    if case.endswith("pairs_past_n"):
+        n = {"pairs": 400, "far_pairs": 6000, "staged_pairs": 9000,
+             "wide_pairs": 16000}[case[:-len("_past_n")]]
+        xyz = cloud(27, 2, n)
+        xyz[:, n // 2:] = xyz[:, :n // 2]
+        npoint = 512 if n == 400 else n + 50
+    elif case == "equal_past_n":
+        xyz, npoint = torch.full((2, 300, 3), 0.5, device=dev), 1024
+    elif case == "far_equal_past_n":
+        xyz, npoint = torch.full((2, 5000, 3), 0.5, device=dev), 5100
+    elif case == "wide_equal":
+        xyz, npoint = torch.full((2, 60000, 3), 0.5, device=dev), 70
+    elif case == "wide_nan":
+        xyz = cloud(28, 2, 20000)
+        xyz[1, 12345, 0] = float("nan")
+        npoint = 50
+    elif case == "padded_past_n":
+        xyz = cloud(29, 80, 128)
+        xyz[:, -32:] = 0
+        npoint = 512
+    elif case in ("padded", "far_padded"):
         n = 1722 if case == "padded" else 6890
         xyz = cloud(23, 4, n)
         xyz[:, -n // 4:] = 0
@@ -653,18 +691,37 @@ def test_coverage_entry_refuses(dev, field, value):
     assert err != 0
 
 
-@pytest.mark.parametrize("N", [300, 6000])
+@pytest.mark.parametrize("N", [300, 6000, 20000])
 def test_fps_entry_refuses_short_smem(dev, N):
     """The C entry refuses a plan whose shared memory cannot hold the
-    frame's planes (and, in the far-skipping kernel, the sorted frame)."""
+    frame's planes (in the far-skipping kernel, the sorted frame), and the
+    wide kernel without its scratch array for the running distances."""
     from garment4d_tpu_torch.ops import _build
 
     xyz = cloud(32, 2, N)
     out = torch.empty((2, 8), dtype=torch.int32, device=dev)
     plan = pc._fps_plan(2, N, 8)
     err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, 8, plan["threads"], plan["ppt"],
-                                   int(plan["far"]), plan["smem"] - 4, out.data_ptr(),
-                                   _build.stream_of(xyz))
+                                   int(plan["far"]), int(plan["wide"]), plan["smem"] - 4, None,
+                                   out.data_ptr(), _build.stream_of(xyz))
+    assert err != 0
+
+
+@pytest.mark.parametrize("case", ["no_center", "empty_frame", "wide_small_frame"])
+def test_fps_entry_refuses_bad_plans(dev, case):
+    """The C entry refuses no center (its first index would be written past
+    the output), an empty frame, and the wide kernel on fewer points than
+    threads (each thread must own its first point)."""
+    from garment4d_tpu_torch.ops import _build
+
+    N, npoint, wide = {"no_center": (300, 0, 0), "empty_frame": (0, 4, 0),
+                       "wide_small_frame": (1000, 4, 1)}[case]
+    xyz = cloud(33, 2, max(N, 1))
+    out = torch.empty((2, max(npoint, 1)), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2, max(N, 1)), dtype=torch.float32, device=dev)
+    err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, npoint, 1024, 1, 0, wide,
+                                   4 * max(N, 1) * 4, scratch.data_ptr() if wide else None,
+                                   out.data_ptr(), _build.stream_of(xyz))
     assert err != 0
 
 

@@ -1364,7 +1364,7 @@ class TestKernelPlans:
         far = N == 6890
         for B in (80, 40, 200):
             plan = tops.pointcloud._fps_plan(B, N, npoint)
-            assert plan == dict(threads=threads, ppt=ppt, staged=False, far=far,
+            assert plan == dict(threads=threads, ppt=ppt, staged=False, far=far, wide=False,
                                 smem=(16 if far else 12) * N)
 
     @pytest.mark.parametrize("N,ppt,threads,staged,far", [
@@ -1382,23 +1382,56 @@ class TestKernelPlans:
             ppt, threads, staged, far)
 
     def test_fps_plan_takes_every_n_the_parent_took(self):
-        """Every N with 16 N <= SMEM_LIMIT, at npoint 1 and N: a block of at
-        most 1024 threads, a multiple of 32, covering the set with a kernel
-        instance, and its dynamic shared memory beside the static (the
-        slots, and for the far kernel the boxes and the sort's partials) in
-        a block's shared memory."""
-        for N in range(1, _build.SMEM_LIMIT // 16 + 1):
-            for npoint in (1, N):
-                plan = tops.pointcloud._fps_plan(2, N, npoint)
+        """Every N with 16 N <= SMEM_LIMIT, at npoint 1 and N, and sampled N
+        past it up to 2^20 (the wide kernel) at npoint 1, N and above N: a
+        block of at most 1024 threads, a multiple of 32, covering the set
+        with a kernel instance, and its dynamic shared memory beside the
+        static (the slots, and for the far kernel the boxes and the sort's
+        partials) in a block's shared memory; the wide kernel's threads
+        each own a point, its running distances in device memory (no
+        dynamic shared memory). npoint above N takes the same plan as
+        npoint N."""
+        pc = tops.pointcloud
+        static = {"far": 2336}
+        staged_n = _build.SMEM_LIMIT // 16
+        wide_n = np.random.RandomState(19).randint(staged_n + 1, 2 ** 20 + 1, size=300)
+        for N in [*range(1, staged_n + 1), *wide_n.tolist(), staged_n + 1, 2 ** 20]:
+            npoints = (1, N) if N <= staged_n else (1, N, N + 1, 3 * N)
+            for npoint in npoints:
+                plan = pc._fps_plan(2, N, npoint)
+                kind = "far" if plan["far"] else "wide" if plan["wide"] else None
                 assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
                 assert plan["threads"] * plan["ppt"] >= N
-                assert plan["ppt"] in (tops.pointcloud._FPS_PPTS
-                                       + (tops.pointcloud._FPS_STAGED_PPT,))
-                assert plan["smem"] + (2336 if plan["far"] else 512) <= _build.SMEM_LIMIT
+                assert plan["smem"] + static.get(kind, 512) <= _build.SMEM_LIMIT
+                assert plan["wide"] == (N > staged_n)
+                if plan["wide"]:
+                    assert plan["threads"] <= N and not plan["staged"] and plan["smem"] == 0
+                else:
+                    assert plan["ppt"] in pc._FPS_PPTS + (pc._FPS_STAGED_PPT,)
+            if N % 97 == 1 or N > staged_n:
+                assert pc._fps_plan(2, N, N + 5) == pc._fps_plan(2, N, N)
 
-    @pytest.mark.parametrize("B,N,npoint", [(1, 10, 0), (1, 10, 11),
-                                            (1, _build.SMEM_LIMIT // 16 + 1, 5), (-1, 10, 5)])
+    @pytest.mark.parametrize("B,N,npoint,plan", [
+        (1, 10, 11, (32, 1, False, 120)), (80, 512, 1024, (128, 4, False, 12 * 512)),
+        (80, 128, 512, (32, 4, False, 12 * 128)), (4, 5, 12, (32, 1, False, 60)),
+        (1, _build.SMEM_LIMIT // 16 + 1, 5, (1024, 15, True, 0)),
+        (10, 20000, 1024, (1024, 20, True, 0)), (1, 2 ** 20, 2 ** 20 + 1, (1024, 1024, True, 0)),
+        (10, 65536, 1024, (1024, 64, True, 0)), (0, 2 ** 20, 3, (1024, 1024, True, 0))])
+    def test_fps_plan_accepts(self, B, N, npoint, plan):
+        """What the parent kernel refused: more centers than points (the
+        JAX package's SA1 and garment encoder at npoints 512 and 1536; the
+        loop runs on) and sets past 16 N bytes of shared memory (the wide
+        kernel: 1024 threads, the running distances in device memory, smem
+        0)."""
+        got = tops.pointcloud._fps_plan(B, N, npoint)
+        assert (got["threads"], got["ppt"], got["wide"], got["smem"]) == plan
+        assert not got["far"] and not got["staged"]
+
+    @pytest.mark.parametrize("B,N,npoint", [(1, 10, 0), (-1, 10, 5), (1, 0, 5),
+                                            (1, (2 ** 31 - 1) // 3 + 1, 5)])
     def test_fps_plan_refuses(self, B, N, npoint):
+        """No center, a negative batch, an empty frame (the plain version has
+        no argmax there), and a frame past the kernel's int offsets."""
         with pytest.raises(ValueError, match="fps"):
             tops.pointcloud._fps_plan(B, N, npoint)
 
