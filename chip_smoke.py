@@ -360,11 +360,14 @@ then:
    finite losses, the kernels launched;
 17. the JAX package's own shapes: the FPS kernel at more centers than
    points ((80, 512) -> 1024, (80, 128) -> 512, (80, 384) -> 512, (4, 5)
-   -> 12, an all-equal (2, 300) -> 1024, a frame of pairwise duplicates)
-   and past shared memory ((10, 20000) and (10, 65536) -> 1024, the wide
-   kernel), each raising the `fps` counter by one, bitwise its plain
-   version and timed beside its bound; `canonical` / `segment` on one
-   sequence (B=1, T=10) of 512, 1536 and 20000 points, counted, every
+   -> 12, an all-equal (2, 300) -> 1024, a frame of pairwise duplicates),
+   past one block's registers ((10, 20000), (10, 65536), (200, 20000),
+   (10, 9000), (80, 14528) and pairs straddling blocks (10, 20000) -> 1024,
+   the cluster kernel at the sizes its plan picks) and past the largest
+   cluster ((2, 300000) -> 64, the wide kernel), each raising the `fps`
+   counter by one, bitwise its plain version and timed beside its bound;
+   `canonical` / `segment` on one sequence (B=1, T=10) of 512, 1536 and
+   20000 points (at 20000 profiled: device ms, FPS's share), counted, every
    FPS, flat-query and 3-NN case bitwise and timed, every gather bitwise,
    every chain within rtol 1e-4 / atol 1e-5, the labels bitwise the
    card's plain path's (a near tie, within twice the paths' largest logit
@@ -386,6 +389,7 @@ it does when no CUDA device is visible or when the repo is not beside it.
 
     python3 chip_smoke.py --time-kernels [ROOT]
     python3 chip_smoke.py --ab PARENT
+    python3 chip_smoke.py --fps-clusters
 
 `--time-kernels` times, for the package in the checkout at ROOT (default:
 this one), the posed forward (phase 4's shape and weights; frames/s,
@@ -406,8 +410,9 @@ each of its six shapes and its dtable half, and the scatter-add at each of
 its 12 shapes beside one `index_add_`, on inputs recorded from the steps;
 each coverage launch of the posed forward and each distinct FPS, flat
 ball-query and 3-NN case of the posed forward and both train steps (FPS
-also at phase 17's frames past shared memory; 3-NN
-beside `torch.cdist` and a top-3), their sums over the posed forward;
+also at phase 17's frames past one block's registers, 8192 points, and
+phase 17's `canonical` at 20000 points profiled: its device ms and FPS's;
+3-NN beside `torch.cdist` and a top-3), their sums over the posed forward;
 each distinct 1-NN case of the posed train step and the canonical train
 and eval steps beside `cdist_min`, their sum over the
 posed train step (`nn1_ms_sum`, `nn1_bound_ms_sum`) and the 1-NN
@@ -424,11 +429,15 @@ this one in turns, parent, change, change, parent, so that two checkouts
 are compared in one run on one card, and prints the means (per shape: ms
 and the float64 difference of both, and this checkout's bounds) and both
 builds' ptxas lines.
+`--fps-clusters` runs the cluster FPS kernel on FPS_CLUSTER_SWEEP's frames
+on clusters of 4 and of 8 blocks (bitwise the plain version, ms, us a
+step, the size `_fps_plan` picks): the measurement behind the plan's rule.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import math
@@ -870,7 +879,7 @@ def coverage_launches(calls):
 def fps_work(xyz, npoint, idx) -> tuple:
     """(distance updates, box tests) that the FPS kernel needs on this data,
     given its output `idx` (B, npoint), npoint above N included: every
-    point each step (the register, staged and wide instances), but in the
+    point each step (the register, cluster and wide instances), but in the
     kernel that skips far warps (`_fps_plan`'s `far`), where each warp's run
     of 32 x ppt points along the frame's curve (`curve_order`) takes a box
     test a step after the first and is updated only where the bound from
@@ -880,7 +889,7 @@ def fps_work(xyz, npoint, idx) -> tuple:
 
     Bf, Nf, _ = xyz.shape
     steps = npoint - 1
-    plan = pc._fps_plan(Bf, Nf, npoint)
+    plan = pc._fps_plan(Bf, Nf, npoint, 1)  # `far` depends on N alone, not on the SMs
     if not plan["far"] or steps == 0:
         return Bf * Nf * steps, 0
     run = 32 * plan["ppt"]
@@ -5208,11 +5217,21 @@ def flags_phase(assets, body, weights, pcd, body_in, root: Path, tree: dict,
 # FPS cases (kind, frames, points, centers): more centers than points (SA1 at
 # npoints 512; the garment encoder's 512 from the 128 and 384 points its
 # selection keeps at npoints 512 and 1536), few points, every point equal,
-# each point twice (the copies at i + N // 2), and frames past shared memory
-# (the wide kernel)
+# each point twice (the copies at i + N // 2); then frames past one block's
+# registers (the cluster kernel): 20000 and 65536 points, the canonical
+# train step's 200 frames at a 20000-point scan (more frames than SMs),
+# 9000 and 14528 points, pairs straddling two blocks; and a frame past the
+# largest cluster (the wide kernel)
 JAX_FPS_CASES = (("random", 80, 512, 1024), ("random", 80, 128, 512), ("random", 80, 384, 512),
                  ("random", 4, 5, 12), ("all_equal", 2, 300, 1024), ("pairs", 80, 512, 1024),
-                 ("random", 10, 20000, 1024), ("random", 10, 65536, 1024))
+                 ("random", 10, 20000, 1024), ("random", 10, 65536, 1024),
+                 ("random", 200, 20000, 1024), ("random", 10, 9000, 1024),
+                 ("random", 80, 14528, 1024), ("pairs", 10, 20000, 1024),
+                 ("random", 2, 300000, 64))
+# the most points one FPS block holds in registers (`fps_kernel<8>`): larger
+# frames take the cluster kernel, in the parent checkout of an A/B the
+# staged or wide one
+FPS_ONE_BLOCK = 8192
 # points a frame of the canonical calls (B=1, T=10): SA1 and the garment
 # encoder past N, only the garment encoder past N, past shared memory; the
 # posed forward at the first
@@ -5235,7 +5254,12 @@ def fps_instance(plan: dict) -> str:
         return "wide, distances in device memory"
     if plan["far"]:
         return "far-skipping, 8 a thread"
-    return f"{'staged' if plan['staged'] else 'registers'}, {plan['ppt']} a thread"
+    form = f"{'staged' if plan['staged'] else 'registers'}, {plan['ppt']} a thread"
+    return f"cluster of {plan['cluster']}, {form}" if plan["cluster"] else form
+
+
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 @torch.inference_mode()
@@ -5262,7 +5286,7 @@ def jax_fps_cases(res: Results) -> list:
         launched = ops.launch_counts["fps"] - before
         require(launched == 1, f"fps {case}: {launched} kernel launches, 1 expected")
         require(torch.equal(got, pc._fps_plain(xyz, npoint)), f"fps {case}: differs from plain")
-        instance = fps_instance(pc._fps_plan(Bf, Nf, npoint))
+        instance = fps_instance(pc._fps_plan(Bf, Nf, npoint, sm_count()))
         res.record("fps", f"jax shapes {case}", 0, lambda: pc._fps_kernel(xyz, npoint),
                    lambda: pc._fps_plain(xyz, npoint), nbytes(xyz, got),
                    fps_ops(xyz, npoint, got), reps_k=10, reps_p=1, queued=True,
@@ -5357,6 +5381,12 @@ def jax_canonical(recon, assets, body, N: int, res: Results) -> dict:
     abs_errs = {k: max_abs(got[k], want[k]) for k in got}
     scales = {k: float(want[k].abs().max()) for k in got}
     garment = float((labels == assets.label).float().mean())
+    profiled = {}
+    if N > FPS_ONE_BLOCK:  # frames past one FPS block: the forward's device ms, FPS's share
+        rows, dev_ms = profile_device(lambda: recon.canonical(pcd), runs=2)
+        profiled = dict(device_ms=dev_ms, fps_device_ms=device_ms_of(rows, AB_KERNEL_NAMES["fps"]))
+        print(f"{label}: canonical device ms {dev_ms:.4f}, FPS {profiled['fps_device_ms']:.4f} "
+              f"({profiled['fps_device_ms'] / dev_ms:.3f})", flush=True)
     print(f"{label}: FPS {fps_shapes}, {chains} chain and {gathers} gather launches held; "
           f"garment label share {garment:.4f}; against the card's plain path on the same "
           f"labels (error over max(1, scale)): {errs}; absolute: {abs_errs}; scale: {scales}",
@@ -5366,7 +5396,7 @@ def jax_canonical(recon, assets, body, N: int, res: Results) -> dict:
         require(bool(torch.isfinite(got[k]).all()), f"{label} {k}: not finite")
     return dict(launches=launches, fps=fps_shapes, label_flips=flips, scaled_err=errs,
                 abs_err=abs_errs, scale=scales, garment_share=garment, chain_launches=chains,
-                gather_launches=gathers)
+                gather_launches=gathers, **profiled)
 
 
 @torch.inference_mode()
@@ -5518,7 +5548,8 @@ def counted(label, fn, names):
 # the grouped ball query (the flat query's 3-radius instance in the earlier
 # design, its own kernel since), the flat ball query, FPS (one kernel in
 # the earlier design; the register kernel and the kernel that skips far
-# warps since), the coverage mask, the 1-NN (one scan kernel in the earlier
+# warps since, the wide kernel for large frames, then the cluster kernel),
+# the coverage mask, the 1-NN (one scan kernel in the earlier
 # design; its pre-pass and query kernel since), the row gather, the banded
 # product
 AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
@@ -5532,7 +5563,8 @@ AB_KERNEL_NAMES = {"pe_bwd": ("pe_bwd",),
                                   "ball_query_flat_kernel", "ball_query_lane_kernel",
                                   "flat_sort_kernel"),
                    "three_nn": ("three_nn_kernel", "three_nn_sort_kernel"),
-                   "fps": ("fps_kernel", "fps_far_kernel"),
+                   "fps": ("fps_kernel", "fps_far_kernel", "fps_cluster_kernel",
+                           "fps_wide_kernel"),
                    "coverage": ("coverage_kernel",),
                    "nn1": ("nn1_kernel", "nn1_nearest_kernel", "nn1_sort_kernel"),
                    "gather_rows": ("gather_rows_kernel",),
@@ -5782,6 +5814,67 @@ def time_coverage(ccalls, bounds: bool) -> list:
     return out
 
 
+# (frames, points) of `--fps-clusters`: phase 17's frames past one block's
+# registers, 16 frames of 20000 points (128 blocks at 8 a frame), 80 frames
+# of 20000 and 65536 points (more blocks than SMs at every size) and the
+# largest frame a cluster holds
+FPS_CLUSTER_SWEEP = ((10, 9000), (80, 9000), (10, 14528), (80, 14528), (10, 20000),
+                     (16, 20000), (80, 20000), (200, 20000), (10, 65536), (80, 65536),
+                     (2, 131072))
+
+
+def fps_launch(xyz, npoint: int, plan: dict, out):
+    """One launch of the FPS C entry on a one-block or cluster `plan` (no
+    scratch: not the wide kernel), uncounted; raises on its error."""
+    from garment4d_tpu_torch.ops import _build
+
+    Bf, Nf, _ = xyz.shape
+    _build.check(_build.library().g4d_fps(
+        xyz.data_ptr(), Bf, Nf, npoint, plan["threads"], plan["ppt"], int(plan["far"]), 0,
+        plan["cluster"], plan["smem"], None, out.data_ptr(), _build.stream_of(xyz)), "fps")
+    return out
+
+
+@torch.inference_mode()
+def fps_clusters() -> int:
+    """`--fps-clusters`: the cluster FPS kernel on FPS_CLUSTER_SWEEP's
+    frames (seeded clouds, 1024 centers) at each cluster size of the
+    kernel's set that holds them (`_fps_cluster_plan`, launched through the
+    C entry), each bitwise `_fps_plain` and timed (`kernel_ms`), beside the
+    size `_fps_plan` picks; the ptxas lines of the FPS kernels; one JSON
+    line, then the card line."""
+    from garment4d_tpu_torch.ops import pointcloud as pc
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows, npoint = [], 1024
+    for Bf, Nf in FPS_CLUSTER_SWEEP:
+        xyz = torch.rand(Bf, Nf, 3, generator=gen, device="cuda")
+        want = pc._fps_plain(xyz, npoint)
+        picked = pc._fps_plan(Bf, Nf, npoint, sm_count())["cluster"]
+        for c in pc._FPS_CLUSTERS:
+            if -(-Nf // c) > pc._FPS_SLICE_STAGED:
+                continue
+            plan = pc._fps_cluster_plan(Nf, c)
+            out = torch.empty((Bf, npoint), dtype=torch.int32, device="cuda")
+            launch = functools.partial(fps_launch, xyz, npoint, plan, out)
+            require(torch.equal(launch(), want), f"fps ({Bf}, {Nf}) cluster {c}: differs from plain")
+            ms = kernel_ms(launch, 10)
+            rows.append(dict(case=f"({Bf}, {Nf}) -> {npoint}", cluster=c, picked=c == picked,
+                             slice=-(-Nf // c), blocks=Bf * c, threads=plan["threads"],
+                             ppt=plan["ppt"], staged=plan["staged"], ms=ms,
+                             us_a_step=1e3 * ms / (npoint - 1)))
+            print(json.dumps(rows[-1]), flush=True)
+        del xyz, want
+    for line in ptxas_lines(("fps_",)):
+        print(f"ptxas: {line}", flush=True)
+    print(json.dumps({"fps_clusters": rows}))
+    print(card)
+    return 0
+
+
 def time_kernels(root: Path) -> int:
     """The redesigned kernels and the paths that run them, for the package
     in the checkout at `root`: the posed forward (median of 10 after 2
@@ -5795,7 +5888,8 @@ def time_kernels(root: Path) -> int:
     in the canonical step beside one `index_add_`, on inputs recorded from
     the steps (CUDA events); each coverage launch of the posed forward
     (CUDA events) and each distinct FPS case of the posed forward and both
-    train steps and phase 17's frames past shared memory (`time_fps`), and
+    train steps and phase 17's frames past one block's registers
+    (`time_fps`), phase 17's `canonical` at 20000 points profiled, and
     the canonical train step's FPS device ms;
     each distinct 1-NN case of the posed train step and the canonical train
     and eval steps (`time_nn1`). One JSON line."""
@@ -5805,7 +5899,7 @@ def time_kernels(root: Path) -> int:
     from garment4d_tpu_torch.api import GarmentReconstructor
     from garment4d_tpu_torch.data.synthetic import make_batch
     from garment4d_tpu_torch.models import CanonicalGarmentModel, GarmentAssets, skinning
-    from garment4d_tpu_torch.ops import _build, pemax, pointcloud as pc
+    from garment4d_tpu_torch.ops import pemax, pointcloud as pc
     from garment4d_tpu_torch.smpl import synthetic_smpl
     from garment4d_tpu_torch.train import (load_npz_subtree, make_canonical_steps,
                                            make_posed_steps, make_state_for)
@@ -5855,15 +5949,27 @@ def time_kernels(root: Path) -> int:
     out.update(case_sums(out["three_nn"], "posed forward", "three_nn"))
     out["knn"] = [time_knn("posed forward", kcalls[0][0])]
     out["fps"] = time_fps("posed forward", fcalls, own)
-    # phase 17's frames past shared memory (the wide instance), on seeded clouds
+    # phase 17's frames past one block's registers (the cluster and wide
+    # instances; the staged or wide one in a parent checkout), on seeded clouds
     gen = torch.Generator(device="cuda").manual_seed(17)
-    wide = []
-    for _, Bf, Nf, npoint in JAX_FPS_CASES:
-        if 16 * Nf > _build.SMEM_LIMIT:
+    large = {}
+    for kind, Bf, Nf, npoint in JAX_FPS_CASES:
+        if Nf > FPS_ONE_BLOCK:
             xyz = torch.rand(Bf, Nf, 3, generator=gen, device="cuda")
-            wide.append(((xyz, npoint), {}, pc._fps_kernel(xyz, npoint)))
-    out["fps"] += time_fps("jax shapes", wide, own)
-    del wide
+            if kind == "pairs":
+                xyz[:, Nf // 2:] = xyz[:, :Nf // 2]
+            large.setdefault(kind, []).append(((xyz, npoint), {}, pc._fps_kernel(xyz, npoint)))
+    for kind, calls in large.items():
+        out["fps"] += time_fps(f"jax shapes {kind}", calls, own)
+    del large
+    # phase 17's `canonical` at the largest frame: device ms, FPS's share
+    pcd_l = make_batch(assets, body, batch_size=1, T=T, npoints=JAX_POINTS[-1],
+                       seed=JAX_POINTS[-1], device=dev)["pcd"]
+    rows, dev_ms = profile_device(lambda: recon.canonical(pcd_l), runs=2)
+    out.update({f"canonical_{JAX_POINTS[-1]}_device_ms": dev_ms,
+                f"canonical_{JAX_POINTS[-1]}_fps_device_ms": device_ms_of(
+                    rows, AB_KERNEL_NAMES["fps"])})
+    del pcd_l
     out["coverage"] = time_coverage(ccalls, own)
     out["coverage_ms_sum"] = sum(c["ms"] for c in out["coverage"])
     if own:
@@ -6001,7 +6107,8 @@ def ab(parent: Path) -> int:
     summary = {}
     for key in ("posed_frames_per_sec", "posed_device_ms", "chain_device_ms_per_forward",
                 "gcn_device_ms_per_forward", "chain_ms_sum", "gcn_ms_sum",
-                "canonical_device_ms", "posed_train_frames_per_sec",
+                "canonical_device_ms", f"canonical_{JAX_POINTS[-1]}_device_ms",
+                f"canonical_{JAX_POINTS[-1]}_fps_device_ms", "posed_train_frames_per_sec",
                 "posed_train_device_ms", "pe_bwd_device_ms_per_step",
                 "nn1_sort_device_ms_per_step",
                 "canonical_train_frames_per_sec", "canonical_train_device_ms",
@@ -6068,6 +6175,8 @@ def main() -> int:
         return time_kernels(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) > 2:
         return ab(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--fps-clusters"]:
+        return fps_clusters()
     if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) > 2:
         return dp_rank_main(Path(sys.argv[2]))
     from garment4d_tpu_torch import ops

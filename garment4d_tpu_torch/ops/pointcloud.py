@@ -108,62 +108,101 @@ def _fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 _MORTON_CELLS = 8
 _MORTON_CODES = _MORTON_CELLS ** 3
 
-# fps.cu: points per thread held in registers (template instances), the
-# instance that reads them from the staged frame (sets past 32 warps x 8
-# points), and the sets that one warp samples alone (no barrier).
-# `_FPS_PPT`: the points per thread where a set takes several warps (more
-# warps shorten a step's distance pass, fewer its reduction: 4 measured
-# best at 512-1722 points, PERF.md). Sets past 16 N bytes of shared memory
+# fps.cu: points per thread held in registers (template instances) and the
+# sets that one warp samples alone (no barrier). `_FPS_PPT`: the points per
+# thread where a set takes several warps (more warps shorten a step's
+# distance pass, fewer its reduction: 4 measured best at 512-1722 points,
+# PERF.md). Sets past one block's registers (`_FPS_ONE_BLOCK`) take the
+# cluster kernel, `_FPS_CLUSTERS` blocks a frame of at most
+# `_FPS_CLUSTER_THREADS` threads, each a slice of at most `_FPS_SLICE_REGS`
+# points in registers (`_FPS_CLUSTER_PPT` a thread) or `_FPS_SLICE_STAGED`
+# read from its planes (`_FPS_STAGED_PPT` a thread); `_FPS_MIN_SLICE`: the
+# least slice for which more blocks than SMs pay (measured with
+# `chip_smoke.py --fps-clusters`, PERF.md). Sets past the largest cluster
 # take the wide kernel: `_FPS_WIDE_THREADS` threads, the running distances
 # in device memory; `_FPS_MAX_N`: its int offsets into a frame (3 N floats).
 _FPS_PPTS = (1, 2, 4, 8)
-_FPS_STAGED_PPT = 16
 _FPS_ONE_WARP = 32 * _FPS_PPTS[-1]
 _FPS_PPT = 4
+_FPS_ONE_BLOCK = 32 * 32 * _FPS_PPTS[-1]
+_FPS_CLUSTERS = (4, 8)
+_FPS_CLUSTER_THREADS = 512
+_FPS_CLUSTER_PPT = 16
+_FPS_STAGED_PPT = 32
+_FPS_SLICE_REGS = _FPS_CLUSTER_THREADS * _FPS_CLUSTER_PPT
+_FPS_SLICE_STAGED = _FPS_CLUSTER_THREADS * _FPS_STAGED_PPT
+_FPS_CLUSTER_MAX_N = _FPS_CLUSTERS[-1] * _FPS_SLICE_STAGED
+_FPS_MIN_SLICE = 1536
 _FPS_WIDE_THREADS = 1024
 _FPS_MAX_N = (2 ** 31 - 1) // 3
 
 
+def _fps_cluster_plan(N: int, cluster: int) -> dict:
+    """The cluster kernel's plan for frames of N points on clusters of
+    `cluster` blocks: a slice of S = ceil(N / cluster) points a block,
+    `_FPS_CLUSTER_PPT` a thread in registers up to `_FPS_SLICE_REGS`
+    points, else `_FPS_STAGED_PPT` read from the planes (`staged`); the
+    planes take 12 S bytes."""
+    if cluster not in _FPS_CLUSTERS or N <= _FPS_ONE_BLOCK or \
+            -(-N // cluster) > _FPS_SLICE_STAGED:
+        raise ValueError(f"fps: no cluster of {cluster} blocks holds N={N} points "
+                         f"({_FPS_ONE_BLOCK} < N, a slice of at most {_FPS_SLICE_STAGED})")
+    S = -(-N // cluster)
+    staged = S > _FPS_SLICE_REGS
+    ppt = _FPS_STAGED_PPT if staged else _FPS_CLUSTER_PPT
+    return dict(threads=32 * -(-S // (32 * ppt)), ppt=ppt, cluster=cluster, staged=staged,
+                far=False, wide=False, smem=12 * S)
+
+
 @functools.lru_cache(maxsize=64)
-def _fps_plan(B: int, N: int, npoint: int) -> dict:
-    """The FPS kernel's launch plan: one block of `threads` per frame, each
-    thread owning `ppt` points (t, t + threads, ...), held in registers
-    unless `staged` (read from the frame's planes each step); `far`: the
-    kernel that orders the frame and skips warps far from a step's new
-    point (sets of 8 points a thread); `wide`: sets past 16 N bytes of
-    shared memory, the kernel that reads the coordinates through L1/L2 each
-    step and keeps the running distances in a (B, N) scratch array in
-    device memory (`smem` 0); `smem` dynamic bytes. Any npoint >= 1 (past N the loop runs on: every distance 0, each
-    step takes index 0) and 1 <= N <= _FPS_MAX_N; raises ValueError for
-    the rest and for B < 0."""
-    if npoint < 1 or B < 0 or not 1 <= N <= _FPS_MAX_N:
-        raise ValueError(f"fps: B={B}, N={N}, npoint={npoint} (npoint >= 1, B >= 0, "
-                         f"1 <= N <= {_FPS_MAX_N})")
-    if 16 * N > _build.SMEM_LIMIT:
-        return dict(threads=_FPS_WIDE_THREADS, ppt=-(-N // _FPS_WIDE_THREADS), staged=False,
-                    far=False, wide=True, smem=0)
-    staged = N > 32 * 32 * _FPS_PPTS[-1]
-    if staged:
-        ppt = _FPS_STAGED_PPT
-    elif N <= _FPS_ONE_WARP:
+def _fps_plan(B: int, N: int, npoint: int, sms: int) -> dict:
+    """The FPS kernel's launch plan on `sms` SMs. Frames of at most
+    `_FPS_ONE_BLOCK` points: one block of `threads` per frame, each thread
+    owning `ppt` points (t, t + threads, ...) in registers; `far`: the
+    kernel that orders the frame and skips warps far from a step's new point
+    (sets of 8 points a thread); `smem` dynamic bytes. Larger frames up to
+    `_FPS_CLUSTER_MAX_N`: the cluster kernel (`_fps_cluster_plan`;
+    `cluster` 0 for the one-block instances), on clusters of 8 blocks a
+    frame, unless B x 8 blocks exceed the SMs and a slice of 8 falls under
+    `_FPS_MIN_SLICE` points: then 4 (more blocks than SMs run several to an
+    SM or in waves, which pays only for slices worth their exchange). A
+    cluster of 4 holds every frame up to 65536 points and keeps slices of
+    at least 2049, so the rule never needs a smaller one. Past that, `wide`:
+    the kernel that reads the coordinates through L1/L2 each step and keeps
+    the running distances in a (B, N) scratch array in device memory (`smem`
+    0). Any npoint >= 1 (past N the loop runs on: every distance 0, each
+    step takes index 0) and 1 <= N <= _FPS_MAX_N; raises ValueError for the
+    rest, for B < 0 and sms < 1."""
+    if npoint < 1 or B < 0 or sms < 1 or not 1 <= N <= _FPS_MAX_N:
+        raise ValueError(f"fps: B={B}, N={N}, npoint={npoint}, sms={sms} (npoint >= 1, "
+                         f"B >= 0, sms >= 1, 1 <= N <= {_FPS_MAX_N})")
+    if N > _FPS_CLUSTER_MAX_N:
+        return dict(threads=_FPS_WIDE_THREADS, ppt=-(-N // _FPS_WIDE_THREADS), cluster=0,
+                    staged=False, far=False, wide=True, smem=0)
+    if N > _FPS_ONE_BLOCK:
+        small, large = _FPS_CLUSTERS
+        few = B * large > sms and -(-N // large) < _FPS_MIN_SLICE
+        return _fps_cluster_plan(N, small if few else large)
+    if N <= _FPS_ONE_WARP:
         ppt = next(p for p in _FPS_PPTS if 32 * p >= N)
     else:
         ppt = max(_FPS_PPT, next(p for p in _FPS_PPTS if 32 * 32 * p >= N))
     # sets of 8 points a thread take the kernel that skips far warps; its
     # sorted frame (float4) also holds the sort's counts (2 KB) at first
-    far = not staged and ppt == _FPS_PPTS[-1] and N > 32 * 32 * _FPS_PPT
+    far = ppt == _FPS_PPTS[-1] and N > 32 * 32 * _FPS_PPT
     smem = max(16 * N, 4 * _MORTON_CODES) if far else 12 * N
-    return dict(threads=32 * -(-N // (32 * ppt)), ppt=ppt, staged=staged, far=far, wide=False,
-                smem=smem)
+    return dict(threads=32 * -(-N // (32 * ppt)), ppt=ppt, cluster=0, staged=False, far=far,
+                wide=False, smem=smem)
 
 
 def _fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """The FPS kernel on the card."""
     dev = xyz.device
     _build.require(xyz, "xyz", torch.float32, 3, dev)
     B, N, C = xyz.shape
     if C != 3:
         raise ValueError(f"fps: xyz {tuple(xyz.shape)}, npoint {npoint}")
-    plan = _fps_plan(B, N, npoint)
+    plan = _fps_plan(B, N, npoint, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
     if B == 0:
         return out
@@ -172,7 +211,7 @@ def _fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     lib = _build.library()
     _build.launch_counts["fps"] += 1
     _build.check(lib.g4d_fps(xyz.data_ptr(), B, N, npoint, plan["threads"], plan["ppt"],
-                             int(plan["far"]), int(plan["wide"]), plan["smem"],
+                             int(plan["far"]), int(plan["wide"]), plan["cluster"], plan["smem"],
                              None if scratch is None else scratch.data_ptr(), out.data_ptr(),
                              _build.stream_of(xyz)), "fps")
     return out

@@ -126,7 +126,8 @@ PROFILED = {
     "ball_query_grouped": (("ball_query_grouped_kernel",), ("ball_query_grouped",), 1),
     "ball_query": (("ball_query_flat_kernel", "ball_query_lane_kernel", "flat_sort_kernel",
                     "ball_query_kernel<"), ("ball_query", "ball_query_sort"), 1),
-    "fps": (("fps_kernel", "fps_far_kernel"), ("fps",), 1),
+    "fps": (("fps_kernel", "fps_far_kernel", "fps_cluster_kernel", "fps_wide_kernel"),
+            ("fps",), 1),
     "coverage": (("coverage_kernel",), ("coverage",), 1),
     "three_nn": (("three_nn_kernel", "three_nn_sort_kernel"), ("three_nn", "three_nn_sort"), 1),
     "gather_rows": (("gather_rows_kernel",), ("gather_rows",), 1),

@@ -87,44 +87,71 @@ def cloud(seed, B, N, dup=0, device="cuda"):
 
 @pytest.mark.parametrize("N,npoint", [(1, 1), (5, 5), (1000, 3), (2049, 512), (6890, 64),
                                       (512, 1024), (128, 512), (384, 512), (5, 12),
-                                      (20000, 1024), (65536, 1024)])
+                                      (9000, 1024), (14528, 512), (20000, 1024),
+                                      (65536, 1024), (140000, 64)])
 def test_fps(dev, N, npoint):
     """Bitwise the plain version, also at the JAX package's shapes: more
     centers than points (SA1 at 512 points, the garment encoder's 512 from
-    128 and 384) and sets past shared memory (the wide kernel, its running
-    distances in device memory)."""
+    128 and 384), sets past one block's registers (the cluster kernel) and
+    past the largest cluster (the wide kernel, its running distances in
+    device memory)."""
     xyz = cloud(0, 3, N, dup=N // 4)
     got = pc._fps_kernel(xyz, npoint)
     torch.testing.assert_close(got, pc._fps_plain(xyz, npoint), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("B,N,npoint,ppt,staged,far", [
-    (2, 20, 20, 1, False, False), (2, 50, 7, 2, False, False), (2, 100, 33, 4, False, False),
-    (2, 256, 64, 8, False, False), (2, 1024, 256, 4, False, False),
-    (2, 1722, 512, 4, False, False), (2, 4096, 300, 4, False, False),
-    (2, 4097, 300, 8, False, True), (2, 8192, 100, 8, False, True),
-    (2, 9000, 64, 16, True, False), (2, 14528, 16, 16, True, False),
-    (200, 6890, 64, 8, False, True), (2, 14529, 64, 15, False, False),
-    (2, 300000, 8, 293, False, False)])
-def test_fps_plans(dev, B, N, npoint, ppt, staged, far):
-    """Every instance the plan picks (one warp, several, 32 warps, the kernel
-    that skips far warps from 4097 to 8192 points, the staged kernel up to
-    16 N bytes of shared memory, more frames than SMs, then the wide kernel
-    with its running distances in device memory), bitwise the plain version
-    on clouds with duplicates."""
-    plan = pc._fps_plan(B, N, npoint)
-    assert (plan["ppt"], plan["staged"], plan["far"]) == (ppt, staged, far)
-    assert plan["wide"] == (N > 14528) and (plan["smem"] == 0) == plan["wide"]
+# the cluster kernel's plans on 132 SMs (B, N, npoint, ppt, staged, far,
+# cluster): the largest cluster whose slice fits on chip and whose blocks
+# fit on the SMs at once (B x cluster <= 132) or keep _FPS_MIN_SLICE points
+# each; 16 points a thread in registers, 32 read from the planes past 8192
+FPS_CLUSTER_PLANS = [
+    (2, 9000, 64, 16, False, False, 8), (10, 9000, 256, 16, False, False, 8),
+    (80, 9000, 64, 16, False, False, 4), (200, 8193, 16, 16, False, False, 4),
+    (2, 14528, 16, 16, False, False, 8), (80, 14528, 64, 16, False, False, 8),
+    (2, 14529, 64, 16, False, False, 8), (10, 20000, 64, 16, False, False, 8),
+    (200, 20000, 32, 16, False, False, 8), (10, 65536, 64, 16, False, False, 8),
+    (2, 131072, 16, 32, True, False, 8)]
+
+
+@pytest.mark.parametrize("B,N,npoint,ppt,staged,far,cluster", [
+    (2, 20, 20, 1, False, False, 0), (2, 50, 7, 2, False, False, 0),
+    (2, 100, 33, 4, False, False, 0), (2, 256, 64, 8, False, False, 0),
+    (2, 1024, 256, 4, False, False, 0), (2, 1722, 512, 4, False, False, 0),
+    (2, 4096, 300, 4, False, False, 0), (2, 4097, 300, 8, False, True, 0),
+    (2, 8192, 100, 8, False, True, 0), (200, 6890, 64, 8, False, True, 0),
+    *FPS_CLUSTER_PLANS,
+    (2, 131073, 8, 129, False, False, 0), (2, 300000, 8, 293, False, False, 0)])
+def test_fps_plans(dev, B, N, npoint, ppt, staged, far, cluster):
+    """Every instance the plan picks on the H100's 132 SMs (one warp,
+    several, 32 warps, the kernel that skips far warps from 4097 to 8192
+    points, more frames than SMs; the cluster kernel at each size, in
+    registers and staged, in waves at 200 frames; then the wide kernel with
+    its running distances in device memory), bitwise the plain version on
+    clouds with duplicates."""
+    plan = pc._fps_plan(B, N, npoint, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (plan["ppt"], plan["staged"], plan["far"], plan["cluster"]) == (
+        ppt, staged, far, cluster)
+    assert plan["wide"] == (N > pc._FPS_CLUSTER_MAX_N) and (plan["smem"] == 0) == plan["wide"]
     xyz = cloud(22, B, N, dup=N // 3)
     torch.testing.assert_close(pc._fps_kernel(xyz, npoint), pc._fps_plain(xyz, npoint),
                                rtol=0, atol=0)
 
 
+# the cluster kernel's forms in the tie cases, each reached through the plan
+# on the H100's 132 SMs by its frames: (frames, cluster, staged, points of
+# the pairs and past-N frames, of the others)
+FPS_TIE_FORMS = {"4": (80, 4, False, 9000, 9001), "8": (10, 8, False, 9000, 9001),
+                 "8staged": (2, 8, True, 65538, 65539)}
+
+
 @pytest.mark.parametrize("case", ["padded", "far_padded", "all_equal", "far_equal", "one",
                                   "grid", "far_grid", "nan", "far_nan", "equal_past_n",
                                   "pairs_past_n", "far_pairs_past_n", "far_equal_past_n",
-                                  "staged_pairs_past_n", "wide_pairs_past_n", "wide_equal",
-                                  "wide_nan", "padded_past_n"])
+                                  "wide_pairs_past_n", "wide_equal", "wide_nan",
+                                  "padded_past_n",
+                                  *(f"cluster{form}_{kind}" for form in FPS_TIE_FORMS
+                                    for kind in ("pairs", "equal", "nan", "past_n",
+                                                 "padded"))])
 def test_fps_ties(dev, case):
     """Ties everywhere, to the lowest index: garment frames zero-padded by a
     quarter (as `select_garment_points` pads them), every point the same,
@@ -133,11 +160,52 @@ def test_fps_ties(dev, case):
     kernels (`far`: past 4096 points); then more centers than points, where
     every running distance reaches 0 and each further step takes index 0
     (all points equal, each point twice, the zero-padded garment frame),
-    in every instance (the far kernel's skipped warps keep keys of bits 0),
-    and the wide kernel's ties; against the plain version on the CPU."""
-    if case.endswith("pairs_past_n"):
-        n = {"pairs": 400, "far_pairs": 6000, "staged_pairs": 9000,
-             "wide_pairs": 16000}[case[:-len("_past_n")]]
+    in every instance (the far kernel's skipped warps keep keys of bits 0);
+    the wide kernel's ties on frames that no cluster holds (each point
+    twice past N, every point equal, a NaN); then the cluster kernel in
+    each form the plan picks (clusters of 4 and of 8 in registers, of 8
+    read from the planes): each point twice (at i and i + N / 2, in two
+    blocks), every point equal, a NaN in block 3's slice, more centers
+    than points (the pairs), a last slice that ends in padding slots.
+    Against the plain version on the CPU; the cluster and wide cases
+    against it on the card (the same torch ops, which the CPU would take
+    minutes over at these sizes)."""
+    ref_dev, sms = "cpu", torch.cuda.get_device_properties(dev).multi_processor_count
+    if case.startswith("cluster"):
+        form, kind = case[len("cluster"):].split("_", 1)
+        B, cluster, staged, n_pairs, n = FPS_TIE_FORMS[form]
+        if kind in ("pairs", "past_n"):
+            n = n_pairs
+        xyz, npoint = cloud(34, B, n), 512
+        if kind in ("pairs", "past_n"):
+            xyz[:, n // 2:] = xyz[:, :n // 2]
+            npoint = n + 50 if kind == "past_n" else 1024
+        elif kind == "equal":
+            xyz, npoint = torch.full((B, n, 3), 0.5, device=dev), 70
+        elif kind == "nan":
+            xyz[1, 3 * -(-n // cluster) + 7, 1] = float("nan")
+            npoint = 50
+        plan = pc._fps_plan(B, n, npoint, sms)
+        assert (plan["cluster"], plan["staged"]) == (cluster, staged)
+        assert plan["threads"] * plan["ppt"] > -(-n // cluster)  # padding slots in every block
+        ref_dev = dev
+    elif case.startswith("wide"):
+        if case == "wide_pairs_past_n":
+            n = pc._FPS_CLUSTER_MAX_N + 2
+            xyz = cloud(27, 1, n)
+            xyz[:, n // 2:] = xyz[:, :n // 2]
+            npoint = n + 50
+        elif case == "wide_equal":
+            xyz, npoint = torch.full((2, pc._FPS_CLUSTER_MAX_N + 1, 3), 0.5, device=dev), 70
+        else:
+            xyz = cloud(28, 2, 140000)
+            xyz[1, 123456, 0] = float("nan")
+            npoint = 50
+        B, n = xyz.shape[:2]
+        assert pc._fps_plan(B, n, npoint, sms)["wide"]
+        ref_dev = dev
+    elif case.endswith("pairs_past_n"):
+        n = {"pairs": 400, "far_pairs": 6000}[case[:-len("_past_n")]]
         xyz = cloud(27, 2, n)
         xyz[:, n // 2:] = xyz[:, :n // 2]
         npoint = 512 if n == 400 else n + 50
@@ -145,12 +213,6 @@ def test_fps_ties(dev, case):
         xyz, npoint = torch.full((2, 300, 3), 0.5, device=dev), 1024
     elif case == "far_equal_past_n":
         xyz, npoint = torch.full((2, 5000, 3), 0.5, device=dev), 5100
-    elif case == "wide_equal":
-        xyz, npoint = torch.full((2, 60000, 3), 0.5, device=dev), 70
-    elif case == "wide_nan":
-        xyz = cloud(28, 2, 20000)
-        xyz[1, 12345, 0] = float("nan")
-        npoint = 50
     elif case == "padded_past_n":
         xyz = cloud(29, 80, 128)
         xyz[:, -32:] = 0
@@ -183,7 +245,7 @@ def test_fps_ties(dev, case):
         xyz[0, 300, 1] = float("nan")
         npoint = 40
     torch.testing.assert_close(pc._fps_kernel(xyz.contiguous(), npoint).cpu(),
-                               pc._fps_plain(xyz.cpu(), npoint), rtol=0, atol=0)
+                               pc._fps_plain(xyz.to(ref_dev), npoint).cpu(), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("radii,ns", [
@@ -691,37 +753,50 @@ def test_coverage_entry_refuses(dev, field, value):
     assert err != 0
 
 
-@pytest.mark.parametrize("N", [300, 6000, 20000])
+@pytest.mark.parametrize("N", [300, 6000, 20000, 300000])
 def test_fps_entry_refuses_short_smem(dev, N):
     """The C entry refuses a plan whose shared memory cannot hold the
-    frame's planes (in the far-skipping kernel, the sorted frame), and the
-    wide kernel without its scratch array for the running distances."""
+    frame's planes (in the far-skipping kernel, the sorted frame; in the
+    cluster kernel, a block's slice), and the wide kernel without its
+    scratch array for the running distances."""
     from garment4d_tpu_torch.ops import _build
 
     xyz = cloud(32, 2, N)
     out = torch.empty((2, 8), dtype=torch.int32, device=dev)
-    plan = pc._fps_plan(2, N, 8)
+    plan = pc._fps_plan(2, N, 8, torch.cuda.get_device_properties(dev).multi_processor_count)
     err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, 8, plan["threads"], plan["ppt"],
-                                   int(plan["far"]), int(plan["wide"]), plan["smem"] - 4, None,
-                                   out.data_ptr(), _build.stream_of(xyz))
+                                   int(plan["far"]), int(plan["wide"]), plan["cluster"],
+                                   plan["smem"] - 4, None, out.data_ptr(), _build.stream_of(xyz))
     assert err != 0
 
 
-@pytest.mark.parametrize("case", ["no_center", "empty_frame", "wide_small_frame"])
+@pytest.mark.parametrize("case", ["no_center", "empty_frame", "wide_small_frame", "cluster_0",
+                                  "cluster_1", "cluster_2", "cluster_3", "cluster_32",
+                                  "oversized_slice", "cluster_small_frame"])
 def test_fps_entry_refuses_bad_plans(dev, case):
     """The C entry refuses no center (its first index would be written past
-    the output), an empty frame, and the wide kernel on fewer points than
-    threads (each thread must own its first point)."""
+    the output), an empty frame, the wide kernel on fewer points than
+    threads (each thread must own its first point); a frame past one
+    block's registers without a cluster, clusters of 1, 2, 3 and 32 blocks
+    (the kernel's sizes are 4 and 8), a slice past the staged form's 512
+    threads x 32 points, and a cluster on a frame that one block holds."""
     from garment4d_tpu_torch.ops import _build
 
-    N, npoint, wide = {"no_center": (300, 0, 0), "empty_frame": (0, 4, 0),
-                       "wide_small_frame": (1000, 4, 1)}[case]
+    N, npoint, threads, ppt, wide, cluster = {
+        "no_center": (300, 0, 1024, 1, 0, 0), "empty_frame": (0, 4, 1024, 1, 0, 0),
+        "wide_small_frame": (1000, 4, 1024, 1, 1, 0), "cluster_0": (9000, 4, 512, 32, 0, 0),
+        "cluster_1": (9000, 4, 512, 32, 0, 1), "cluster_2": (9000, 4, 288, 16, 0, 2),
+        "cluster_3": (9000, 4, 512, 16, 0, 3), "cluster_32": (9000, 4, 512, 16, 0, 32),
+        "oversized_slice": (70000, 4, 512, 32, 0, 4),
+        "cluster_small_frame": (8000, 4, 512, 16, 0, 4)}[case]
     xyz = cloud(33, 2, max(N, 1))
     out = torch.empty((2, max(npoint, 1)), dtype=torch.int32, device=dev)
     scratch = torch.empty((2, max(N, 1)), dtype=torch.float32, device=dev)
-    err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, npoint, 1024, 1, 0, wide,
-                                   4 * max(N, 1) * 4, scratch.data_ptr() if wide else None,
-                                   out.data_ptr(), _build.stream_of(xyz))
+    # a cluster's slice of planes, else room for any one-block frame
+    smem = 12 * -(-N // cluster) if cluster else 16 * max(N, 1)
+    err = _build.library().g4d_fps(xyz.data_ptr(), 2, N, npoint, threads, ppt, 0, wide, cluster,
+                                   smem, scratch.data_ptr() if wide else None, out.data_ptr(),
+                                   _build.stream_of(xyz))
     assert err != 0
 
 

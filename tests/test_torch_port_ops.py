@@ -1360,71 +1360,148 @@ class TestKernelPlans:
         """The five FPS launches of every path (sa1-sa3, garment_sa1-2):
         sa1 on 27 warps of 8 points a thread in the kernel that skips far
         warps (its sorted frame 16 N bytes), sa3 on one warp (no barrier),
-        the others on 4 points a thread; all in registers."""
+        the others on 4 points a thread; all in registers, one block a
+        frame, whatever the SM count."""
         far = N == 6890
         for B in (80, 40, 200):
-            plan = tops.pointcloud._fps_plan(B, N, npoint)
-            assert plan == dict(threads=threads, ppt=ppt, staged=False, far=far, wide=False,
-                                smem=(16 if far else 12) * N)
+            for sms in (132, 16):
+                plan = tops.pointcloud._fps_plan(B, N, npoint, sms)
+                assert plan == dict(threads=threads, ppt=ppt, cluster=0, staged=False, far=far,
+                                    wide=False, smem=(16 if far else 12) * N)
 
-    @pytest.mark.parametrize("N,ppt,threads,staged,far", [
-        (1, 1, 32, False, False), (33, 2, 32, False, False), (100, 4, 32, False, False),
-        (256, 8, 32, False, False), (257, 4, 96, False, False), (4096, 4, 1024, False, False),
-        (4097, 8, 544, False, True), (8192, 8, 1024, False, True),
-        (8193, 16, 544, True, False), (14528, 16, 928, True, False)])
-    def test_fps_plan_edges(self, N, ppt, threads, staged, far):
+    @pytest.mark.parametrize("N,ppt,threads,staged,far,cluster", [
+        (1, 1, 32, False, False, 0), (33, 2, 32, False, False, 0),
+        (100, 4, 32, False, False, 0), (256, 8, 32, False, False, 0),
+        (257, 4, 96, False, False, 0), (4096, 4, 1024, False, False, 0),
+        (4097, 8, 544, False, True, 0), (8192, 8, 1024, False, True, 0),
+        (8193, 16, 96, False, False, 8), (14528, 16, 128, False, False, 8)])
+    def test_fps_plan_edges(self, N, ppt, threads, staged, far, cluster):
         """One warp up to 256 points, 4 points a thread up to 32 warps, then 8
-        in the kernel that skips far warps, then the staged instance of 16
-        up to the largest set (16 N bytes in shared memory, the parent
-        kernel's limit)."""
-        plan = tops.pointcloud._fps_plan(3, N, N)
-        assert (plan["ppt"], plan["threads"], plan["staged"], plan["far"]) == (
-            ppt, threads, staged, far)
+        in the kernel that skips far warps up to 8192; past that the cluster
+        kernel, here 8 blocks a frame (3 frames on 132 SMs) of 16 points a
+        thread in registers, where the parent's staged instance of 16 points
+        a thread read from shared memory served up to 14528 points."""
+        plan = tops.pointcloud._fps_plan(3, N, N, 132)
+        assert (plan["ppt"], plan["threads"], plan["staged"], plan["far"], plan["cluster"]) == (
+            ppt, threads, staged, far, cluster)
 
     def test_fps_plan_takes_every_n_the_parent_took(self):
-        """Every N with 16 N <= SMEM_LIMIT, at npoint 1 and N, and sampled N
-        past it up to 2^20 (the wide kernel) at npoint 1, N and above N: a
-        block of at most 1024 threads, a multiple of 32, covering the set
-        with a kernel instance, and its dynamic shared memory beside the
-        static (the slots, and for the far kernel the boxes and the sort's
-        partials) in a block's shared memory; the wide kernel's threads
-        each own a point, its running distances in device memory (no
-        dynamic shared memory). npoint above N takes the same plan as
-        npoint N."""
+        """Every N up to the parent's staged size (16 N <= SMEM_LIMIT), at
+        npoint 1 and N, and sampled N past it up to 2^20 at npoint 1, N and
+        above N, on 132 SMs: a block of at most 1024 threads, a multiple of
+        32, covering the set (the cluster kernel: at most 512 threads, each
+        block a slice, every block owning a point) with a kernel instance,
+        and its dynamic shared memory beside the static (the slots, for the
+        far kernel the boxes and the sort's partials, for the cluster
+        kernel its key slots and mbarriers) in a block's shared memory; the
+        wide kernel past the largest cluster, its threads each owning a
+        point, its running distances in device memory (no dynamic shared
+        memory). npoint above N takes the same plan as npoint N."""
         pc = tops.pointcloud
-        static = {"far": 2336}
+        static = {"far": 2336, "cluster": 656}
         staged_n = _build.SMEM_LIMIT // 16
         wide_n = np.random.RandomState(19).randint(staged_n + 1, 2 ** 20 + 1, size=300)
-        for N in [*range(1, staged_n + 1), *wide_n.tolist(), staged_n + 1, 2 ** 20]:
+        edges = [staged_n + 1, pc._FPS_CLUSTER_MAX_N, pc._FPS_CLUSTER_MAX_N + 1, 2 ** 20]
+        for N in [*range(1, staged_n + 1), *wide_n.tolist(), *edges]:
             npoints = (1, N) if N <= staged_n else (1, N, N + 1, 3 * N)
             for npoint in npoints:
-                plan = pc._fps_plan(2, N, npoint)
-                kind = "far" if plan["far"] else "wide" if plan["wide"] else None
+                plan = pc._fps_plan(2, N, npoint, 132)
+                kind = ("far" if plan["far"] else "wide" if plan["wide"] else
+                        "cluster" if plan["cluster"] else None)
                 assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
-                assert plan["threads"] * plan["ppt"] >= N
                 assert plan["smem"] + static.get(kind, 512) <= _build.SMEM_LIMIT
-                assert plan["wide"] == (N > staged_n)
+                assert plan["wide"] == (N > pc._FPS_CLUSTER_MAX_N)
+                assert bool(plan["cluster"]) == (pc._FPS_ONE_BLOCK < N <= pc._FPS_CLUSTER_MAX_N)
                 if plan["wide"]:
                     assert plan["threads"] <= N and not plan["staged"] and plan["smem"] == 0
+                    assert plan["threads"] * plan["ppt"] >= N
+                elif plan["cluster"]:
+                    S = -(-N // plan["cluster"])
+                    assert plan["threads"] <= pc._FPS_CLUSTER_THREADS
+                    assert plan["threads"] * plan["ppt"] >= S and (plan["cluster"] - 1) * S < N
+                    assert plan["ppt"] == (pc._FPS_STAGED_PPT if plan["staged"]
+                                           else pc._FPS_CLUSTER_PPT)
                 else:
-                    assert plan["ppt"] in pc._FPS_PPTS + (pc._FPS_STAGED_PPT,)
+                    assert plan["threads"] * plan["ppt"] >= N
+                    assert plan["ppt"] in pc._FPS_PPTS and not plan["staged"]
             if N % 97 == 1 or N > staged_n:
-                assert pc._fps_plan(2, N, N + 5) == pc._fps_plan(2, N, N)
+                assert pc._fps_plan(2, N, N + 5, 132) == pc._fps_plan(2, N, N, 132)
+
+    @pytest.mark.parametrize("sms", [132, 16])
+    @pytest.mark.parametrize("B", [1, 10, 80, 200])
+    def test_fps_cluster_rule(self, B, sms):
+        """The cluster kernel's size on `sms` SMs for B frames: 8 blocks a
+        frame, unless B x 8 exceeds the SMs and a slice of 8 falls under
+        _FPS_MIN_SLICE points, then 4; so a cluster of the kernel's set
+        whose slice fits its on-chip form (16 points a thread in registers
+        up to 8192, 32 read from the planes up to 16384, 12 bytes a point
+        of planes), B x cluster within the SMs unless each block keeps at
+        least _FPS_MIN_SLICE points, and no larger cluster of the set
+        meeting both. Frames of at most 8192 points keep the one-block
+        plans on any SM count, and npoint above N takes the plan of npoint
+        N."""
+        pc = tops.pointcloud
+        sizes = [*range(pc._FPS_ONE_BLOCK + 1, pc._FPS_CLUSTER_MAX_N + 1, 977),
+                 pc._FPS_ONE_BLOCK + 1, 2 * pc._FPS_SLICE_REGS, 2 * pc._FPS_SLICE_REGS + 1,
+                 4 * pc._FPS_SLICE_STAGED, 4 * pc._FPS_SLICE_STAGED + 1, pc._FPS_CLUSTER_MAX_N]
+
+        def fits(N, c):
+            return -(-N // c) <= pc._FPS_SLICE_STAGED
+
+        def within(N, c):
+            return B * c <= sms or -(-N // c) >= pc._FPS_MIN_SLICE
+
+        for N in sizes:
+            plan = pc._fps_plan(B, N, 1024, sms)
+            c, S = plan["cluster"], -(-N // plan["cluster"])
+            assert c == (4 if B * 8 > sms and -(-N // 8) < pc._FPS_MIN_SLICE else 8)
+            assert c in pc._FPS_CLUSTERS and fits(N, c) and within(N, c)
+            assert not any(fits(N, d) and within(N, d) for d in pc._FPS_CLUSTERS if d > c)
+            regs = S <= pc._FPS_SLICE_REGS
+            assert plan == dict(
+                threads=32 * -(-S // (32 * plan["ppt"])),
+                ppt=pc._FPS_CLUSTER_PPT if regs else pc._FPS_STAGED_PPT, cluster=c,
+                staged=not regs, far=False, wide=False, smem=12 * S)
+            assert plan["threads"] <= pc._FPS_CLUSTER_THREADS
+            assert pc._fps_plan(B, N, N + 3, sms) == pc._fps_plan(B, N, N, sms)
+        for N in (1, 100, 257, 4096, 6890, pc._FPS_ONE_BLOCK):
+            plan = pc._fps_plan(B, N, 512, sms)
+            assert plan["cluster"] == 0 and plan == pc._fps_plan(B, N, 512, 1)
+            assert pc._fps_plan(B, N, N + 3, sms) == pc._fps_plan(B, N, N, sms)
+
+    @pytest.mark.parametrize("N,cluster,sms", [(8192, 4, 132), (9000, 1, 132), (9000, 2, 132),
+                                               (9000, 3, 132), (9000, 16, 132),
+                                               (70000, 4, 132), (131073, 8, 132),
+                                               (9000, None, 0)])
+    def test_fps_plan_refuses_a_cluster(self, N, cluster, sms):
+        """A cluster plan of a size outside the kernel's set (4 and 8), on
+        a frame that one block holds, or whose slice is past the staged
+        form; a plan on no SM."""
+        pc = tops.pointcloud
+        with pytest.raises(ValueError, match="fps"):
+            if cluster is None:
+                pc._fps_plan(2, N, 64, sms)
+            else:
+                pc._fps_cluster_plan(N, cluster)
 
     @pytest.mark.parametrize("B,N,npoint,plan", [
-        (1, 10, 11, (32, 1, False, 120)), (80, 512, 1024, (128, 4, False, 12 * 512)),
-        (80, 128, 512, (32, 4, False, 12 * 128)), (4, 5, 12, (32, 1, False, 60)),
-        (1, _build.SMEM_LIMIT // 16 + 1, 5, (1024, 15, True, 0)),
-        (10, 20000, 1024, (1024, 20, True, 0)), (1, 2 ** 20, 2 ** 20 + 1, (1024, 1024, True, 0)),
-        (10, 65536, 1024, (1024, 64, True, 0)), (0, 2 ** 20, 3, (1024, 1024, True, 0))])
+        (1, 10, 11, (32, 1, 0, False, 120)), (80, 512, 1024, (128, 4, 0, False, 12 * 512)),
+        (80, 128, 512, (32, 4, 0, False, 12 * 128)), (4, 5, 12, (32, 1, 0, False, 60)),
+        (1, _build.SMEM_LIMIT // 16 + 1, 5, (128, 16, 8, False, 12 * 1817)),
+        (10, 20000, 1024, (160, 16, 8, False, 12 * 2500)),
+        (1, 2 ** 20, 2 ** 20 + 1, (1024, 1024, 0, True, 0)),
+        (10, 65536, 1024, (512, 16, 8, False, 12 * 8192)),
+        (0, 2 ** 20, 3, (1024, 1024, 0, True, 0))])
     def test_fps_plan_accepts(self, B, N, npoint, plan):
         """What the parent kernel refused: more centers than points (the
         JAX package's SA1 and garment encoder at npoints 512 and 1536; the
-        loop runs on) and sets past 16 N bytes of shared memory (the wide
-        kernel: 1024 threads, the running distances in device memory, smem
-        0)."""
-        got = tops.pointcloud._fps_plan(B, N, npoint)
-        assert (got["threads"], got["ppt"], got["wide"], got["smem"]) == plan
+        loop runs on) and sets past 16 N bytes of shared memory: the cluster
+        kernel on 132 SMs (8 blocks a frame, a slice of 16 points a thread
+        in registers, 12 bytes a point of planes), and past the largest
+        cluster the wide kernel (1024 threads, the running distances in
+        device memory, smem 0)."""
+        got = tops.pointcloud._fps_plan(B, N, npoint, 132)
+        assert (got["threads"], got["ppt"], got["cluster"], got["wide"], got["smem"]) == plan
         assert not got["far"] and not got["staged"]
 
     @pytest.mark.parametrize("B,N,npoint", [(1, 10, 0), (-1, 10, 5), (1, 0, 5),
@@ -1433,7 +1510,7 @@ class TestKernelPlans:
         """No center, a negative batch, an empty frame (the plain version has
         no argmax there), and a frame past the kernel's int offsets."""
         with pytest.raises(ValueError, match="fps"):
-            tops.pointcloud._fps_plan(B, N, npoint)
+            tops.pointcloud._fps_plan(B, N, npoint, 132)
 
     # the flat query's cases: (N, M, R) of the posed forward / train step
     # (80 / 40 frames) and the canonical train step (200 frames, one radius
@@ -1614,7 +1691,7 @@ class TestWorkModels:
         from chip_smoke import fps_work
 
         xyz = _t(_cloud(rng, 2, N))
-        assert tops.pointcloud._fps_plan(2, N, npoint)["far"] == far
+        assert tops.pointcloud._fps_plan(2, N, npoint, 132)["far"] == far
         idx = tops.pointcloud._fps_plain(xyz, npoint)
         updates, boxes = fps_work(xyz, npoint, idx)
         if not far:
